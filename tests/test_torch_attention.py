@@ -1,0 +1,203 @@
+"""The port's attention (virtex_tpu_torch.ops.attention) against the JAX
+package's: ``xla_attention`` and the Pallas ``fused_attention`` in
+interpret mode, on the same numpy inputs, in float32 on the CPU.
+
+Every comparison is the per-element error |a − b| / (|ref| + atol) with
+its bound stated. Cases marked ``cuda`` hold kernel K1 against the plain
+version on the card and skip elsewhere (a CUDA kernel has no CPU mode).
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from virtex_tpu_torch.ops import attention as A
+
+B, Tq, Tk, N, D = 2, 8, 12, 4, 16
+# fp32 on the CPU: the two sides sum the D and Tk products in other orders
+# and take exp by other routines; measured |a − b| <= 5e-7 on outputs of
+# scale 1 (q, k, v ~ N(0, 1)). Bound: 1e-4 relative, with an absolute floor
+# of 1e-2 of that scale (so <= 1e-6 absolute near zero).
+TOL, ATOL = 1e-4, 1e-2
+
+
+def rel_err(a, ref, atol):
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    assert a.shape == ref.shape, (a.shape, ref.shape)
+    return float(np.max(np.abs(a - ref) / (np.abs(ref) + atol)))
+
+
+@pytest.fixture
+def jax_attn():
+    """The JAX package's attention. Imported here, not at the top: the
+    ``cuda`` cases below run on a machine without JAX."""
+    from virtex_tpu.ops import attention
+    return attention
+
+
+def _qkv(seed, tk=Tk):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, Tq, N, D).astype(np.float32),
+            rng.randn(B, tk, N, D).astype(np.float32),
+            rng.randn(B, tk, N, D).astype(np.float32))
+
+
+def _mask(kind, seed=0):
+    rng = np.random.RandomState(seed)
+    if kind == "none":
+        return None
+    if kind == "causal_pad":  # causal + key padding, lengths 8 and 5
+        lengths = np.array([Tq, 5])
+        key_ok = np.arange(Tq)[None, :] < lengths[:, None]
+        causal = np.tril(np.ones((Tq, Tq), bool))
+        return key_ok[:, None, None, :] & causal[None, None]
+    if kind == "per_head":  # (B, N, Tq, Tk), one key always kept per row
+        m = rng.rand(B, N, Tq, Tk) > 0.4
+        m[..., 0] = True
+        return m
+    raise ValueError(kind)
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    """Run the JAX package's Pallas kernel in interpret mode (CPU), as
+    tests/test_ops.py does."""
+    from jax.experimental import pallas as pl
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+
+
+def _torch(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def _port(q, k, v, mask):
+    return A.fused_attention(_torch(q), _torch(k), _torch(v),
+                             _torch(mask)).numpy()
+
+
+@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+def test_matches_jax_xla_attention(kind, jax_attn):
+    q, k, v = _qkv(1, Tq if kind == "causal_pad" else Tk)
+    mask = _mask(kind)
+    ref = jax_attn.xla_attention(q, k, v, mask)
+    assert rel_err(_port(q, k, v, mask), ref, ATOL) <= TOL
+
+
+@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+def test_matches_jax_pallas_kernel(kind, jax_attn, interpret_mode):
+    q, k, v = _qkv(2, Tq if kind == "causal_pad" else Tk)
+    mask = _mask(kind)
+    ref = jax_attn.fused_attention(q, k, v, mask)
+    assert rel_err(_port(q, k, v, mask), ref, ATOL) <= TOL
+
+
+def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
+    q, k, v = map(_torch, _qkv(3))
+    before = A.launch_count
+    out = A.fused_attention(q, k, v)
+    assert A.launch_count == before
+    assert torch.equal(out, A.attention_reference(q, k, v))
+
+
+def test_dropout_needs_a_seed():
+    q, k, v = map(_torch, _qkv(4))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        A.fused_attention(q, k, v, dropout_rate=0.1)
+
+
+def _keep_fraction(fn, rate, seed):
+    """q = k = 0 gives uniform P, so with v = 1 the mean output is the
+    kept fraction over (1 − rate) (tests/tpu_attention_parity.py)."""
+    b, t, n, d = 4, 64, 4, 8
+    z = torch.zeros(b, t, n, d)
+    out = fn(z, z, torch.ones(b, t, n, d), None, rate, seed)
+    return float(out.mean()) * (1.0 - rate), out
+
+
+def test_plain_dropout_keep_rate_and_seeding():
+    rate = 0.1
+    keep, out = _keep_fraction(A.attention_reference, rate, 7)
+    # 65536 Bernoulli(0.9) draws: std 1.2e-3, so ±0.01 is > 8 sigma.
+    assert abs(keep - (1.0 - rate)) < 0.01
+    _, again = _keep_fraction(A.attention_reference, rate, 7)
+    _, other = _keep_fraction(A.attention_reference, rate, 8)
+    assert torch.equal(out, again)
+    assert not torch.equal(out, other)
+
+
+# -- kernel K1 on the card ---------------------------------------------------
+# Run there with: python -m pytest tests/test_torch_attention.py -m cuda
+# --noconftest (tests/conftest.py imports JAX, which that machine lacks).
+# Per element |a − b| / (|ref| + 1): outputs are O(1), so the floor is their
+# scale. fp32: two sums of <= Tk products in other orders; bf16: a flipped
+# rounding of P or of the output is 2^-8 relative.
+CARD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU "
+                    "mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+def test_kernel_matches_plain_on_card(cuda, dtype, kind):
+    q, k, v = (_torch(x).to(cuda, dtype)
+               for x in _qkv(5, Tq if kind == "causal_pad" else Tk))
+    mask = _torch(_mask(kind))
+    mask = None if mask is None else mask.to(cuda)
+    before = A.launch_count
+    out = A.fused_attention(q, k, v, mask)
+    assert A.launch_count == before + 1
+    ref = A.attention_reference(q, k, v, mask)
+    assert out.dtype == ref.dtype == dtype
+    assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_projections_on_card(cuda):
+    """q/k/v as views into one packed (B, T, 3·N·D) projection, as the
+    self-attention passes them, give what contiguous copies give."""
+    rng = np.random.RandomState(6)
+    packed = torch.from_numpy(rng.randn(B, Tq, 3 * N * D).astype(np.float32))
+    q, k, v = (t.view(B, Tq, N, D) for t in packed.to(cuda).split(N * D, -1))
+    assert not q.is_contiguous()
+    mask = _torch(_mask("causal_pad")).to(cuda)
+    out = A.fused_attention(q, k, v, mask)
+    ref = A.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            mask)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_does_not_take_on_card(cuda):
+    q, k, v = (_torch(x).to(cuda) for x in _qkv(7))
+    with pytest.raises(TypeError):
+        A.fused_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        A.fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                          k, v)
+    with pytest.raises(NotImplementedError, match="backward"):
+        A.fused_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+def test_kernel_dropout_keep_rate_on_card(cuda):
+    rate = 0.1
+
+    def kernel(q, k, v, mask, rate, seed):
+        return A.fused_attention(q.to(cuda), k.to(cuda), v.to(cuda), mask,
+                                 rate, seed).cpu()
+
+    keep, out = _keep_fraction(kernel, rate, 42)
+    assert 0.89 <= keep <= 0.91
+    _, again = _keep_fraction(kernel, rate, 42)
+    _, other = _keep_fraction(kernel, rate, 43)
+    assert torch.equal(out, again) and not torch.equal(out, other)

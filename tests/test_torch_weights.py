@@ -1,0 +1,118 @@
+"""The weight bridge (virtex_tpu_torch.utils.weights) and the port's import
+boundary.
+
+``state_dict_from_flax`` must give the names and values that the JAX
+package's ``export_virtex_checkpoint`` gives (the reference's torch names),
+so the port loads either strictly. The port must import neither JAX nor
+the JAX package: the machine it runs on has neither.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import caption_batch, jax_variables, tiny_config
+from virtex_tpu.factories import PretrainingModelFactory
+from virtex_tpu.utils.checkpoint_convert import export_virtex_checkpoint
+from virtex_tpu_torch.config import ModelSpec
+from virtex_tpu_torch.models.captioning import CaptioningModel
+from virtex_tpu_torch.utils.weights import state_dict_from_flax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = tiny_config()
+    jm = PretrainingModelFactory.from_config(cfg)
+    batch = caption_batch(2, 64, cfg.DATA.MAX_CAPTION_LENGTH,
+                          cfg.DATA.VOCAB_SIZE, seed=1)
+    variables = jax_variables(jm, batch, seed=1, output_bias_std=1.0)
+    return ModelSpec.from_config(cfg), variables
+
+
+def test_state_dict_equals_the_reference_export(tiny):
+    _, variables = tiny
+    ours = state_dict_from_flax(variables)
+    export = export_virtex_checkpoint(variables)
+    assert sorted(ours) == sorted(export)
+    for name, value in export.items():
+        value = np.asarray(value)
+        assert ours[name].numpy().dtype == value.dtype, name
+        assert np.array_equal(ours[name].numpy(), value), name
+    # the reference's torch names, spot-checked
+    for name in ("visual.cnn.layer1.0.bn1.running_var",
+                 "visual.cnn.layer1.0.bn1.num_batches_tracked",
+                 "textual.transformer.layers.0.self_attn.in_proj_weight",
+                 "backward_textual.embedding.words.weight",
+                 "backward_textual.output.bias"):
+        assert name in ours
+
+
+def test_port_loads_both_strictly(tiny):
+    spec, variables = tiny
+    model = CaptioningModel.from_spec(spec)
+    assert sorted(model.state_dict()) == sorted(state_dict_from_flax(
+        variables))
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    export = {k: torch.from_numpy(np.array(v))
+              for k, v in export_virtex_checkpoint(variables).items()}
+    fresh = CaptioningModel.from_spec(spec)
+    fresh.load_state_dict(export, strict=True)
+    for name, value in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[name], value), name
+    # the tied output weight is the word table, and the backward head
+    # shares it
+    assert fresh.textual.output.weight is fresh.textual.embedding.words.weight
+    assert (fresh.backward_textual.output.weight
+            is fresh.textual.embedding.words.weight)
+
+
+def test_partial_trees_give_partial_state_dicts(tiny):
+    _, variables = tiny
+    p, s = variables["params"], variables["batch_stats"]
+    visual = state_dict_from_flax({"params": {"visual": p["visual"]},
+                                   "batch_stats": {"visual": s["visual"]}})
+    textual = state_dict_from_flax({"params": {"textual": p["textual"]}})
+    assert visual and all(k.startswith("visual.") for k in visual)
+    assert textual and not any(k.startswith("visual.") for k in textual)
+    assert sorted({**visual, **textual}) == sorted(state_dict_from_flax(
+        variables))
+
+
+SLICE_MODULES = [
+    "virtex_tpu_torch",
+    "virtex_tpu_torch.config",
+    "virtex_tpu_torch.ops._build",
+    "virtex_tpu_torch.ops.attention",
+    "virtex_tpu_torch.modules.normalization",
+    "virtex_tpu_torch.modules.resnet",
+    "virtex_tpu_torch.modules.visual_backbones",
+    "virtex_tpu_torch.modules.embedding",
+    "virtex_tpu_torch.modules.transformer",
+    "virtex_tpu_torch.modules.textual_heads",
+    "virtex_tpu_torch.models.captioning",
+    "virtex_tpu_torch.utils.beam_search",
+    "virtex_tpu_torch.utils.weights",
+    "virtex_tpu_torch.engine.captioner",
+    "virtex_tpu_torch.engine.evaluation",
+]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "tokenizers",
+             "virtex_tpu")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

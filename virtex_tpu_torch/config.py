@@ -1,0 +1,119 @@
+r"""
+The model description that the inference slice reads.
+
+Counterpart of :class:`virtex_tpu.config.Config`, cut to the keys that
+building and running a captioning model needs. It reads no yaml:
+:meth:`ModelSpec.flagship` builds the flagship ``bicaptioning_R_50_L1_H1024``
+in code, and :meth:`ModelSpec.from_config` copies the keys out of a
+``virtex_tpu.config.Config`` (duck-typed, so this module imports nothing of
+the JAX package).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import torch
+
+# ``transdec_{post,pre}norm::L{l}_H{h}_A{a}_F{f}`` — the grammar of
+# virtex_tpu/factories.py TextualHeadFactory.NAME_RE.
+TEXTUAL_NAME_RE = re.compile(
+    r"transdec_(?P<norm>post|pre)norm::"
+    r"L(?P<L>\d+)_H(?P<H>\d+)_A(?P<A>\d+)_F(?P<F>\d+)")
+
+# Model names whose textual head masks future positions, and those that
+# caption in both directions (virtex_tpu/factories.py).
+CAPTIONING_MODELS = ("virtex", "captioning", "bicaptioning")
+BIDIRECTIONAL_MODELS = ("virtex", "bicaptioning")
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    model_name: str = "virtex"
+    visual_name: str = "torchvision::resnet50"
+    visual_feature_size: int = 2048
+    visual_frozen: bool = False
+    bn_stat_stride: int = 1
+    stem_s2d: bool = False
+    textual_name: str = "transdec_postnorm::L1_H2048_A32_F8192"
+    textual_dropout: float = 0.1
+    remat: bool = False
+    dtype: str = "bfloat16"
+    vocab_size: int = 10000
+    max_caption_length: int = 30
+    image_size: int = 224
+    unk_index: int = 0
+    sos_index: int = 1
+    eos_index: int = 2
+    beam_size: int = 5
+    max_decoding_steps: int = 30
+    prefix_mode: str = "reference"
+
+    @classmethod
+    def flagship(cls) -> "ModelSpec":
+        """``bicaptioning_R_50_L1_H1024``: the model that
+        ``__graft_entry__._flagship_config()`` builds."""
+        return cls(model_name="bicaptioning",
+                   textual_name="transdec_postnorm::L1_H1024_A16_F4096")
+
+    @classmethod
+    def from_config(cls, cfg: Any) -> "ModelSpec":
+        """Copy the slice's keys out of a ``virtex_tpu.config.Config``."""
+        M, D = cfg.MODEL, cfg.DATA
+        return cls(
+            model_name=M.NAME,
+            visual_name=M.VISUAL.NAME,
+            visual_feature_size=int(M.VISUAL.FEATURE_SIZE),
+            visual_frozen=bool(M.VISUAL.FROZEN),
+            bn_stat_stride=int(M.VISUAL.BN_STAT_STRIDE),
+            stem_s2d=bool(M.VISUAL.STEM_S2D),
+            textual_name=M.TEXTUAL.NAME,
+            textual_dropout=float(M.TEXTUAL.DROPOUT),
+            remat=bool(M.VISUAL.REMAT or M.TEXTUAL.REMAT),
+            dtype=cfg.DTYPE,
+            vocab_size=int(D.VOCAB_SIZE),
+            max_caption_length=int(D.MAX_CAPTION_LENGTH),
+            image_size=int(D.IMAGE_CROP_SIZE),
+            unk_index=int(D.UNK_INDEX),
+            sos_index=int(D.SOS_INDEX),
+            eos_index=int(D.EOS_INDEX),
+            beam_size=int(M.DECODER.BEAM_SIZE),
+            max_decoding_steps=int(M.DECODER.MAX_DECODING_STEPS),
+            prefix_mode=M.DECODER.PREFIX_MODE,
+        )
+
+    # -- derived ------------------------------------------------------------
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"unknown DTYPE {self.dtype!r}; "
+                             f"supported: {sorted(_DTYPES)}")
+        return _DTYPES[self.dtype]
+
+    @property
+    def visual_arch(self) -> str:
+        """``torchvision::resnet50`` → ``resnet50``."""
+        zoo, _, arch = self.visual_name.rpartition("::")
+        if zoo not in ("", "torchvision"):
+            raise KeyError(f"unknown visual backbone family {zoo!r}")
+        return arch
+
+    @property
+    def textual(self) -> dict:
+        """The parsed textual grammar: norm, layers, hidden, heads, ffn."""
+        m = TEXTUAL_NAME_RE.fullmatch(self.textual_name)
+        if not m:
+            raise ValueError(
+                f"Cannot parse textual head name {self.textual_name!r}")
+        return {"norm_type": m.group("norm"),
+                "num_layers": int(m.group("L")),
+                "hidden_size": int(m.group("H")),
+                "attention_heads": int(m.group("A")),
+                "feedforward_size": int(m.group("F"))}
+
+    @property
+    def caption_backward(self) -> bool:
+        return self.model_name in BIDIRECTIONAL_MODELS

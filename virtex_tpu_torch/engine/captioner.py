@@ -1,0 +1,74 @@
+r"""
+End-to-end caption generation: visual encode → KV-cache init → beam search.
+
+Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`
+for beam search. The visual grid is encoded once, the cross-attention K/V
+are projected once per image and held outside the search state (they do
+not differ between an image's beams, so the per-step beam reorder never
+gathers them), and the self-attention caches follow the beams. Nucleus
+sampling is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+
+
+def make_caption_fn(model, decoder: AutoRegressiveBeamSearch,
+                    sos_index: int = 1, prefix_mode: str = "reference"
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    r"""Build ``images → predictions`` (B, max_steps) token ids, the start
+    token excluded.
+
+    ``prefix_mode`` (config ``MODEL.DECODER.PREFIX_MODE``):
+
+    - ``"reference"`` (default, the parity contract): prefixes EXCLUDE the
+      start token, as the reference decodes, so generated token i sits at
+      position i−1 and the first prediction overwrites the SOS cache slot.
+      This is the reference's train/inference mismatch, kept on purpose
+      so that published checkpoints caption as they did.
+    - ``"sos"``: keep SOS at position 0, as in training.
+    """
+    if not isinstance(decoder, AutoRegressiveBeamSearch):
+        raise NotImplementedError("only beam search is ported")
+    if prefix_mode not in ("reference", "sos"):
+        raise ValueError(f"unknown prefix_mode {prefix_mode!r}")
+    rebase = prefix_mode == "reference"
+    max_pos = model.textual.max_caption_length
+    if decoder.max_steps > max_pos:
+        raise ValueError(
+            f"decoder.max_steps={decoder.max_steps} exceeds the positional "
+            f"table ({max_pos} rows); raise DATA.MAX_CAPTION_LENGTH or "
+            "lower MODEL.DECODER.MAX_DECODING_STEPS")
+    K = decoder.beam_size
+
+    @torch.inference_mode()
+    def caption_fn(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        grid = model.encode_visual(images)
+        B = images.shape[0]
+        # Cross K/V from the untiled grid: projected once per image.
+        caches = model.init_decode(grid, decoder.max_steps)
+        cross = [{"ck": c["ck"].repeat_interleave(K, dim=0),
+                  "cv": c["cv"].repeat_interleave(K, dim=0)} for c in caches]
+        self_caches = [{"k": c["k"].repeat_interleave(K, dim=0),
+                        "v": c["v"].repeat_interleave(K, dim=0)}
+                       for c in caches]
+
+        def step_fn(tokens, position: int, state):
+            if rebase:
+                position = max(position - 1, 0)
+            full = [{**sc, **cx} for sc, cx in zip(state, cross)]
+            logits, full = model.decode_step(tokens, position, full)
+            state = [{"k": c["k"], "v": c["v"]} for c in full]
+            return torch.log_softmax(logits.float(), dim=-1), state
+
+        start = torch.full((B,), sos_index, dtype=torch.long,
+                           device=images.device)
+        preds, _ = decoder.search(start, step_fn, self_caches)
+        return preds
+
+    return caption_fn

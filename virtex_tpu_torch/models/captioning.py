@@ -1,0 +1,109 @@
+r"""
+Captioning pretext-task models (forward-only and bidirectional = VirTex).
+
+Counterpart of ``virtex_tpu/models/captioning.py``: the loss is the
+token cross-entropy of ``logits[:, :-1]`` against ``tokens[:, 1:]``
+over non-pad targets, in fp32; bicaptioning adds the same loss on the
+reversed tokens through ``backward_textual``. In eval mode the output
+also holds the argmax predictions. ``encode_visual`` / ``init_decode`` /
+``decode_step`` serve the caption decoder.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from virtex_tpu_torch.config import CAPTIONING_MODELS, ModelSpec
+from virtex_tpu_torch.modules.textual_heads import TransformerTextualHead
+from virtex_tpu_torch.modules.transformer import Cache
+from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
+
+
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        ignore_index: int) -> torch.Tensor:
+    """Mean CE over targets ≠ ``ignore_index``, reduced in fp32 as
+    logsumexp − target logit (no (B, T, V) log-prob tensor)."""
+    targets = targets.long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0].float()
+    mask = (targets != ignore_index).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return ((lse - tgt) * mask).sum() / denom
+
+
+class CaptioningModel(nn.Module):
+    r"""Visual backbone + autoregressive textual head;
+    ``caption_backward=True`` is bicaptioning (the VirTex flagship)."""
+
+    def __init__(self, visual: ResNetVisualBackbone,
+                 textual: TransformerTextualHead,
+                 caption_backward: bool = False, sos_index: int = 1,
+                 eos_index: int = 2, padding_idx: int = 0):
+        super().__init__()
+        self.visual, self.textual = visual, textual
+        self.caption_backward = caption_backward
+        self.sos_index, self.eos_index = sos_index, eos_index
+        self.padding_idx = padding_idx
+        if caption_backward:
+            self.backward_textual = textual.backward_head()
+
+    @classmethod
+    def from_spec(cls, spec: ModelSpec) -> "CaptioningModel":
+        if spec.model_name not in CAPTIONING_MODELS:
+            raise NotImplementedError(
+                f"MODEL.NAME {spec.model_name!r}: only the captioning "
+                f"models {CAPTIONING_MODELS} are ported")
+        dtype = spec.torch_dtype
+        visual = ResNetVisualBackbone(
+            spec.visual_arch, frozen=spec.visual_frozen, dtype=dtype,
+            bn_stat_stride=spec.bn_stat_stride, stem_s2d=spec.stem_s2d,
+            remat=spec.remat)
+        textual = TransformerTextualHead(
+            visual_feature_size=spec.visual_feature_size,
+            vocab_size=spec.vocab_size, dropout=spec.textual_dropout,
+            mask_future_positions=True,
+            max_caption_length=spec.max_caption_length,
+            padding_idx=spec.unk_index, dtype=dtype, remat=spec.remat,
+            **spec.textual)
+        return cls(visual, textual, caption_backward=spec.caption_backward,
+                   sos_index=spec.sos_index, eos_index=spec.eos_index,
+                   padding_idx=spec.unk_index)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        visual_grid = self.visual(batch["image"])
+        tokens, lengths = batch["caption_tokens"], batch["caption_lengths"]
+        logits = self.textual(visual_grid, tokens, lengths)
+        loss = token_cross_entropy(logits[:, :-1], tokens[:, 1:],
+                                   self.padding_idx)
+        components = {"captioning_forward": loss}
+        if self.caption_backward:
+            noitpac = batch["noitpac_tokens"]
+            backward_logits = self.backward_textual(visual_grid, noitpac,
+                                                    lengths)
+            backward_loss = token_cross_entropy(
+                backward_logits[:, :-1], noitpac[:, 1:], self.padding_idx)
+            components["captioning_backward"] = backward_loss
+            loss = loss + backward_loss
+        out = {"loss": loss, "loss_components": components}
+        if not self.training:
+            out["predictions"] = logits.argmax(dim=-1)
+        return out
+
+    # -- inference -----------------------------------------------------------
+    def encode_visual(self, image: torch.Tensor) -> torch.Tensor:
+        return self.visual(image)
+
+    def init_decode(self, visual_grid, max_length: Optional[int] = None
+                    ) -> List[Cache]:
+        return self.textual.init_decode(visual_grid, max_length)
+
+    def decode_step(self, token, position: int, caches: List[Cache]):
+        """Forward-direction single decode step (the search callback)."""
+        return self.textual.decode_step(token, position, caches)
+
+
+class BidirectionalCaptioningModel(CaptioningModel):
+    def __init__(self, visual, textual, **kwargs):
+        super().__init__(visual, textual, caption_backward=True, **kwargs)

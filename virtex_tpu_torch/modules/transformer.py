@@ -1,0 +1,260 @@
+r"""
+Transformer decoder (self-attention, cross-attention to the visual tokens,
+gelu FFN) with a KV-cache decode path.
+
+Counterpart of ``virtex_tpu/modules/transformer.py``. The full-sequence
+attention goes through :func:`virtex_tpu_torch.ops.attention.fused_attention`
+(kernel K1 on CUDA); the single-token decode path uses plain attention, as
+the JAX package does. Module and parameter names are those of torch's
+``nn.TransformerDecoderLayer`` (``self_attn``/``multihead_attn`` with a
+packed ``in_proj_weight``, ``linear1``/``linear2``, ``norm1..3``), so the
+reference's state dicts load unchanged.
+
+Numerics follow the JAX package: fp32 parameters, dense layers computed in
+``dtype``, LayerNorm in fp32 and cast back, fp32 softmax, masked logits at
+−1e9. The decode caches are written in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from virtex_tpu_torch.ops.attention import NEG_INF, fused_attention
+
+Cache = Dict[str, torch.Tensor]
+
+
+class Linear(nn.Linear):
+    """Dense layer with fp32 parameters, computed in ``dtype``; weights
+    N(0, 0.02), bias zero (the JAX package's ``_dense_init``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+        nn.init.normal_(self.weight, std=0.02)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm computed in fp32 (the caller casts back)."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                        norm.bias, norm.eps)
+
+
+def attention_weights(q, k, mask, dtype):
+    """(B,Tq,N,D)×(B,Tk,N,D) → fp32 softmax → (B,N,Tq,Tk) in ``dtype``."""
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    logits = logits / math.sqrt(q.shape[-1])
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def _context(probs, v, dtype):
+    return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """q/k/v projections (packed in ``in_proj_weight`` as torch packs them)
+    + scaled dot-product attention + output projection.
+
+    ``attention_fn`` is the attention core, :func:`fused_attention`; a
+    comparison against the plain version swaps it by name."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.hidden_size, self.num_heads = hidden_size, num_heads
+        self.dropout, self.dtype = dropout, dtype
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * hidden_size, hidden_size).normal_(std=0.02))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
+        self.out_proj = Linear(hidden_size, hidden_size, dtype)
+        self.attention_fn = fused_attention
+
+    def _project(self, x, part: slice):
+        w = self.in_proj_weight[part].to(self.dtype)
+        return F.linear(x.to(self.dtype), w, self.in_proj_bias[part].to(
+            self.dtype))
+
+    def _split(self, x, n: int):
+        """(B, T, n·H) → n tensors (B, T, N, D), views into ``x``."""
+        B, T, _ = x.shape
+        D = self.hidden_size // self.num_heads
+        return [t.view(B, T, self.num_heads, D)
+                for t in x.split(self.hidden_size, dim=-1)][:n]
+
+    def _qkv(self, q_in, kv_in):
+        H = self.hidden_size
+        if kv_in is q_in:
+            return self._split(self._project(q_in, slice(0, 3 * H)), 3)
+        (q,) = self._split(self._project(q_in, slice(0, H)), 1)
+        k, v = self._split(self._project(kv_in, slice(H, 3 * H)), 2)
+        return q, k, v
+
+    def _out(self, ctx):
+        B, T, N, D = ctx.shape
+        return self.out_proj(ctx.reshape(B, T, N * D))
+
+    def forward(self, q_in, kv_in, mask=None):
+        q, k, v = self._qkv(q_in, kv_in)
+        rate = self.dropout if self.training else 0.0
+        seed = int(torch.randint(2**31 - 1, ())) if rate > 0.0 else None
+        ctx = self.attention_fn(q, k, v, mask, dropout_rate=rate,
+                                dropout_seed=seed)
+        return self._out(ctx.to(self.dtype))
+
+    # -- KV-cache decode path ------------------------------------------------
+    def project_kv(self, kv_in):
+        """K/V of the visual tokens, computed once for cross-attention."""
+        k, v = self._split(self._project(kv_in, slice(self.hidden_size,
+                                                      None)), 2)
+        return k.contiguous(), v.contiguous()
+
+    def decode_self(self, q_in, k_cache, v_cache, position: int):
+        """One token against a running cache. q_in (B, 1, H); caches
+        (B, Tmax, N, D), written in place at ``position``."""
+        q, k_new, v_new = self._qkv(q_in, q_in)
+        k_cache[:, position] = k_new[:, 0]
+        v_cache[:, position] = v_new[:, 0]
+        Tmax = k_cache.shape[1]
+        valid = (torch.arange(Tmax, device=q.device) <= position)
+        probs = attention_weights(q, k_cache, valid[None, None, None, :],
+                                  self.dtype)
+        return self._out(_context(probs, v_cache, self.dtype)), k_cache, v_cache
+
+    def attend_kv(self, q_in, k, v):
+        """Attention with precomputed K/V (cross-attention at decode)."""
+        (q,) = self._split(self._project(q_in, slice(0, self.hidden_size)), 1)
+        probs = attention_weights(q, k, None, self.dtype)
+        return self._out(_context(probs, v, self.dtype))
+
+
+class DecoderLayer(nn.Module):
+    """self-attn → cross-attn(visual) → gelu FFN, post- or pre-norm."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 feedforward_size: int, dropout: float = 0.1,
+                 norm_type: str = "post", dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if norm_type not in ("post", "pre"):
+            raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.num_heads, self.dropout = num_heads, dropout
+        self.norm_type, self.dtype = norm_type, dtype
+        self.self_attn = MultiHeadAttention(hidden_size, num_heads, dropout,
+                                            dtype)
+        self.multihead_attn = MultiHeadAttention(hidden_size, num_heads,
+                                                 dropout, dtype)
+        self.linear1 = Linear(hidden_size, feedforward_size, dtype)
+        self.linear2 = Linear(feedforward_size, hidden_size, dtype)
+        self.norm1 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.norm3 = nn.LayerNorm(hidden_size, eps=1e-5)
+
+    def _drop(self, x):
+        return F.dropout(x, self.dropout, self.training)
+
+    def ffn(self, x):
+        return self.linear2(self._drop(F.gelu(self.linear1(x))))
+
+    def _sub(self, norm, x, fn):
+        """A sublayer with its residual, in pre- or post-norm order."""
+        if self.norm_type == "pre":
+            return x + self._drop(fn(layer_norm(norm, x).to(self.dtype)))
+        return layer_norm(norm, x + self._drop(fn(x))).to(self.dtype)
+
+    def forward(self, x, visual, self_mask=None):
+        x = self._sub(self.norm1, x, lambda h: self.self_attn(h, h, self_mask))
+        x = self._sub(self.norm2, x,
+                      lambda h: self.multihead_attn(h, visual, None))
+        return self._sub(self.norm3, x, self.ffn)
+
+    def init_cache(self, visual, batch: int, max_length: int) -> Cache:
+        """Empty self-attention K/V plus the visual tokens' cross K/V."""
+        depth = visual.shape[-1] // self.num_heads
+        shape = (batch, max_length, self.num_heads, depth)
+        ck, cv = self.multihead_attn.project_kv(visual)
+        return {"k": visual.new_zeros(shape, dtype=self.dtype),
+                "v": visual.new_zeros(shape, dtype=self.dtype),
+                "ck": ck, "cv": cv}
+
+    def decode(self, x, cache: Cache, position: int) -> Tuple[torch.Tensor,
+                                                                Cache]:
+        """One-token step. x: (B, 1, H)."""
+        dt = self.dtype
+        if self.norm_type == "pre":
+            y, k, v = self.self_attn.decode_self(
+                layer_norm(self.norm1, x).to(dt), cache["k"], cache["v"],
+                position)
+            x = x + y
+            x = x + self.multihead_attn.attend_kv(
+                layer_norm(self.norm2, x).to(dt), cache["ck"], cache["cv"])
+            x = x + self.ffn(layer_norm(self.norm3, x).to(dt))
+        else:
+            y, k, v = self.self_attn.decode_self(x, cache["k"], cache["v"],
+                                                 position)
+            x = layer_norm(self.norm1, x + y).to(dt)
+            x = layer_norm(self.norm2, x + self.multihead_attn.attend_kv(
+                x, cache["ck"], cache["cv"])).to(dt)
+            x = layer_norm(self.norm3, x + self.ffn(x)).to(dt)
+        return x, {"k": k, "v": v, "ck": cache["ck"], "cv": cache["cv"]}
+
+
+class TransformerDecoder(nn.Module):
+    """A stack of :class:`DecoderLayer`, with a final LayerNorm (``norm``)
+    for pre-norm only."""
+
+    def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
+                 feedforward_size: int, dropout: float = 0.1,
+                 norm_type: str = "post", dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
+        super().__init__()
+        if remat:
+            raise NotImplementedError("remat is for training; not ported yet")
+        self.dtype = dtype
+        self.layers = nn.ModuleList([
+            DecoderLayer(hidden_size, num_heads, feedforward_size, dropout,
+                         norm_type, dtype) for _ in range(num_layers)])
+        self.norm = (nn.LayerNorm(hidden_size, eps=1e-5)
+                     if norm_type == "pre" else None)
+
+    def _final(self, x):
+        return x if self.norm is None else layer_norm(self.norm, x).to(
+            self.dtype)
+
+    def forward(self, x, visual, self_mask=None):
+        for layer in self.layers:
+            x = layer(x, visual, self_mask)
+        return self._final(x)
+
+    def init_cache(self, visual, batch: int, max_length: int) -> List[Cache]:
+        return [l.init_cache(visual, batch, max_length) for l in self.layers]
+
+    def decode(self, x, caches: List[Cache], position: int):
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.decode(x, cache, position)
+            new_caches.append(cache)
+        return self._final(x), new_caches
+
+
+def make_self_attention_mask(tokens: torch.Tensor, lengths: torch.Tensor,
+                             causal: bool,
+                             ) -> torch.Tensor:
+    """Boolean (B, 1, T, T) mask: key padding (positions ≥ length masked)
+    and, if ``causal``, the future. True = attend."""
+    T = tokens.shape[1]
+    pos = torch.arange(T, device=tokens.device)
+    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+    return mask

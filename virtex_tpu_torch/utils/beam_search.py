@@ -1,0 +1,126 @@
+r"""
+Autoregressive beam search, as a Python loop over steps.
+
+Counterpart of ``virtex_tpu/utils/beam_search.py``
+:class:`AutoRegressiveBeamSearch`, with the same semantics:
+
+- batch-expanded (B·K) prefixes, beam-major (image i owns rows
+  [i·K, (i+1)·K));
+- step 0 peeled: all K beams start from the same token, so the first
+  expansion takes the top-K of ONE distribution, with no repetition
+  penalty;
+- later steps: −10000 on each beam's last predicted token, EOS-absorbing
+  finished beams (only EOS, at zero cost), per-node top-P, then the global
+  top-K of the K·P candidates;
+- the search state (e.g. KV caches) is reordered to follow the winners;
+- early stop when every beam ends in EOS.
+
+Top-k takes the largest values first and breaks ties toward the lowest
+index, as ``lax.top_k`` does (a stable descending sort; ``torch.topk``
+promises no tie order).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Tuple
+
+import torch
+
+StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
+NEG_INF = -1e18
+REPETITION_PENALTY = -10000.0
+
+
+def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, ties to the lowest index."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor in nested lists / tuples / dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+class AutoRegressiveBeamSearch:
+    r"""
+    Args:
+        eos_index: token latched once a beam finishes.
+        max_steps: decode length.
+        beam_size: K.
+        per_node_beam_size: candidates drawn per live beam before
+            re-ranking (reference default 2).
+    """
+
+    def __init__(self, eos_index: int, max_steps: int = 30,
+                 beam_size: int = 5, per_node_beam_size: int = 2):
+        self.eos_index = eos_index
+        self.max_steps = max_steps
+        self.beam_size = beam_size
+        self.per_node_beam_size = per_node_beam_size or beam_size
+
+    def search(self, start_tokens: torch.Tensor, step_fn: StepFn,
+               state: Any, only_return_best: bool = True):
+        r"""
+        Args:
+            start_tokens: (B,) int — usually ``[SOS]``.
+            step_fn: ``(last_tokens (B·K,), position, state) →
+                (logprobs (B·K, V), state)``; ``state`` is nested
+                lists/dicts of tensors whose dim 0 is B·K.
+            only_return_best: return the best beam (B, T) or all (B, K, T).
+
+        Returns:
+            (predictions, scores): the start token is excluded, and
+            finished beams are padded with EOS.
+        """
+        B = start_tokens.shape[0]
+        K, P = self.beam_size, self.per_node_beam_size
+        eos, device = self.eos_index, start_tokens.device
+
+        start_flat = start_tokens.long().repeat_interleave(K)
+        logprobs0, state = step_fn(start_flat, 0, state)
+        V = logprobs0.shape[-1]
+        lp0 = logprobs0.reshape(B, K, V)[:, 0, :].float()
+        k0 = min(K, V)  # degenerate tiny-vocab case: K may exceed V
+        scores, last = topk(lp0, k0)                              # (B, k0)
+        if k0 < K:
+            scores = torch.cat(
+                [scores, scores.new_full((B, K - k0), NEG_INF)], dim=1)
+            last = torch.cat([last, last[:, -1:].expand(B, K - k0)], dim=1)
+        preds = torch.full((B, K, self.max_steps), eos, dtype=torch.long,
+                           device=device)
+        preds[:, :, 0] = last
+        # The state needs no reorder: every beam's step-0 update is the
+        # same start-token update.
+
+        after_end = torch.full((V,), NEG_INF, device=device)
+        after_end[eos] = 0.0
+        rows = torch.arange(B * K, device=device)
+        base = (torch.arange(B, device=device) * K)[:, None]
+        t = 1
+        while t < self.max_steps and not bool((last == eos).all()):
+            last_flat = last.reshape(B * K)
+            logprobs, state = step_fn(last_flat, t, state)
+            logprobs = logprobs.float().clone()
+            logprobs[rows, last_flat] += REPETITION_PENALTY
+            finished = (last_flat == eos)[:, None]
+            logprobs = torch.where(finished, after_end, logprobs)
+
+            node_lp, node_ix = topk(logprobs, P)                  # (B·K, P)
+            cand = (scores.reshape(B * K)[:, None] + node_lp).reshape(B, K * P)
+            scores, flat_ix = topk(cand, K)                       # (B, K)
+            src = (base + torch.div(flat_ix, P, rounding_mode="floor"))
+            src = src.reshape(B * K)                              # rows
+            last = node_ix.reshape(B, K * P).gather(1, flat_ix)
+
+            preds = preds.reshape(B * K, -1)[src].reshape(B, K, -1)
+            preds[:, :, t] = last
+            state = tree_map(lambda x: x.index_select(0, src), state)
+            t += 1
+
+        if only_return_best:
+            return preds[:, 0, :], scores[:, 0]
+        return preds, scores
