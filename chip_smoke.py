@@ -9,20 +9,35 @@ Run from the repository root, on a machine with a CUDA card, ``nvcc``
 prints no result, when there is no card or when any phase fails:
 
 1. device: the card's name and power limit; TF32 off for every comparison.
-2. build: kernel K1 (``virtex_tpu_torch/csrc/attention_fwd.cu``) is built
-   with ``nvcc`` for ``sm_90a``.
+2. build: kernels K1, K2 and K4 (``virtex_tpu_torch/csrc/*.cu``) are built
+   with ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. K1 against its plain PyTorch version on the card: the flagship's
    attention shapes (batch 128, 16 heads of 64; self 30×30 causal + pad,
    cross 30×49), a per-head mask, the wide gate shape (640, 30, 79, 32, 64),
    fp32 and bf16, and dropout's keep fraction and seeding.
-4. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
+4. K2 against its plain version at the train step's shapes (batch 128; self
+   30×30 causal + pad and cross 30×49, q/k/v strided views of the packed
+   projection), fp32 and bf16; with dropout 0.1, K1's and K2's keep masks
+   equal ``philox_keep_reference`` bit for bit, and K2's gradients match
+   the plain version given that mask.
+5. K4 against its plain version at the 12 ResNet-50 BatchNorm shapes at
+   batch 128 with bf16 x, an NCHW-contiguous dy and an odd M; two launches
+   give equal bits.
+6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
    bf16 (weights from a numpy seed), batch 32 of captions of varied length.
    Finite losses, exactly 4 K1 launches, and the same losses from a copy
    of the model whose attention calls the plain version.
-5. captioning: beam search (K = 5, 30 steps) on 32 images.
-6. timings: K1 against the plain version at the eval step's two attention
-   shapes and at batch 128 (device time from CUDA-graph replay, and
-   back-to-back eager calls), the eval step, and beam captioning.
+7. captioning: beam search (K = 5, 30 steps) on 32 images.
+8. train step: the flagship in bf16, micro-batch 128 × accumulation 2 as
+   ``bench.py`` runs it, captions of varied length, the optimizer of
+   ``OPTIM.*``. With dropout 0 the first step's losses and ``grad_norm``
+   match a copy whose attention and BatchNorm backward call the plain
+   versions; then five steps with dropout 0.1 and no warmup give finite
+   losses and a Lookahead sync at step 5. Every step makes exactly 8 K1,
+   8 K2 and 106 K4 launches.
+9. timings: K1, K2 and K4 against their plain versions (device time from
+   CUDA-graph replay), the eval step, beam captioning, and the train step
+   with the kernels and with the plain versions (host clock).
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -30,15 +45,18 @@ The line before the last is a JSON object on the kernels; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda:0"
 SEED = 0
 EVAL_BATCH = 32
 # K1 against the plain version, per element |a − b| / (|ref| + ATOL):
@@ -51,6 +69,25 @@ TOL = {"float32": 1e-5,   # two fp32 sums of ≤ 79 terms in other orders
 # 2^-8, at most), and each loss averages ~900 tokens.
 LOSS_RTOL = 1e-2
 KEEP_RANGE = (0.89, 0.91)  # dropout rate 0.1
+# The train step as bench.py runs it: micro-batch 128, accumulation 2.
+TRAIN_BATCH, ACCUM, TRAIN_STEPS = 128, 2, 5
+LAUNCHES_PER_STEP = {"K1": 8, "K2": 8, "K4": 106}
+# K2 against the plain version: as K1 (TOL, ATOL); its sums run over <= 49
+# keys or 30 queries. K4 against the plain version, per element
+# |a − b| / (|ref| + sqrt(M)): both read the inputs exactly and sum M terms
+# of scale 1 in fp32 in other orders, so sqrt(M) is the sums' scale.
+K4_TOL = 1e-5
+# First train step, kernels against the plain versions (dropout 0): the
+# losses as the eval step's (LOSS_RTOL). grad_norm: the plain attention
+# backward rounds dP to bf16 through autograd of the bf16 cast of P, which
+# K2 does not, and the BatchNorm sums add in other orders; 2^-8 relative
+# noise on some gradients moves the global norm by far less than 1e-2.
+GRAD_NORM_RTOL = 1e-2
+# Every distinct (H, C) of ResNet-50's BatchNorm layers at 224²
+# (tests/tpu_bn_parity.py).
+R50_BN_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
+                 (28, 512), (28, 256), (14, 256), (14, 1024), (14, 512),
+                 (7, 512), (7, 2048)]
 
 
 def fail(msg: str) -> None:
@@ -184,7 +221,143 @@ def check_k1(torch, A, device):
     return main_path_err, keep, summary
 
 
-# -- phases 4 and 5 ----------------------------------------------------------
+# -- phase 4 -----------------------------------------------------------------
+def k2_grads(torch, A, q, k, v, mask, g, rate=0.0, seed=None):
+    """dq, dk, dv through K1 and K2 (one K2 launch, checked)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    before = A.bwd_launch_count
+    A.fused_attention(q, k, v, mask, rate, seed).backward(g)
+    torch.cuda.synchronize()
+    if A.bwd_launch_count != before + 1:
+        fail("K2: the attention backward did not launch K2")
+    return q.grad, k.grad, v.grad
+
+
+def train_attention_inputs(torch, kind, dtype, device, seed):
+    """The train step's attention at batch 128: q/k/v strided views of the
+    packed projection, g ~ N(0, 1), and the mask."""
+    Tk = 30 if kind == "self" else 49
+    q, k, v = attention_inputs(torch, TRAIN_BATCH, 30, Tk, 16, 64, dtype,
+                               device, seed, packed=True)
+    g = attention_inputs(torch, TRAIN_BATCH, 30, 30, 16, 64, dtype, device,
+                         seed + 1)[0]
+    mask = self_mask(torch, TRAIN_BATCH, 30, device, seed) \
+        if kind == "self" else None
+    return q, k, v, g, mask
+
+
+def check_k2(torch, A, device):
+    """K2 against ``attention_backward_reference`` on the card, without and
+    with dropout, and K1's and K2's keep masks against
+    ``philox_keep_reference`` bit for bit. Returns the largest absolute
+    bf16 gradient error at the train step's shapes and a summary."""
+    worst, main_err = {}, 0.0
+    rate, seed = 0.1, 1234
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for i, kind in enumerate(("self", "cross")):
+            q, k, v, g, mask = train_attention_inputs(torch, kind, dtype,
+                                                      device, SEED + 20 + i)
+            keep = A.philox_keep_reference(seed, TRAIN_BATCH, 16, 30,
+                                           k.shape[1], rate, device=device)
+            for r, ref in ((0.0, A.attention_backward_reference(
+                    q, k, v, mask, g)), (rate, A.attention_backward_reference(
+                        q, k, v, mask, g, keep, rate))):
+                ours = k2_grads(torch, A, q, k, v, mask, g, r,
+                                seed if r else None)
+                name = f"{kind} B{TRAIN_BATCH} {dtype_name} dropout {r}"
+                for part, a, b in zip("qkv", ours, ref):
+                    if a.shape != b.shape or not a.dtype == b.dtype == dtype:
+                        fail(f"K2 {name} d{part}: {a.shape} {a.dtype} vs "
+                             f"{b.shape} {b.dtype}")
+                    err = rel_err(a, b, ATOL)
+                    worst[f"{name} d{part}"] = err
+                    if not err <= TOL[dtype_name]:
+                        fail(f"K2 {name} d{part}: error {err:.3e} > "
+                             f"{TOL[dtype_name]:.0e}")
+                    if dtype_name == "bfloat16" and r == 0.0:
+                        main_err = max(main_err, float(
+                            (a.float() - b.float()).abs().max()))
+
+    # Bit for bit: q = k = 0 makes P uniform. With v the identity over
+    # (key, d), K1's output row i is keep[i, :]/(Tk·(1 − rate)); with g the
+    # identity over (query, d), K2's dv[j, i] is keep[i, j]/(Tk·(1 − rate)).
+    B, Tq, Tk, N, D = TRAIN_BATCH, 30, 49, 16, 64
+    want = A.philox_keep_reference(seed, B, N, Tq, Tk, rate, device=device)
+    zq = torch.zeros(B, Tq, N, D, device=device)
+    zk = torch.zeros(B, Tk, N, D, device=device)
+
+    def eye(T):
+        return torch.eye(T, D, device=device)[None, :, None, :].expand(
+            B, T, N, D).contiguous()
+
+    out = A.fused_attention(zq, zk, eye(Tk), None, rate, seed)
+    if not torch.equal(out.permute(0, 2, 1, 3)[..., :Tk] > 0, want):
+        fail("K1 dropout: the keep mask is not philox_keep_reference's")
+    _, _, dv = k2_grads(torch, A, zq, zk, eye(Tk), None, eye(Tq), rate, seed)
+    if not torch.equal(dv.permute(0, 2, 3, 1)[:, :, :Tq, :] > 0, want):
+        fail("K2 dropout: the keep mask is not philox_keep_reference's")
+    keep = float(want.float().mean())
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return main_err, keep, summary
+
+
+# -- phase 5 -----------------------------------------------------------------
+def bn_inputs(torch, B, hw, C, device, gen, dy_layout="channels_last"):
+    """bf16 x ~ 2·N(0, 1) + 0.5 and dy ~ N(0, 1) as NCHW views of NHWC
+    memory (dy NCHW-contiguous if asked), with x's fp32 mean and rstd."""
+    def draw():
+        return torch.randn(B, hw, hw, C, generator=gen, device=device)
+    x = draw().mul_(2.0).add_(0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
+    dy = draw().to(torch.bfloat16).permute(0, 3, 1, 2)
+    if dy_layout == "nchw":
+        dy = dy.contiguous()
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = (xf.square().mean((0, 2, 3)) - mean.square()).clamp_(min=0.0)
+    return dy, x, mean, 1.0 / torch.sqrt(var + 1e-5)
+
+
+def check_k4(torch, BN, device):
+    """K4 against ``bn_backward_sums_reference`` on the card at the 12
+    ResNet-50 shapes (batch 128), an NCHW-contiguous dy and an odd M; every
+    case launched twice must give equal bits. Returns the largest absolute
+    error at the 12 shapes and a summary."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    cases = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last")
+             for hw, C in R50_BN_SHAPES]
+    cases += [("28x28x512 NCHW dy", TRAIN_BATCH, 28, 512, "nchw"),
+              ("odd M 3x7x7x2048", 3, 7, 2048, "channels_last")]
+    worst, main_err = {}, 0.0
+    for name, B, hw, C, layout in cases:
+        dy, x, mean, rstd = bn_inputs(torch, B, hw, C, device, gen, layout)
+        before = BN.launch_count
+        out = BN.bn_backward_sums(dy, x, mean, rstd)
+        again = BN.bn_backward_sums(dy, x, mean, rstd)
+        torch.cuda.synchronize()
+        if BN.launch_count != before + 2:
+            fail(f"K4 {name}: bn_backward_sums did not launch K4")
+        if not torch.equal(out, again):
+            fail(f"K4 {name}: two launches gave different bits")
+        ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
+        M = B * hw * hw
+        err = rel_err(out, ref, M ** 0.5)
+        worst[name] = err
+        if out.shape != (2, C) or not err <= K4_TOL:
+            fail(f"K4 {name}: {tuple(out.shape)}, error {err:.3e} > "
+                 f"{K4_TOL:.0e}")
+        if layout == "nchw":
+            cl = dy.contiguous(memory_format=torch.channels_last)
+            if not torch.equal(out, BN.bn_backward_sums(cl, x, mean, rstd)):
+                fail("K4: an NCHW dy and its channels_last copy differ")
+        elif B == TRAIN_BATCH:
+            main_err = max(main_err, float((out - ref).abs().max()))
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return main_err, summary
+
+
+# -- phases 6 and 7 ----------------------------------------------------------
 def randomize_(torch, model, seed: int) -> None:
     """Redraw every floating parameter and buffer from a numpy seed,
     keeping each tensor's init mean and spread (std 0.1 where the init is a
@@ -221,16 +394,54 @@ def caption_batch(torch, B, image_size, T, vocab, seed, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def plain_attention_copy(model, A, MultiHeadAttention):
-    """A copy of ``model`` whose attention calls the plain version."""
+def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
+    """A copy of ``model`` whose attention (forward and, through autograd,
+    backward) and BatchNorm backward sums call the plain versions."""
     twin = copy.deepcopy(model)
     for m in twin.modules():
         if isinstance(m, MultiHeadAttention):
             m.attention_fn = A.attention_reference
+        elif isinstance(m, SubsampledBatchNorm):
+            m.sums_fn = BN.bn_backward_sums_reference
     return twin
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 8 -----------------------------------------------------------------
+def launch_counts(A, BN) -> dict:
+    return {"K1": A.launch_count, "K2": A.bwd_launch_count,
+            "K4": BN.launch_count}
+
+
+def reset_counts(A, BN) -> None:
+    A.reset_launch_count()
+    BN.reset_launch_count()
+
+
+def train_batch(torch, spec, device, seed):
+    """(ACCUM, TRAIN_BATCH, ...) leaves: micro-batches of captions of varied
+    length, the JAX package's accumulation layout."""
+    flat = caption_batch(torch, ACCUM * TRAIN_BATCH, spec.image_size,
+                         spec.max_caption_length, spec.vocab_size, seed,
+                         device)
+    return {k: v.reshape((ACCUM, TRAIN_BATCH) + v.shape[1:])
+            for k, v in flat.items()}
+
+
+def bn_shape_counts(model, SubsampledBatchNorm):
+    """Record every BatchNorm input shape of the next forward: returns the
+    {shape: calls} dict it fills and a function that removes the hooks."""
+    counts = {}
+
+    def hook(module, inputs):
+        shape = tuple(inputs[0].shape)
+        counts[shape] = counts.get(shape, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, SubsampledBatchNorm)]
+    return counts, lambda: [h.remove() for h in handles]
+
+
+# -- phase 9 -----------------------------------------------------------------
 def cuda_ms(torch, fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     for _ in range(3):
@@ -302,6 +513,142 @@ def time_k1(torch, A, device, B, Tq, Tk, causal):
     return (k1 + k2) / 2, (p1 + p2) / 2, (e2 + e3) / 2, (e1 + e4) / 2
 
 
+def time_pair(torch, kernel, plain):
+    """Device ms per call of a kernel's wrapper and of its plain version,
+    by CUDA-graph replay, in turns (plain, kernel, kernel, plain)."""
+    p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel,
+                                                    plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_k2(torch, A, device, kind):
+    """K2 and the plain backward at the train step's ``kind`` of attention,
+    bf16, batch 128."""
+    q, k, v, g, mask = train_attention_inputs(torch, kind, torch.bfloat16,
+                                              device, SEED)
+    return time_pair(
+        torch, lambda: A._launch_bwd(q, k, v, mask, g, 0.0, 0),
+        lambda: A.attention_backward_reference(q, k, v, mask, g))
+
+
+def time_k4(torch, BN, device):
+    """K4 and the plain sums at the 12 ResNet-50 shapes, bf16, batch 128:
+    {(H, C): (kernel ms, plain ms)}."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    times = {}
+    for hw, C in R50_BN_SHAPES:
+        dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device, gen)
+        times[(hw, C)] = time_pair(
+            torch, lambda: BN.bn_backward_sums(dy, x, mean, rstd),
+            lambda: BN.bn_backward_sums_reference(dy, x, mean, rstd))
+    return times
+
+
+def check_train(torch, port, device):
+    """Phase 8. Returns what phase 9 times and the kernels line reads."""
+    A, BN = port.A, port.BN
+    spec = dataclasses.replace(port.ModelSpec.flagship(), textual_dropout=0.0)
+    torch.manual_seed(SEED)
+    model = port.CaptioningModel.from_spec(spec)
+    randomize_(torch, model, SEED)
+    model = model.to(device)
+    plain = plain_copy(model, A, BN, port.MultiHeadAttention,
+                       port.SubsampledBatchNorm)
+    optim = port.OptimSpec.flagship()
+    step = port.make_train_step(
+        model, port.build_optimizer(model.named_parameters(), optim), ACCUM)
+    plain_step = port.make_train_step(
+        plain, port.build_optimizer(plain.named_parameters(), optim), ACCUM)
+    batch = train_batch(torch, spec, device, SEED)
+
+    # First step, dropout 0: the kernels against the plain versions.
+    shapes, unhook = bn_shape_counts(model, port.SubsampledBatchNorm)
+    reset_counts(A, BN)             # a main path starts here
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    first_counts = launch_counts(A, BN)  # ... and ends here
+    unhook()
+    if first_counts != LAUNCHES_PER_STEP:
+        fail(f"train step launched {first_counts}, expected "
+             f"{LAUNCHES_PER_STEP}")
+    ref = {k: float(v) for k, v in plain_step(batch).items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"train step: non-finite metrics {metrics}")
+    for key in ref:
+        rtol = GRAD_NORM_RTOL if key == "grad_norm" else LOSS_RTOL
+        if not abs(metrics[key] - ref[key]) <= rtol * abs(ref[key]):
+            fail(f"train step: {key} {metrics[key]} with the kernels, "
+                 f"{ref[key]} with the plain versions (rtol {rtol})")
+    worst = {k: abs(metrics[k] - ref[k]) / abs(ref[k]) for k in ref}
+    say("8 train step", f"{spec.model_name} {spec.visual_name} "
+        f"{spec.textual_name} {spec.dtype}, micro-batch {TRAIN_BATCH} x "
+        f"accum {ACCUM}, dropout 0: kernels {json.dumps(metrics)}; plain "
+        f"{json.dumps(ref)}; relative gaps "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; "
+        f"launches {first_counts}")
+
+    # Five steps with dropout 0.1 and no warmup; Lookahead syncs at step 5.
+    spec01 = port.ModelSpec.flagship()
+    model5 = port.CaptioningModel.from_spec(spec01)
+    randomize_(torch, model5, SEED + 1)
+    model5 = model5.to(device)
+    opt5 = port.build_optimizer(model5.named_parameters(),
+                                dataclasses.replace(optim, warmup_steps=0))
+    if opt5.lookahead_k != TRAIN_STEPS:
+        fail(f"Lookahead k is {opt5.lookahead_k}, expected {TRAIN_STEPS}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    step5 = port.make_train_step(model5, opt5, ACCUM, generator=gen)
+    losses, counts5 = [], {k: 0 for k in LAUNCHES_PER_STEP}
+    for i in range(1, TRAIN_STEPS + 1):
+        slow_before = opt5.slow[0].clone()
+        reset_counts(A, BN)         # a main path starts here
+        loss = float(step5(batch)["loss"])
+        torch.cuda.synchronize()
+        counts = launch_counts(A, BN)  # ... and ends here
+        if counts != LAUNCHES_PER_STEP:
+            fail(f"train step {i} launched {counts}, expected "
+                 f"{LAUNCHES_PER_STEP}")
+        counts5 = {k: counts5[k] + counts[k] for k in counts}
+        if not np.isfinite(loss):
+            fail(f"train step {i}: loss {loss}")
+        losses.append(loss)
+        synced = not torch.equal(slow_before, opt5.slow[0])
+        if synced != (i == TRAIN_STEPS):
+            fail(f"train step {i}: Lookahead synced {synced}; expected a "
+                 f"sync at step {TRAIN_STEPS} only")
+    gap = max(float((p.detach() - s).abs().max())
+              for p, s in zip(opt5.params, opt5.slow))
+    if not gap <= 1e-5:
+        fail(f"after the Lookahead sync the weights are {gap} from the slow "
+             "weights")
+    say("8 train step", f"dropout 0.1, no warmup, {TRAIN_STEPS} steps: "
+        f"losses {losses}; Lookahead synced at step {TRAIN_STEPS} (weights "
+        f"within {gap:.1e} of the slow copy); launches per step "
+        f"{LAUNCHES_PER_STEP}")
+    del model5, opt5, step5
+    launches = {k: first_counts[k] + counts5[k] for k in counts5}
+    return step, plain_step, batch, shapes, launches
+
+
+def import_port():
+    """The port's entry points, as one namespace."""
+    from virtex_tpu_torch.config import ModelSpec, OptimSpec
+    from virtex_tpu_torch.engine.captioner import make_caption_fn
+    from virtex_tpu_torch.engine.evaluation import make_eval_step
+    from virtex_tpu_torch.engine.trainer import make_train_step
+    from virtex_tpu_torch.models.captioning import CaptioningModel
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    from virtex_tpu_torch.modules.transformer import MultiHeadAttention
+    from virtex_tpu_torch.ops import _build
+    from virtex_tpu_torch.ops import attention as A
+    from virtex_tpu_torch.ops import batchnorm as BN
+    from virtex_tpu_torch.optim.optimizer import build_optimizer
+    from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+    return types.SimpleNamespace(**locals())
+
+
 def main() -> None:
     try:
         import torch
@@ -311,19 +658,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     sys.path.insert(0, REPO)
     try:
-        from virtex_tpu_torch.config import ModelSpec
-        from virtex_tpu_torch.engine.captioner import make_caption_fn
-        from virtex_tpu_torch.engine.evaluation import make_eval_step
-        from virtex_tpu_torch.models.captioning import CaptioningModel
-        from virtex_tpu_torch.modules.transformer import MultiHeadAttention
-        from virtex_tpu_torch.ops import _build
-        from virtex_tpu_torch.ops import attention as A
-        from virtex_tpu_torch.utils.beam_search import (
-            AutoRegressiveBeamSearch,
-        )
+        port = import_port()
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
-    device = torch.device("cuda:0")
+    A, BN, _build = port.A, port.BN, port._build
+    device = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
 
     # 1. device
@@ -339,9 +678,12 @@ def main() -> None:
     _build.library()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines()
              if "registers" in ln or "smem" in ln]
-    say("2 build", f"K1 built from {os.path.relpath(_build.CSRC, REPO)} for "
-        f"sm_90a in {time.perf_counter() - t0:.1f} s (nvcc "
-        f"{_build.build_seconds or 0.0:.1f} s); ptxas: {' | '.join(ptxas)}")
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    say("2 build", f"{', '.join(sources)} built from "
+        f"{os.path.relpath(_build.CSRC, REPO)} for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc, one per source in "
+        f"parallel, and the link: {_build.build_seconds or 0.0:.1f} s); "
+        f"ptxas: {' | '.join(ptxas)}")
 
     # 3. K1 against the plain version
     k1_err, keep, summary = check_k1(torch, A, device)
@@ -349,49 +691,62 @@ def main() -> None:
         f" bf16 tol {TOL['bfloat16']:.0e}, atol {ATOL}): {summary}; "
         f"dropout keep {keep:.4f} at rate 0.1, seeded")
 
-    # 4. eval step, flagship at full width
-    spec = ModelSpec.flagship()
+    # 4. K2 against the plain version
+    k2_err, keep, summary = check_k2(torch, A, device)
+    say("4 K2", f"matches the plain version (fp32 tol {TOL['float32']:.0e},"
+        f" bf16 tol {TOL['bfloat16']:.0e}, atol {ATOL}): {summary}; K1's "
+        f"and K2's keep masks equal philox_keep_reference bit for bit "
+        f"(B {TRAIN_BATCH}, 16 heads, 30x49, keep {keep:.4f} at rate 0.1)")
+
+    # 5. K4 against the plain version
+    k4_err, summary = check_k4(torch, BN, device)
+    say("5 K4", f"matches the plain version (tol {K4_TOL:.0e} of sqrt(M)) "
+        f"and repeats its bits: {summary}")
+
+    # 6. eval step, flagship at full width
+    spec = port.ModelSpec.flagship()
     torch.manual_seed(SEED)
-    model = CaptioningModel.from_spec(spec)
+    model = port.CaptioningModel.from_spec(spec)
     randomize_(torch, model, SEED)
     model = model.to(device).eval()
-    plain_model = plain_attention_copy(model, A, MultiHeadAttention)
+    plain_model = plain_copy(model, A, BN, port.MultiHeadAttention,
+                             port.SubsampledBatchNorm)
     batch = caption_batch(torch, EVAL_BATCH, spec.image_size,
                           spec.max_caption_length, spec.vocab_size, SEED,
                           device)
-    eval_step = make_eval_step(model)
-    decoder = AutoRegressiveBeamSearch(spec.eos_index,
-                                       spec.max_decoding_steps,
-                                       spec.beam_size)
-    caption_fn = make_caption_fn(model, decoder, spec.sos_index,
-                                 spec.prefix_mode)
+    eval_step = port.make_eval_step(model)
+    decoder = port.AutoRegressiveBeamSearch(spec.eos_index,
+                                            spec.max_decoding_steps,
+                                            spec.beam_size)
+    caption_fn = port.make_caption_fn(model, decoder, spec.sos_index,
+                                      spec.prefix_mode)
     images = batch["image"]
 
-    A.reset_launch_count()          # the main path starts here
+    reset_counts(A, BN)             # a main path starts here
     metrics = eval_step(batch)
-    eval_launches = A.launch_count
+    eval_counts = launch_counts(A, BN)
     captions = caption_fn(images)
     torch.cuda.synchronize()
-    launches = A.launch_count       # ... and ends here
+    serve_counts = launch_counts(A, BN)  # ... and ends here
 
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in losses.values()):
         fail(f"eval step: non-finite losses {losses}")
-    if eval_launches != 4:
-        fail(f"eval step launched K1 {eval_launches} times, expected 4 "
-             "(self + cross attention in both caption directions)")
-    plain = {k: float(v) for k, v in make_eval_step(plain_model)(batch)
+    if eval_counts != {"K1": 4, "K2": 0, "K4": 0}:
+        fail(f"eval step launched {eval_counts}, expected 4 K1 launches "
+             "(self + cross attention in both caption directions) only")
+    plain = {k: float(v) for k, v in port.make_eval_step(plain_model)(batch)
              .items()}
     worst = max(abs(losses[k] - plain[k]) / abs(plain[k]) for k in plain)
     if not worst <= LOSS_RTOL:
         fail(f"eval step: K1 losses {losses} vs plain {plain}, relative "
              f"{worst:.2e} > {LOSS_RTOL}")
-    say("4 eval step", f"{spec.model_name} {spec.visual_name} "
+    say("6 eval step", f"{spec.model_name} {spec.visual_name} "
         f"{spec.textual_name} {spec.dtype} B={EVAL_BATCH}: losses "
         f"{json.dumps(losses)}; plain attention {json.dumps(plain)} "
-        f"(rel {worst:.2e} <= {LOSS_RTOL}); K1 launches {eval_launches}")
+        f"(rel {worst:.2e} <= {LOSS_RTOL}); K1 launches {eval_counts['K1']}")
 
-    # 5. captioning
+    # 7. captioning
     if tuple(captions.shape) != (EVAL_BATCH, spec.max_decoding_steps):
         fail(f"captions have shape {tuple(captions.shape)}")
     if captions.dtype not in (torch.int32, torch.int64):
@@ -399,43 +754,95 @@ def main() -> None:
     lo, hi = int(captions.min()), int(captions.max())
     if lo < 0 or hi >= spec.vocab_size:
         fail(f"caption ids outside [0, {spec.vocab_size}): {lo}..{hi}")
-    if launches != eval_launches:
-        fail(f"beam search launched K1 {launches - eval_launches} times; "
-             "its decode path uses plain attention")
-    say("5 captioning", f"beam K={spec.beam_size}, {spec.max_decoding_steps}"
+    if serve_counts != eval_counts:
+        fail(f"beam search launched kernels ({serve_counts} after the eval "
+             f"step's {eval_counts}); its decode path uses plain attention")
+    say("7 captioning", f"beam K={spec.beam_size}, {spec.max_decoding_steps}"
         f" steps: tokens {tuple(captions.shape)} {captions.dtype}, ids in "
         f"[{lo}, {hi}]; first caption {captions[0, :10].tolist()}")
 
-    # 6. timings
+    # 8. train step
+    train_step, plain_train_step, tbatch, bn_shapes, train_launches = \
+        check_train(torch, port, device)
+
+    # 9. timings
     shapes = {"self B32": (EVAL_BATCH, 30, 30, True),
               "cross B32": (EVAL_BATCH, 30, 49, False),
-              "self B128": (128, 30, 30, True),
-              "cross B128": (128, 30, 49, False)}
+              "self B128": (TRAIN_BATCH, 30, 30, True),
+              "cross B128": (TRAIN_BATCH, 30, 49, False)}
     k1_times = {name: time_k1(torch, A, device, *shape)
                 for name, shape in shapes.items()}
+    k2_times = {kind: time_k2(torch, A, device, kind)
+                for kind in ("self", "cross")}
+    k4_times = time_k4(torch, BN, device)
+    # K4 per train step: each BatchNorm input shape of the step's forward
+    # passes, (B, C, H, W), times the device ms at its (H, C).
+    k4_step = [sum(n * k4_times[(s[2], s[1])][i] for s, n in bn_shapes.items())
+               for i in (0, 1)]
+    bn_calls = sum(bn_shapes.values())
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
+    step_ms = [host_ms(torch, lambda f=f: f(tbatch), 2, warmup=1)
+               for f in (plain_train_step, train_step, train_step,
+                         plain_train_step)]
+    kernel_step_ms = (step_ms[1] + step_ms[2]) / 2
+    plain_step_ms = (step_ms[0] + step_ms[3]) / 2
+    images_per_step = ACCUM * TRAIN_BATCH
     card = card_line()
     k1_text = "; ".join(
         f"{name} {t[0]:.4f} vs {t[1]:.4f} (eager {t[2]:.4f} vs {t[3]:.4f})"
         for name, t in k1_times.items())
-    say("6 timings", f"{card} | K1 vs plain, bf16, device ms per call: "
+    k2_text = "; ".join(f"{kind} B{TRAIN_BATCH} {t[0]:.4f} vs {t[1]:.4f}"
+                        for kind, t in k2_times.items())
+    k4_text = "; ".join(f"{hw}x{hw}x{C} {t[0]:.4f} vs {t[1]:.4f}"
+                        for (hw, C), t in k4_times.items())
+    say("9 timings", f"{card} | K1 vs plain, bf16, device ms per call: "
         f"{k1_text} | eval step B{EVAL_BATCH} {eval_ms:.2f} ms = "
         f"{EVAL_BATCH / eval_ms * 1e3:.1f} img/s | beam captioning "
         f"B{EVAL_BATCH} {caption_ms:.1f} ms per batch")
+    say("9 timings", f"{card} | K2 vs plain, bf16, device ms per call: "
+        f"{k2_text} | K4 vs plain, bf16 B{TRAIN_BATCH}, device ms per call: "
+        f"{k4_text}; per train step ({bn_calls} calls) {k4_step[0]:.3f} vs "
+        f"{k4_step[1]:.3f}")
+    say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "
+        f"accum {ACCUM}, bf16, host ms per step (plain, kernels, kernels, "
+        f"plain): {', '.join(f'{t:.1f}' for t in step_ms)} | kernels "
+        f"{kernel_step_ms:.1f} ms = "
+        f"{images_per_step / kernel_step_ms * 1e3:.1f} img/s; plain "
+        f"{plain_step_ms:.1f} ms = "
+        f"{images_per_step / plain_step_ms * 1e3:.1f} img/s")
 
-    # ms: K1's device time per call, the mean over the eval step's
-    # launches (one self- and one cross-attention per direction, B=32).
-    main = [k1_times["self B32"], k1_times["cross B32"]]
+    # ms: K1 as in the eval step (mean of its self and cross launches at
+    # B32); K2 the mean of the train step's self and cross launches (B128);
+    # K4 the mean over one train step's launches.
+    eval_k1 = [k1_times["self B32"], k1_times["cross B32"]]
     print(json.dumps({"kernels": [{
         "name": "K1 attention_fwd",
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:87",
-        "launches": launches,
+        "launches": serve_counts["K1"] + train_launches["K1"],
         "max_abs_err": k1_err,
-        "ms": sum(t[0] for t in main) / 2,
-        "plain_ms": sum(t[1] for t in main) / 2,
+        "ms": sum(t[0] for t in eval_k1) / 2,
+        "plain_ms": sum(t[1] for t in eval_k1) / 2,
+    }, {
+        "name": "K2 attention_bwd",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/attention_bwd.cu",
+        "replaces": "virtex_tpu/ops/attention.py:103",
+        "launches": train_launches["K2"],
+        "max_abs_err": k2_err,
+        "ms": sum(t[0] for t in k2_times.values()) / 2,
+        "plain_ms": sum(t[1] for t in k2_times.values()) / 2,
+    }, {
+        "name": "K4 bn_backward_sums",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
+        "replaces": "virtex_tpu/ops/batchnorm.py:128",
+        "launches": train_launches["K4"],
+        "max_abs_err": k4_err,
+        "ms": k4_step[0] / bn_calls,
+        "plain_ms": k4_step[1] / bn_calls,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

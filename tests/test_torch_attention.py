@@ -184,8 +184,8 @@ def test_kernel_refuses_what_it_does_not_take_on_card(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         A.fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                           k, v)
-    with pytest.raises(NotImplementedError, match="backward"):
-        A.fused_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError, match="different devices"):
+        A.fused_attention(q, k.cpu(), v)
 
 
 @pytest.mark.cuda

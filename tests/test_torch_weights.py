@@ -88,6 +88,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.config",
     "virtex_tpu_torch.ops._build",
     "virtex_tpu_torch.ops.attention",
+    "virtex_tpu_torch.ops.batchnorm",
     "virtex_tpu_torch.modules.normalization",
     "virtex_tpu_torch.modules.resnet",
     "virtex_tpu_torch.modules.visual_backbones",
@@ -99,6 +100,9 @@ SLICE_MODULES = [
     "virtex_tpu_torch.utils.weights",
     "virtex_tpu_torch.engine.captioner",
     "virtex_tpu_torch.engine.evaluation",
+    "virtex_tpu_torch.engine.trainer",
+    "virtex_tpu_torch.optim.lr_schedules",
+    "virtex_tpu_torch.optim.optimizer",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "tokenizers",
              "virtex_tpu")

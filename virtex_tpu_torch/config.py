@@ -1,18 +1,19 @@
 r"""
-The model description that the inference slice reads.
+The model and optimizer descriptions that the port reads.
 
 Counterpart of :class:`virtex_tpu.config.Config`, cut to the keys that
-building and running a captioning model needs. It reads no yaml:
+building, running and training a captioning model need. It reads no yaml:
 :meth:`ModelSpec.flagship` builds the flagship ``bicaptioning_R_50_L1_H1024``
-in code, and :meth:`ModelSpec.from_config` copies the keys out of a
-``virtex_tpu.config.Config`` (duck-typed, so this module imports nothing of
-the JAX package).
+in code, :class:`OptimSpec` holds the ``OPTIM.*`` keys with the JAX
+package's defaults (the flagship trains with them), and the
+``from_config`` methods copy the keys out of a ``virtex_tpu.config.Config``
+(duck-typed, so this module imports nothing of the JAX package).
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 
@@ -117,3 +118,52 @@ class ModelSpec:
     @property
     def caption_backward(self) -> bool:
         return self.model_name in BIDIRECTIONAL_MODELS
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimSpec:
+    """The ``OPTIM.*`` keys of the optimizer chain and its LR schedule
+    (``virtex_tpu/config.py``), defaults included. The batch size and the
+    accumulation count are the train step's to take."""
+    optimizer_name: str = "sgd"
+    sgd_momentum: float = 0.9
+    weight_decay: float = 0.0001
+    no_decay: str = ".*textual.(embedding|transformer).*(norm.*|bias)"
+    clip_grad_norm: float = 10.0
+    lookahead_use: bool = True
+    lookahead_alpha: float = 0.5
+    lookahead_steps: int = 5
+    cnn_lr: float = 0.2
+    lr: float = 0.001
+    num_iterations: int = 500000
+    warmup_steps: int = 10000
+    lr_decay_name: str = "cosine"
+    lr_steps: Tuple[int, ...] = ()
+    lr_gamma: float = 0.1
+
+    @classmethod
+    def flagship(cls) -> "OptimSpec":
+        """The flagship's optimizer: ``_flagship_config()`` keeps every
+        ``OPTIM`` default."""
+        return cls()
+
+    @classmethod
+    def from_config(cls, cfg: Any) -> "OptimSpec":
+        O = cfg.OPTIM
+        return cls(
+            optimizer_name=O.OPTIMIZER_NAME,
+            sgd_momentum=float(O.SGD_MOMENTUM),
+            weight_decay=float(O.WEIGHT_DECAY),
+            no_decay=O.NO_DECAY,
+            clip_grad_norm=float(O.CLIP_GRAD_NORM),
+            lookahead_use=bool(O.LOOKAHEAD.USE),
+            lookahead_alpha=float(O.LOOKAHEAD.ALPHA),
+            lookahead_steps=int(O.LOOKAHEAD.STEPS),
+            cnn_lr=float(O.CNN_LR),
+            lr=float(O.LR),
+            num_iterations=int(O.NUM_ITERATIONS),
+            warmup_steps=int(O.WARMUP_STEPS),
+            lr_decay_name=O.LR_DECAY_NAME,
+            lr_steps=tuple(int(s) for s in O.LR_STEPS),
+            lr_gamma=float(O.LR_GAMMA),
+        )

@@ -39,47 +39,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
+using namespace virtex;
+
 constexpr int kWarps = 4;
-constexpr float kMaskedLogit = -1e9f;  // virtex_tpu NEG_INF, not -inf
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-struct Strides {  // in elements; the D stride is 1
-  long long b, t, n;
-};
-
-struct MaskStrides {  // in elements of a 1-byte bool tensor
-  long long b, h, q, k;
-};
 
 size_t smem_bytes(int Tk, int D) {
   return sizeof(float) *
@@ -170,11 +137,15 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            Strides sk, Strides sv, MaskStrides sm, float scale, float rate,
            uint32_t threshold, uint32_t seed, cudaStream_t stream) {
   const size_t smem = smem_bytes(Tk, D);
-  if (smem > 48 * 1024) {
+  // Above 48 KB a kernel must opt in; once per size reached, so a launch
+  // inside a CUDA-graph capture makes no attribute call.
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = smem;
   }
   attention_fwd_kernel<T><<<B * N, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -199,9 +170,9 @@ int virtex_attention_fwd(const void* q, const void* k, const void* v,
                          long long m_sh, long long m_sq, long long m_sk,
                          float scale, float rate, unsigned int threshold,
                          unsigned int seed, void* stream) {
-  const Strides sq{q_sb, q_st, q_sn}, sk{k_sb, k_st, k_sn},
+  const virtex::Strides sq{q_sb, q_st, q_sn}, sk{k_sb, k_st, k_sn},
       sv{v_sb, v_st, v_sn};
-  const MaskStrides sm{m_sb, m_sh, m_sq, m_sk};
+  const virtex::MaskStrides sm{m_sb, m_sh, m_sq, m_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k, v, mask, out, B, Tq, Tk, N, D, sq, sk,

@@ -1,0 +1,61 @@
+r"""
+The train step.
+
+Counterpart of ``virtex_tpu/engine/trainer.py`` :func:`make_train_step`.
+One call is one optimizer update: the model runs in train mode (BatchNorm
+on batch statistics, dropout on), its loss is backpropagated, and the
+optimizer chain (:mod:`virtex_tpu_torch.optim.optimizer`) takes one step.
+
+With ``accum_steps > 1`` every batch leaf carries a leading micro-step
+axis ``(accum_steps, batch, ...)``, as in the JAX package. The micro-batches
+run in sequence: each updates the BatchNorm running statistics in turn,
+their gradients are summed into ``.grad`` and divided by ``accum_steps``,
+and one update follows. Activation memory is one micro-batch's.
+
+Dropout draws from ``generator`` (a :class:`torch.Generator` on the
+model's device), which advances with every micro-step, so a run is
+reproducible from its seed. Its bits are not the JAX package's threefry
+bits.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from virtex_tpu_torch.optim.optimizer import Optimizer
+
+Batch = Dict[str, torch.Tensor]
+
+
+def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """``batch → {"loss", "grad_norm", <component>: …}``, each an fp32
+    scalar on the model's device: the loss and its components averaged
+    over the micro-batches, and the global norm of the averaged gradient
+    before clipping."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.train()
+        model.zero_grad(set_to_none=True)
+        losses, comps = [], {}
+        for i in range(accum_steps):
+            micro = (batch if accum_steps == 1
+                     else {k: v[i] for k, v in batch.items()})
+            out = model(micro, generator=generator)
+            out["loss"].backward()  # sums into .grad
+            losses.append(out["loss"].detach().float())
+            for k, v in out["loss_components"].items():
+                comps.setdefault(k, []).append(v.detach().float())
+        if accum_steps > 1:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            torch._foreach_div_(grads, float(accum_steps))
+        grad_norm = optimizer.step()
+        metrics = {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm}
+        metrics.update({k: torch.stack(v).mean() for k, v in comps.items()})
+        return metrics
+
+    return train_step

@@ -3,8 +3,9 @@ Captioning pretext-task models (forward-only and bidirectional = VirTex).
 
 Counterpart of ``virtex_tpu/models/captioning.py``: the loss is the
 token cross-entropy of ``logits[:, :-1]`` against ``tokens[:, 1:]``
-over non-pad targets, in fp32; bicaptioning adds the same loss on the
-reversed tokens through ``backward_textual``. In eval mode the output
+over non-pad targets, in fp32, with the JAX package's hand-written
+gradient; bicaptioning adds the same loss on the reversed tokens through
+``backward_textual``. In training, ``generator`` draws the dropout bits. In eval mode the output
 also holds the argmax predictions. ``encode_visual`` / ``init_decode`` /
 ``decode_step`` serve the caption decoder.
 """
@@ -21,16 +22,35 @@ from virtex_tpu_torch.modules.transformer import Cache
 from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
 
 
+class _TokenCE(torch.autograd.Function):
+    """The JAX package's ``_token_ce`` custom VJP: the loss is reduced in
+    fp32 as logsumexp − target logit, and the gradient
+    (softmax − onehot)·g·mask/denom is emitted in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, ignore_index):
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0].float()
+        mask = (targets != ignore_index).float()
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(logits, targets, lse, mask, denom)
+        return ((lse - tgt) * mask).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, lse, mask, denom = ctx.saved_tensors
+        scale = (g * mask / denom)[..., None]
+        # softmax in a new fp32 tensor (torch.sub allocates), then − onehot
+        d = torch.sub(logits, lse[..., None]).exp_()
+        d.scatter_add_(-1, targets[..., None], -torch.ones_like(scale))
+        return d.mul_(scale).to(logits.dtype), None, None
+
+
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                         ignore_index: int) -> torch.Tensor:
     """Mean CE over targets ≠ ``ignore_index``, reduced in fp32 as
     logsumexp − target logit (no (B, T, V) log-prob tensor)."""
-    targets = targets.long()
-    lse = torch.logsumexp(logits.float(), dim=-1)
-    tgt = logits.gather(-1, targets[..., None])[..., 0].float()
-    mask = (targets != ignore_index).float()
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return ((lse - tgt) * mask).sum() / denom
+    return _TokenCE.apply(logits, targets.long(), int(ignore_index))
 
 
 class CaptioningModel(nn.Module):
@@ -71,17 +91,19 @@ class CaptioningModel(nn.Module):
                    sos_index=spec.sos_index, eos_index=spec.eos_index,
                    padding_idx=spec.unk_index)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
         visual_grid = self.visual(batch["image"])
         tokens, lengths = batch["caption_tokens"], batch["caption_lengths"]
-        logits = self.textual(visual_grid, tokens, lengths)
+        logits = self.textual(visual_grid, tokens, lengths, generator)
         loss = token_cross_entropy(logits[:, :-1], tokens[:, 1:],
                                    self.padding_idx)
         components = {"captioning_forward": loss}
         if self.caption_backward:
             noitpac = batch["noitpac_tokens"]
             backward_logits = self.backward_textual(visual_grid, noitpac,
-                                                    lengths)
+                                                    lengths, generator)
             backward_loss = token_cross_entropy(
                 backward_logits[:, :-1], noitpac[:, 1:], self.padding_idx)
             components["captioning_backward"] = backward_loss

@@ -3,15 +3,20 @@ Word + positional embedding for caption tokens.
 
 Counterpart of ``virtex_tpu/modules/embedding.py``: word and position
 tables summed in the compute dtype, LayerNorm (eps 1e-8) in fp32 and cast
-back, dropout, then pad positions zeroed. :meth:`attend` is the
+back, dropout (bits from the caller's ``generator``), then pad positions
+zeroed. :meth:`attend` is the
 weight-tied output projection. ``position_offset`` serves KV-cached
 decoding, where one token sits at a later position.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from virtex_tpu_torch.modules.transformer import dropout
 
 
 class WordAndPositionalEmbedding(nn.Module):
@@ -29,8 +34,8 @@ class WordAndPositionalEmbedding(nn.Module):
         with torch.no_grad():
             self.words.weight[padding_idx].zero_()
 
-    def forward(self, tokens: torch.Tensor,
-                position_offset: int = 0) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, position_offset: int = 0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Embed ``tokens`` (B, T) → (B, T, H) in the compute dtype."""
         T = tokens.shape[-1]
         pos = torch.arange(T, device=tokens.device) + position_offset
@@ -39,7 +44,7 @@ class WordAndPositionalEmbedding(nn.Module):
         ln = self.layer_norm
         x = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                          ln.eps).to(self.dtype)
-        x = F.dropout(x, self.dropout, self.training)
+        x = dropout(x, self.dropout if self.training else 0.0, generator)
         return x * (tokens != self.padding_idx).unsqueeze(-1).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:

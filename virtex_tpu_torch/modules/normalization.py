@@ -9,7 +9,11 @@ Counterpart of ``virtex_tpu/modules/normalization.py``
   as torch's ``BatchNorm2d`` does, and normalization uses the biased one;
 - ``momentum`` keeps the flax convention: 0.9 here is torch's 0.1;
 - the output is computed in ``dtype``: ``(x − mean) · (γ·rsqrt(var+ε))``
-  with the fp32 factor cast to ``dtype``, then ``+ β``.
+  with the fp32 factor cast to ``dtype``, then ``+ β``;
+- in training the forward and backward are
+  :func:`virtex_tpu_torch.ops.batchnorm.bn_train`, whose backward takes its
+  channel sums from ``sums_fn`` (kernel K4 on CUDA; a comparison against
+  the plain version swaps it by name).
 
 Channels sit on dim 1 (NCHW, usually a ``channels_last`` view of NHWC
 memory). Parameter and buffer names are torch's (``weight``, ``bias``,
@@ -19,6 +23,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from virtex_tpu_torch.ops.batchnorm import (
+    bn_apply,
+    bn_backward_sums,
+    bn_train,
+)
 
 
 class SubsampledBatchNorm(nn.Module):
@@ -39,6 +49,7 @@ class SubsampledBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.sums_fn = bn_backward_sums
 
     def _update_running(self, mean, var, n: int) -> None:
         m = self.momentum
@@ -50,17 +61,11 @@ class SubsampledBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         C = x.shape[1]
-        shape = (1, C) + (1,) * (x.dim() - 2)
         if self.training:
-            dims = [d for d in range(x.dim()) if d != 1]
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
-            self._update_running(mean.detach(), var.detach(), x.numel() // C)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = (1.0 / torch.sqrt(var + self.eps)) * self.weight
-        y = x.to(self.dtype)
-        y = (y - mean.reshape(shape).to(self.dtype)) \
-            * mul.reshape(shape).to(self.dtype)
-        return y + self.bias.reshape(shape).to(self.dtype)
+            y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
+                                    self.dtype, self.sums_fn)
+            self._update_running(mean, var, x.numel() // C)
+            return y
+        rstd = 1.0 / torch.sqrt(self.running_var + self.eps)
+        return bn_apply(x, self.running_mean, rstd, self.weight, self.bias,
+                        self.dtype)

@@ -78,13 +78,16 @@ class TransformerTextualHead(nn.Module):
         return (logits.float() + self.output.bias).to(logits.dtype)
 
     # -- full-sequence forward -----------------------------------------------
-    def forward(self, visual_grid, caption_tokens, caption_lengths):
-        """(B,Hg,Wg,C), (B,T), (B,) → (B, T, vocab)."""
+    def forward(self, visual_grid, caption_tokens, caption_lengths,
+                generator: Optional[torch.Generator] = None):
+        """(B,Hg,Wg,C), (B,T), (B,) → (B, T, vocab). ``generator`` draws
+        the dropout bits in training."""
         visual = self.project_visual(visual_grid)
-        x = self.embedding(caption_tokens)
+        x = self.embedding(caption_tokens, generator=generator)
         mask = make_self_attention_mask(caption_tokens, caption_lengths,
                                         causal=self.mask_future_positions)
-        return self.output_logits(self.transformer(x, visual, mask))
+        return self.output_logits(self.transformer(x, visual, mask,
+                                                   generator))
 
     # -- KV-cached decode ----------------------------------------------------
     def init_decode(self, visual_grid, max_length: Optional[int] = None

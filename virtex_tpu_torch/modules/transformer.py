@@ -13,6 +13,11 @@ reference's state dicts load unchanged.
 Numerics follow the JAX package: fp32 parameters, dense layers computed in
 ``dtype``, LayerNorm in fp32 and cast back, fp32 softmax, masked logits at
 −1e9. The decode caches are written in place.
+
+Dropout in training draws every bit from the :class:`torch.Generator` the
+caller passes down (``generator=``): the sublayer and FFN masks, and the
+seed of the attention kernel's in-kernel dropout. Training with dropout
+and no generator raises, so a step is reproducible from its seed.
 """
 from __future__ import annotations
 
@@ -42,6 +47,20 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout, as flax's: keep where u >= ``rate`` with u drawn
+    from ``generator`` (on x's device), kept values scaled by 1/(1 − rate).
+    The identity at rate 0."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator "
+                         "(generator=)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -105,10 +124,17 @@ class MultiHeadAttention(nn.Module):
         B, T, N, D = ctx.shape
         return self.out_proj(ctx.reshape(B, T, N * D))
 
-    def forward(self, q_in, kv_in, mask=None):
+    def forward(self, q_in, kv_in, mask=None,
+                generator: Optional[torch.Generator] = None):
         q, k, v = self._qkv(q_in, kv_in)
         rate = self.dropout if self.training else 0.0
-        seed = int(torch.randint(2**31 - 1, ())) if rate > 0.0 else None
+        seed = None
+        if rate > 0.0:
+            if generator is None:
+                raise ValueError("attention dropout in training needs a "
+                                 "torch.Generator (generator=)")
+            seed = torch.randint(2**31 - 1, (), generator=generator,
+                                 device=generator.device)
         ctx = self.attention_fn(q, k, v, mask, dropout_rate=rate,
                                 dropout_seed=seed)
         return self._out(ctx.to(self.dtype))
@@ -160,23 +186,30 @@ class DecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.norm3 = nn.LayerNorm(hidden_size, eps=1e-5)
 
-    def _drop(self, x):
-        return F.dropout(x, self.dropout, self.training)
+    def _drop(self, x, generator):
+        return dropout(x, self.dropout if self.training else 0.0, generator)
 
-    def ffn(self, x):
-        return self.linear2(self._drop(F.gelu(self.linear1(x))))
+    def ffn(self, x, generator: Optional[torch.Generator] = None):
+        return self.linear2(self._drop(F.gelu(self.linear1(x)), generator))
 
-    def _sub(self, norm, x, fn):
+    def _sub(self, norm, x, fn, generator):
         """A sublayer with its residual, in pre- or post-norm order."""
         if self.norm_type == "pre":
-            return x + self._drop(fn(layer_norm(norm, x).to(self.dtype)))
-        return layer_norm(norm, x + self._drop(fn(x))).to(self.dtype)
+            return x + self._drop(fn(layer_norm(norm, x).to(self.dtype)),
+                                  generator)
+        return layer_norm(norm, x + self._drop(fn(x), generator)).to(
+            self.dtype)
 
-    def forward(self, x, visual, self_mask=None):
-        x = self._sub(self.norm1, x, lambda h: self.self_attn(h, h, self_mask))
+    def forward(self, x, visual, self_mask=None,
+                generator: Optional[torch.Generator] = None):
+        x = self._sub(self.norm1, x,
+                      lambda h: self.self_attn(h, h, self_mask, generator),
+                      generator)
         x = self._sub(self.norm2, x,
-                      lambda h: self.multihead_attn(h, visual, None))
-        return self._sub(self.norm3, x, self.ffn)
+                      lambda h: self.multihead_attn(h, visual, None,
+                                                    generator), generator)
+        return self._sub(self.norm3, x, lambda h: self.ffn(h, generator),
+                         generator)
 
     def init_cache(self, visual, batch: int, max_length: int) -> Cache:
         """Empty self-attention K/V plus the visual tokens' cross K/V."""
@@ -231,9 +264,10 @@ class TransformerDecoder(nn.Module):
         return x if self.norm is None else layer_norm(self.norm, x).to(
             self.dtype)
 
-    def forward(self, x, visual, self_mask=None):
+    def forward(self, x, visual, self_mask=None,
+                generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, visual, self_mask)
+            x = layer(x, visual, self_mask, generator)
         return self._final(x)
 
     def init_cache(self, visual, batch: int, max_length: int) -> List[Cache]:

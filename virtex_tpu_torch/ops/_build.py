@@ -1,12 +1,13 @@
 r"""
 Builds the package's CUDA kernels with ``nvcc`` and loads them with ctypes.
 
-Every ``csrc/*.cu`` is compiled, at first use, into one shared library
-with a plain C interface, for Hopper only
-(``-gencode arch=compute_90a,code=sm_90a``). The library goes into
-``build/kernels/`` beside the package, named by a hash of the sources and
-the flags, so an edited source is rebuilt and an unchanged one is not.
-Nothing here runs when the module is imported.
+Every ``csrc/*.cu`` is compiled, at first use, for Hopper only
+(``-gencode arch=compute_90a,code=sm_90a``): one ``nvcc`` per source, all
+started together, then one link into a shared library with a plain C
+interface. The library goes into ``build/kernels/`` beside the package,
+named by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is not. Nothing here runs when the module is
+imported.
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _U32 = ctypes.c_float, ctypes.c_uint32
 # restype, argtypes of every exported C function.
 SIGNATURES = {
     "virtex_attention_fwd": (
@@ -36,10 +38,27 @@ SIGNATURES = {
              _LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
              _LL, _LL, _LL,                 # v strides
              _LL, _LL, _LL, _LL,            # mask strides (b, h, q, k)
-             ctypes.c_float, ctypes.c_float,    # scale, rate
-             ctypes.c_uint32, ctypes.c_uint32,  # threshold, seed
-             _P]),                              # stream
+             _F, _F,                        # scale, rate
+             _U32, _U32,                    # threshold, seed
+             _P]),                          # stream
     "virtex_attention_fwd_smem_bytes": (ctypes.c_ulonglong, [_I, _I]),
+    "virtex_attention_bwd": (
+        _I, [_P, _P, _P, _P, _P,            # q, k, v, mask, g
+             _P, _P, _P,                    # dq, dk, dv
+             _I, _I, _I, _I, _I, _I,        # B, Tq, Tk, N, D, is_bf16
+             _LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
+             _LL, _LL, _LL, _LL, _LL, _LL,  # v and g strides
+             _LL, _LL, _LL, _LL,            # mask strides (b, h, q, k)
+             _F, _F,                        # scale, rate
+             _U32, _U32,                    # threshold, seed
+             _P]),                          # stream
+    "virtex_attention_bwd_smem_bytes": (ctypes.c_ulonglong, [_I, _I, _I]),
+    "virtex_bn_backward_sums": (
+        _I, [_P, _P, _P, _P,                # dy, x, mean, rstd
+             _P, _P,                        # partial (chunks, 2, C), out
+             _LL, _I, _I,                   # M, C, chunks
+             _I, _I,                        # dy_is_bf16, x_is_bf16
+             _P]),                          # stream
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -73,22 +92,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvirtex_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all; raise on the first that
+    failed. Returns their stderr texts."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
+
+
 def _compile(out: Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                         str(src)])
+        logs = _run_all(cmds)
+        tmp = os.path.join(tmpdir, out.name)
+        _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr
+    build_log = "".join(logs)
 
 
 def library() -> ctypes.CDLL:

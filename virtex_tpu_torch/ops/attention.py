@@ -1,14 +1,24 @@
 r"""
-Fused scaled-dot-product attention: kernel K1 and its plain version.
+Fused scaled-dot-product attention: kernels K1 (forward) and K2 (backward)
+and their plain versions.
 
 Counterpart of ``virtex_tpu/ops/attention.py``: :func:`fused_attention`
 keeps the contract of the JAX ``fused_attention`` (layouts, mask, dropout
-seed), and :func:`attention_reference` is the math of its
-``xla_attention`` plus dropout from an explicit :class:`torch.Generator`.
+seed), :func:`attention_reference` is the math of its ``xla_attention``
+plus dropout from an explicit :class:`torch.Generator`, and
+:func:`attention_backward_reference` is the math of its backward kernel
+given an explicit keep mask.
 
-On a CPU tensor :func:`fused_attention` computes the plain version. On a
-CUDA tensor it launches K1 (``csrc/attention_fwd.cu``) or raises; there is
-no fallback. :data:`launch_count` counts K1 launches.
+On a CPU tensor :func:`fused_attention` computes the plain version, and
+autograd differentiates it. On a CUDA tensor it launches K1
+(``csrc/attention_fwd.cu``), whose gradient launches K2
+(``csrc/attention_bwd.cu``), or raises; there is no fallback.
+:data:`launch_count` counts K1 launches and :data:`bwd_launch_count` K2's.
+
+Dropout on the card draws from Philox4x32-10 (``csrc/philox.cuh``), keyed
+on (seed, b) and counted on (head, q, k), so K2 regenerates K1's keep
+mask; :func:`philox_keep_reference` computes that mask in torch integer
+ops, bit for bit.
 
 Layouts: q (B, Tq, N, D); k, v (B, Tk, N, D); bool mask (B, 1|N, Tq, Tk),
 True = attend. Returns (B, Tq, N, D) in q's dtype.
@@ -16,7 +26,7 @@ True = attend. Returns (B, Tq, N, D) in q's dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -25,16 +35,32 @@ MAX_SMEM_BYTES = 227 * 1024  # shared memory one Hopper block can use
 
 Seed = Union[int, torch.Tensor, None]
 
-launch_count = 0  # K1 launches since import or the last reset
+launch_count = 0      # K1 launches since import or the last reset
+bwd_launch_count = 0  # K2 launches since import or the last reset
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    """Zero the K1 and K2 launch counts."""
+    global launch_count, bwd_launch_count
+    launch_count = bwd_launch_count = 0
 
 
 def _seed_int(seed: Seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+def _threshold(rate: float) -> int:
+    """Keep iff the 32-bit word, read unsigned, is >= ceil(rate * 2^32)."""
+    return min(2**32 - 1, math.ceil(rate * 2**32))
+
+
+def _logits(q, k, mask):
+    """fp32 S = QKᵀ/√D, −1e9 where the mask is False: (B, N, Tq, Tk)."""
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    s = s / math.sqrt(q.shape[-1])
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,12 +70,7 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain PyTorch attention: fp32 logits and softmax, P cast to v's
     dtype, P·V accumulated in fp32. Dropout keeps where u >= rate, with u
     drawn from a generator seeded by ``dropout_seed``."""
-    depth = q.shape[-1]
-    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
-    s = s / math.sqrt(depth)
-    if mask is not None:
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_logits(q, k, mask), dim=-1)
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError("attention_reference: dropout_rate > 0 "
@@ -64,6 +85,87 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor], g: torch.Tensor,
+        keep: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2 (the JAX ``_bwd_kernel``), all in fp32: P is
+    recomputed, ``keep`` (bool (B, N, Tq, Tk), or None for no dropout)
+    drops with scale 1/(1 − rate), and dq, dk, dv come out in q's, k's and
+    v's dtype."""
+    p = torch.softmax(_logits(q, k, mask), dim=-1)
+    gf, vf = g.float(), v.float()
+    dp = torch.einsum("bqnd,bknd->bnqk", gf, vf)
+    if keep is not None:
+        inv = 1.0 / (1.0 - dropout_rate)
+        zero = torch.zeros_like(p)
+        pd = torch.where(keep, p * inv, zero)
+        dp = torch.where(keep, dp * inv, zero)
+    else:
+        pd = p
+    dv = torch.einsum("bnqk,bqnd->bknd", pd, gf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if mask is not None:
+        ds = torch.where(mask, ds, torch.zeros_like(ds))
+    ds = ds / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, k.float())
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- Philox4x32-10 in torch integer ops (csrc/philox.cuh) ---------------------
+_MUL = (0xD2511F53, 0xCD9E8D57)
+_WEYL = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(m: int, x: torch.Tensor):
+    """High and low 32-bit words of m·x for m, x < 2³², from 16-bit halves
+    so that no int64 product overflows."""
+    ml, mh = m & 0xFFFF, m >> 16
+    xl, xh = x & 0xFFFF, x >> 16
+    ll, lh, hl, hh = ml * xl, ml * xh, mh * xl, mh * xh
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = hh + (lh >> 16) + (hl >> 16) + (mid >> 16)
+    return hi, lo
+
+
+def philox4x32_10(counter: Sequence, key: Sequence) -> Tuple:
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words:
+    counter (c0, c1, c2, c3), key (k0, k1) → four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_MUL[0], c0)
+        hi1, lo1 = _mulhilo32(_MUL[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _WEYL[0]) & _MASK32
+        k1 = (k1 + _WEYL[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_keep_reference(seed: Seed, B: int, N: int, Tq: int, Tk: int,
+                          rate: float, device=None) -> torch.Tensor:
+    """The keep mask K1 and K2 draw, (B, N, Tq, Tk) bool: key (seed, b),
+    counter (head, q, k, 0), keep iff the first word ≥ ceil(rate·2³²)."""
+    def axis(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+
+    shape = (B, N, Tq, Tk)
+    b, h, i, j = (axis(n, d).expand(shape)
+                  for d, n in enumerate((B, N, Tq, Tk)))
+    seed = torch.full(shape, _seed_int(seed) & _MASK32, dtype=torch.int64,
+                      device=device)
+    word, _, _, _ = philox4x32_10((h, i, j, torch.zeros_like(seed)),
+                                  (seed, b))
+    return word >= _threshold(rate)
+
+
+# -- the kernels ---------------------------------------------------------------
 def _check_operands(q, k, v, mask):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"fused_attention: want q (B,Tq,N,D), k = v "
@@ -86,64 +188,115 @@ def _check_operands(q, k, v, mask):
             raise ValueError("fused_attention: mask on another device")
 
 
+def _check_kernel_operands(name, q, k, v):
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} needs one dtype for q, k, v; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"{name} needs unit stride along D")
+    B, Tq, N, D = q.shape
+    Tk = k.shape[1]
+    if min(B, Tq, Tk, N, D) == 0:
+        raise ValueError(f"{name} needs non-empty operands; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if B * N >= 2**31:
+        raise ValueError(f"{name}: B*N = {B * N} blocks is too many")
+
+
+def _mask_arg(mask, B, Tq, Tk):
+    """The mask's pointer and element strides (b, h, q, k); a head stride
+    of 0 broadcasts over heads, a null pointer means no mask."""
+    if mask is None:
+        return None, (0, 0, 0, 0)
+    mask = mask.expand(B, mask.shape[1], Tq, Tk)
+    return mask.data_ptr(), (mask.stride(0),
+                             mask.stride(1) if mask.shape[1] > 1 else 0,
+                             mask.stride(2), mask.stride(3))
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
 class _AttentionFwd(torch.autograd.Function):
-    """K1 launch. Its gradient is kernel K2, which the training slice
-    brings; until then :func:`fused_attention` refuses inputs that need
-    one, so :meth:`backward` is never reached."""
+    """K1 launch; its gradient is a K2 launch, which recomputes P from the
+    saved operands and regenerates the dropout mask from the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, rate, seed):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.rate, ctx.seed = rate, seed
         return _launch(q, k, v, mask, rate, seed)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("K1 has no backward kernel yet")
+        q, k, v, mask = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, mask, grad, ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None
 
 
 def _launch(q, k, v, mask, rate: float, seed: int) -> torch.Tensor:
     global launch_count
     from virtex_tpu_torch.ops import _build
 
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K1 takes float32 or bfloat16, got {q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"K1 needs one dtype for q, k, v; got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("K1 needs unit stride along D")
+    _check_kernel_operands("K1", q, k, v)
     B, Tq, N, D = q.shape
     Tk = k.shape[1]
-    if min(B, Tq, Tk, N, D) == 0:
-        raise ValueError(f"K1 needs non-empty operands; got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    if B * N >= 2**31:
-        raise ValueError(f"K1: B*N = {B * N} blocks is too many")
     lib = _build.library()
     smem = lib.virtex_attention_fwd_smem_bytes(Tk, D)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"K1: Tk={Tk}, D={D} needs {smem} B of shared "
                          f"memory, more than a block has")
-    if mask is None:
-        mask_ptr, ms = None, (0, 0, 0, 0)
-    else:
-        mask = mask.expand(B, mask.shape[1], Tq, Tk)
-        mask_ptr = mask.data_ptr()
-        ms = (mask.stride(0), mask.stride(1) if mask.shape[1] > 1 else 0,
-              mask.stride(2), mask.stride(3))
+    mask_ptr, ms = _mask_arg(mask, B, Tq, Tk)
     out = torch.empty((B, Tq, N, D), dtype=q.dtype, device=q.device)
-    threshold = min(2**32 - 1, math.ceil(rate * 2**32))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.virtex_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
             out.data_ptr(), B, Tq, Tk, N, D, int(q.dtype == torch.bfloat16),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), *ms,
-            1.0 / math.sqrt(D), rate, threshold, seed & 0xFFFFFFFF, stream)
+            *_strides(q), *_strides(k), *_strides(v), *ms,
+            1.0 / math.sqrt(D), rate, _threshold(rate), seed & _MASK32,
+            stream)
     _build.check(err, "K1 attention_fwd launch")
     launch_count += 1
     return out
+
+
+def _launch_bwd(q, k, v, mask, g, rate: float, seed: int):
+    global bwd_launch_count
+    from virtex_tpu_torch.ops import _build
+
+    _check_kernel_operands("K2", q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"K2: gradient {tuple(g.shape)} {g.dtype} does not "
+                         f"match q {tuple(q.shape)} {q.dtype}")
+    if g.stride(3) != 1:
+        g = g.contiguous()  # K2 reads g by (b, t, n) strides, D unit stride
+    B, Tq, N, D = q.shape
+    Tk = k.shape[1]
+    lib = _build.library()
+    smem = lib.virtex_attention_bwd_smem_bytes(Tq, Tk, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"K2: Tq={Tq}, Tk={Tk}, D={D} needs {smem} B of "
+                         f"shared memory, more than a block has")
+    mask_ptr, ms = _mask_arg(mask, B, Tq, Tk)
+    dq = torch.empty((B, Tq, N, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, N, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, N, D), dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.virtex_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Tq, Tk, N, D, int(q.dtype == torch.bfloat16),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(g), *ms,
+            1.0 / math.sqrt(D), rate, _threshold(rate), seed & _MASK32,
+            stream)
+    _build.check(err, "K2 attention_bwd launch")
+    bwd_launch_count += 1
+    return dq, dk, dv
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,10 +319,5 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_reference(q, k, v, mask, rate, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "fused_attention on CUDA has no backward kernel yet (K2); "
-            "run it under torch.no_grad()")
     seed = _seed_int(dropout_seed) if dropout_seed is not None else 0
     return _AttentionFwd.apply(q, k, v, mask, rate, seed)

@@ -10,10 +10,15 @@ the reference's torch names (torchvision ResNet keys with
 of the shared projection, embedding and output), the same mapping as
 ``virtex_tpu.utils.checkpoint_convert.export_virtex_checkpoint``. So the
 port loads either with ``load_state_dict(strict=True)``.
+
+:func:`flax_names` reads the bridge backwards, giving a port parameter's
+dotted name in the JAX package, which the optimizer's NO_DECAY regex and
+LR groups match against, as the JAX package's do.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -102,6 +107,43 @@ def _textual_shared(out, dst: str, t: Tree) -> None:
     _ln(out, f"{dst}.embedding.layer_norm", t["embedding"]["layer_norm"])
     out[f"{dst}.output.weight"] = words  # tied to the word table
     out[f"{dst}.output.bias"] = _t(t["output_bias"])
+
+
+# The bridge read backwards: a port parameter name → the JAX package's
+# dotted path (``virtex_tpu.optim.optimizer.param_path_names``). Rules apply
+# in order; then a ``weight`` leaf is a ``scale`` under a norm and a
+# ``kernel`` elsewhere.
+_FLAX_NAME_RULES = [
+    (r"^backward_textual\.transformer\.", "textual.backward_transformer."),
+    (r"\.layers\.(\d+)\.", r".layer_\1."),        # decoder layers
+    (r"\.layer(\d+)\.(\d+)\.", r".layer\1_\2."),  # ResNet blocks
+    (r"\.multihead_attn\.", ".cross_attn."),
+    (r"\.out_proj\.", ".out."),
+    (r"\.linear1\.", ".ffn.intermediate."),
+    (r"\.linear2\.", ".ffn.output."),
+    (r"\.downsample\.0\.", ".downsample_conv."),
+    (r"\.downsample\.1\.", ".downsample_bn."),
+    (r"transformer\.norm\.", "transformer.final_norm."),
+    (r"^textual\.output\.bias$", "textual.output_bias"),
+    (r"\.(words|positions)\.weight$", r".\1.embedding"),
+]
+_NORM_SCOPE = re.compile(r"(bn\d*|norm\d*|final_norm|layer_norm)$")
+
+
+def flax_names(name: str) -> List[str]:
+    """The JAX package's dotted name(s) of the port's parameter ``name``:
+    three for a packed ``in_proj_*`` (query, key, value), else one. E.g.
+    ``backward_textual.transformer.layers.0.norm1.weight`` →
+    ``textual.backward_transformer.layer_0.norm1.scale``."""
+    for pattern, repl in _FLAX_NAME_RULES:
+        name = re.sub(pattern, repl, name)
+    scope, _, leaf = name.rpartition(".")
+    if leaf.startswith("in_proj_"):
+        kind = "kernel" if leaf == "in_proj_weight" else "bias"
+        return [f"{scope}.{p}.{kind}" for p in ("query", "key", "value")]
+    if leaf == "weight":
+        leaf = "scale" if _NORM_SCOPE.search(scope) else "kernel"
+    return [f"{scope}.{leaf}"]
 
 
 def state_dict_from_flax(variables: Tree) -> Dict[str, torch.Tensor]:
