@@ -38,6 +38,25 @@ prints no result, when there is no card or when any phase fails:
 9. timings: K1, K2 and K4 against their plain versions (device time from
    CUDA-graph replay), the eval step, beam captioning, and the train step
    with the kernels and with the plain versions (host clock).
+10. K1 and K2 at the task ablations' attention (``L1_H2048_A32_F8192``:
+    batch 128, 32 heads of 64), fp32 and bf16, with the masks as
+    ``make_self_attention_mask`` returns them: causal + pad (B, 1, T, T)
+    and masked LM's pad-only (B, 1, 1, T), which the kernels read with a
+    query stride of 0; and the 30×49 cross-attention. With dropout 0.1 the
+    keep masks equal ``philox_keep_reference`` bit for bit. Device times
+    against the plain versions.
+11. the four other pretext tasks of ``configs/task_ablations`` (forward
+    captioning, masked LM, token and multilabel classification) at full
+    width in bf16, micro-batch 128 × accumulation 2, on batches shaped as
+    their datasets make them. With dropout 0 the first step's losses and
+    ``grad_norm`` match a plain-kernel copy; three steps with dropout 0.1
+    give finite losses; every step makes exactly 4 K1, 4 K2 and 106 K4
+    launches (0, 0 and 106 for the classification tasks); the eval step at
+    batch 32 gives finite losses and well-formed predictions. Host ms per
+    step with the kernels and with the plain versions.
+12. nucleus captioning (p 0.9, 30 steps) with the flagship model of phase
+    6 on 32 images: tokens in range, seeded draws, no kernel launch, and
+    the first step's drop set on the card equal to the CPU's.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +102,26 @@ K4_TOL = 1e-5
 # K2 does not, and the BatchNorm sums add in other orders; 2^-8 relative
 # noise on some gradients moves the global norm by far less than 1e-2.
 GRAD_NORM_RTOL = 1e-2
+# The task ablations' textual head, L1_H2048_A32_F8192: 32 heads of 64.
+WIDE_HEADS = 32
+# configs/task_ablations/<stem>.yaml, each trained as phase 8 trains the
+# flagship; launches per step: self- and cross-attention in one direction
+# over two micro-steps, and the 53 BatchNorm layers over two.
+TASKS = {"captioning_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106},
+         "masked_lm_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106},
+         "token_classification_R_50": {"K1": 0, "K2": 0, "K4": 106},
+         "multilabel_classification_R_50": {"K1": 0, "K2": 0, "K4": 106}}
+TASK_DROPOUT_STEPS = 3
+# Masked LM's batches: BERT-style masking of the inner positions
+# (virtex_tpu/data/datasets/masked_lm.py); multilabel's: COCO categories
+# 1..80, distinct and sorted, padded with 0 to 80 slots
+# (virtex_tpu/data/datasets/classification.py).
+MASK_INDEX, MASK_PROPORTION, MASK_PROB, REPLACE_PROB = 3, 0.15, 0.85, 0.10
+MAX_LABELS = 80
+# Nucleus captioning: p as MODEL.DECODER.NUCLEUS_SIZE; drop-set rows whose
+# sorted mass before some token lies this close to p are not compared
+# (fp32 sums in other orders may fall on either side).
+NUCLEUS_P, BOUNDARY_MARGIN = 0.9, 1e-6
 # Every distinct (H, C) of ResNet-50's BatchNorm layers at 224²
 # (tests/tpu_bn_parity.py).
 R50_BN_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
@@ -279,10 +318,19 @@ def check_k2(torch, A, device):
                         main_err = max(main_err, float(
                             (a.float() - b.float()).abs().max()))
 
-    # Bit for bit: q = k = 0 makes P uniform. With v the identity over
-    # (key, d), K1's output row i is keep[i, :]/(Tk·(1 − rate)); with g the
-    # identity over (query, d), K2's dv[j, i] is keep[i, j]/(Tk·(1 − rate)).
-    B, Tq, Tk, N, D = TRAIN_BATCH, 30, 49, 16, 64
+    keep = check_keep_bits(torch, A, device, 16, rate, seed)
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return main_err, keep, summary
+
+
+def check_keep_bits(torch, A, device, N, rate, seed):
+    """K1's and K2's keep masks at (B 128, N heads, 30, 49) against
+    ``philox_keep_reference``, bit for bit; returns the kept fraction.
+
+    q = k = 0 makes P uniform. With v the identity over (key, d), K1's
+    output row i is keep[i, :]/(Tk·(1 − rate)); with g the identity over
+    (query, d), K2's dv[j, i] is keep[i, j]/(Tk·(1 − rate))."""
+    B, Tq, Tk, D = TRAIN_BATCH, 30, 49, 64
     want = A.philox_keep_reference(seed, B, N, Tq, Tk, rate, device=device)
     zq = torch.zeros(B, Tq, N, D, device=device)
     zk = torch.zeros(B, Tk, N, D, device=device)
@@ -293,13 +341,13 @@ def check_k2(torch, A, device):
 
     out = A.fused_attention(zq, zk, eye(Tk), None, rate, seed)
     if not torch.equal(out.permute(0, 2, 1, 3)[..., :Tk] > 0, want):
-        fail("K1 dropout: the keep mask is not philox_keep_reference's")
+        fail(f"K1 dropout, {N} heads: the keep mask is not "
+             "philox_keep_reference's")
     _, _, dv = k2_grads(torch, A, zq, zk, eye(Tk), None, eye(Tq), rate, seed)
     if not torch.equal(dv.permute(0, 2, 3, 1)[:, :, :Tq, :] > 0, want):
-        fail("K2 dropout: the keep mask is not philox_keep_reference's")
-    keep = float(want.float().mean())
-    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-    return main_err, keep, summary
+        fail(f"K2 dropout, {N} heads: the keep mask is not "
+             "philox_keep_reference's")
+    return float(want.float().mean())
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -550,7 +598,7 @@ def check_train(torch, port, device):
     A, BN = port.A, port.BN
     spec = dataclasses.replace(port.ModelSpec.flagship(), textual_dropout=0.0)
     torch.manual_seed(SEED)
-    model = port.CaptioningModel.from_spec(spec)
+    model = port.PretrainingModelFactory.from_spec(spec)
     randomize_(torch, model, SEED)
     model = model.to(device)
     plain = plain_copy(model, A, BN, port.MultiHeadAttention,
@@ -590,7 +638,7 @@ def check_train(torch, port, device):
 
     # Five steps with dropout 0.1 and no warmup; Lookahead syncs at step 5.
     spec01 = port.ModelSpec.flagship()
-    model5 = port.CaptioningModel.from_spec(spec01)
+    model5 = port.PretrainingModelFactory.from_spec(spec01)
     randomize_(torch, model5, SEED + 1)
     model5 = model5.to(device)
     opt5 = port.build_optimizer(model5.named_parameters(),
@@ -632,20 +680,362 @@ def check_train(torch, port, device):
     return step, plain_step, batch, shapes, launches
 
 
+# -- phase 10 ----------------------------------------------------------------
+def wide_attention_case(torch, port, kind, dtype, device, seed):
+    """The task ablations' attention at batch 128, 32 heads of 64: q/k/v
+    strided views of the packed projection, g ~ N(0, 1), and the mask as
+    ``make_self_attention_mask`` returns it for ``kind``: "causal_pad"
+    (captioning's self-attention, (B, 1, 30, 30)), "pad_only" (masked LM's,
+    (B, 1, 1, 30)) or "cross" (30×49, no mask)."""
+    Tk = 49 if kind == "cross" else 30
+    q, k, v = attention_inputs(torch, TRAIN_BATCH, 30, Tk, WIDE_HEADS, 64,
+                               dtype, device, seed, packed=True)
+    g = attention_inputs(torch, TRAIN_BATCH, 30, 30, WIDE_HEADS, 64, dtype,
+                         device, seed + 1)[0]
+    if kind == "cross":
+        return q, k, v, g, None
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(3, 31, TRAIN_BATCH)
+    lengths[0] = 30
+    tokens = torch.zeros(TRAIN_BATCH, 30, dtype=torch.long, device=device)
+    mask = port.make_self_attention_mask(
+        tokens, torch.from_numpy(lengths).to(device),
+        causal=kind == "causal_pad")
+    want = (TRAIN_BATCH, 1, 1 if kind == "pad_only" else 30, 30)
+    if tuple(mask.shape) != want:
+        fail(f"{kind} mask has shape {tuple(mask.shape)}, expected {want}")
+    q_stride = port.A._mask_arg(mask, TRAIN_BATCH, 30, 30)[1][2]
+    if (q_stride == 0) != (kind == "pad_only"):
+        fail(f"{kind} mask: the kernels would read it with a query stride "
+             f"of {q_stride}")
+    return q, k, v, g, mask
+
+
+WIDE_KINDS = ("causal_pad", "pad_only", "cross")
+
+
+def check_wide(torch, port, device):
+    """K1 and K2 against their plain versions at 32 heads, without and with
+    dropout, and their keep masks bit for bit. Returns the largest absolute
+    bf16 errors of K1 and K2 and a summary."""
+    A = port.A
+    worst, k1_err, k2_err = {}, 0.0, 0.0
+    rate, seed = 0.1, 4321
+
+    def check(name, got, ref, dtype_name):
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            fail(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                 f"{tuple(ref.shape)} {ref.dtype}")
+        err = rel_err(got, ref, ATOL)
+        worst[name] = err
+        if not err <= TOL[dtype_name]:
+            fail(f"{name}: error {err:.3e} > {TOL[dtype_name]:.0e}")
+        return float((got.float() - ref.float()).abs().max())
+
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for i, kind in enumerate(WIDE_KINDS):
+            q, k, v, g, mask = wide_attention_case(torch, port, kind, dtype,
+                                                   device, SEED + 40 + i)
+            before = A.launch_count
+            out = A.fused_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            if A.launch_count != before + 1:
+                fail(f"K1 {kind} 32 heads: fused_attention did not launch K1")
+            err = check(f"K1 {kind} {dtype_name}", out,
+                        A.attention_reference(q, k, v, mask), dtype_name)
+            if dtype_name == "bfloat16":
+                k1_err = max(k1_err, err)
+            keep = A.philox_keep_reference(seed, TRAIN_BATCH, WIDE_HEADS, 30,
+                                           k.shape[1], rate, device=device)
+            for r, ref in ((0.0, A.attention_backward_reference(
+                    q, k, v, mask, g)), (rate, A.attention_backward_reference(
+                        q, k, v, mask, g, keep, rate))):
+                ours = k2_grads(torch, A, q, k, v, mask, g, r,
+                                seed if r else None)
+                for part, a, b in zip("qkv", ours, ref):
+                    err = check(f"K2 {kind} {dtype_name} dropout {r} d{part}",
+                                a, b, dtype_name)
+                    if dtype_name == "bfloat16" and r == 0.0:
+                        k2_err = max(k2_err, err)
+    keep = check_keep_bits(torch, A, device, WIDE_HEADS, rate, seed)
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return k1_err, k2_err, keep, summary
+
+
+def time_wide(torch, port, device):
+    """K1 and K2 against their plain versions at 32 heads, bf16, batch 128:
+    {kind: (K1 ms, plain ms, K2 ms, plain ms)}, device time per call."""
+    A, times = port.A, {}
+    for kind in WIDE_KINDS:
+        q, k, v, g, mask = wide_attention_case(torch, port, kind,
+                                               torch.bfloat16, device, SEED)
+        times[kind] = time_pair(
+            torch, lambda: A.fused_attention(q, k, v, mask),
+            lambda: A.attention_reference(q, k, v, mask)) + time_pair(
+            torch, lambda: A._launch_bwd(q, k, v, mask, g, 0.0, 0),
+            lambda: A.attention_backward_reference(q, k, v, mask, g))
+    return times
+
+
+# -- phase 11 ----------------------------------------------------------------
+def mask_tokens(tokens, lengths, vocab, rng):
+    """Masked LM's input and labels: ⌈15%⌉ of the inner positions chosen;
+    of those 85% [MASK]ed (labelled with the token), 10% a random token,
+    the rest kept; a single chosen position is always [MASK]ed; labels are
+    padding (0) elsewhere."""
+    tokens, labels = tokens.copy(), np.zeros_like(tokens)
+    for i, n in enumerate(lengths):
+        chosen = rng.choice(np.arange(1, n - 1),
+                            size=int(np.ceil((n - 2) * MASK_PROPORTION)),
+                            replace=False)
+        for j in chosen:
+            flag = rng.uniform()
+            if len(chosen) == 1 or flag <= MASK_PROB:
+                labels[i, j], tokens[i, j] = tokens[i, j], MASK_INDEX
+            elif flag <= MASK_PROB + REPLACE_PROB:
+                tokens[i, j] = rng.randint(vocab)
+    return tokens, labels
+
+
+def task_batch(torch, spec, B, seed, device):
+    """A batch of B with the keys and values the task's dataset makes:
+    captions for captioning and masked LM (masked as the dataset masks
+    them), the caption tokens as labels for token classification, and
+    COCO categories for multilabel classification."""
+    batch = caption_batch(torch, B, spec.image_size, spec.max_caption_length,
+                          spec.vocab_size, seed, device)
+    name = spec.model_name
+    if name == "captioning":
+        return batch
+    rng = np.random.RandomState(seed + 1)
+    tokens = batch["caption_tokens"].cpu().numpy()
+    lengths = batch["caption_lengths"].cpu().numpy()
+    image = batch["image"]
+    if name == "masked_lm":
+        tokens, labels = mask_tokens(tokens, lengths, spec.vocab_size, rng)
+        out = {"image": image, "caption_tokens": tokens,
+               "masked_labels": labels, "caption_lengths": lengths}
+    elif name == "token_classification":
+        out = {"image": image, "labels": tokens}
+    else:
+        labels = np.zeros((B, MAX_LABELS), np.int32)
+        for i in range(B):
+            cats = np.sort(rng.choice(np.arange(1, spec.vocab_size),
+                                      size=rng.randint(1, 9), replace=False))
+            labels[i, :len(cats)] = cats
+        out = {"image": image, "labels": labels}
+    return {k: v if torch.is_tensor(v) else torch.from_numpy(v).to(device)
+            for k, v in out.items()}
+
+
+def check_task(torch, port, device, stem):
+    """Phase 11 for one task: returns its main-path launches and timings."""
+    A, BN = port.A, port.BN
+    want = TASKS[stem]
+    spec = port.ModelSpec.task_ablation(stem)
+    name = spec.model_name
+    model = port.PretrainingModelFactory.from_spec(
+        dataclasses.replace(spec, textual_dropout=0.0))
+    randomize_(torch, model, SEED)
+    model = model.to(device)
+    plain = plain_copy(model, A, BN, port.MultiHeadAttention,
+                       port.SubsampledBatchNorm)
+    optim = port.OptimSpec.task_ablation(stem)
+    step = port.make_train_step(
+        model, port.build_optimizer(model.named_parameters(), optim), ACCUM)
+    plain_step = port.make_train_step(
+        plain, port.build_optimizer(plain.named_parameters(), optim), ACCUM)
+    flat = task_batch(torch, spec, ACCUM * TRAIN_BATCH, SEED, device)
+    batch = {k: v.reshape((ACCUM, TRAIN_BATCH) + v.shape[1:])
+             for k, v in flat.items()}
+
+    # Dropout 0 (a copy of the weights trains with dropout 0.1 below).
+    dropout_model = port.PretrainingModelFactory.from_spec(spec)
+    dropout_model.load_state_dict(model.state_dict())
+    dropout_model = dropout_model.to(device)
+    reset_counts(A, BN)             # a main path starts here
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    counts = launch_counts(A, BN)   # ... and ends here
+    if counts != want:
+        fail(f"{name} train step launched {counts}, expected {want}")
+    ref = {k: float(v) for k, v in plain_step(batch).items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"{name} train step: non-finite metrics {metrics}")
+    for key in ref:
+        rtol = GRAD_NORM_RTOL if key == "grad_norm" else LOSS_RTOL
+        if not abs(metrics[key] - ref[key]) <= rtol * abs(ref[key]):
+            fail(f"{name} train step: {key} {metrics[key]} with the "
+                 f"kernels, {ref[key]} with the plain versions (rtol {rtol})")
+    gaps = {k: float(f"{abs(metrics[k] - ref[k]) / abs(ref[k]):.3e}")
+            for k in ref}
+    launches = dict(counts)
+
+    # Three steps with dropout 0.1.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    dropout_step = port.make_train_step(
+        dropout_model, port.build_optimizer(dropout_model.named_parameters(),
+                                            optim), ACCUM, generator=gen)
+    losses = []
+    for i in range(TASK_DROPOUT_STEPS):
+        reset_counts(A, BN)         # a main path starts here
+        loss = float(dropout_step(batch)["loss"])
+        torch.cuda.synchronize()
+        counts = launch_counts(A, BN)  # ... and ends here
+        if counts != want:
+            fail(f"{name} dropout step {i + 1} launched {counts}, expected "
+                 f"{want}")
+        if not np.isfinite(loss):
+            fail(f"{name} dropout step {i + 1}: loss {loss}")
+        losses.append(loss)
+        launches = {k: launches[k] + counts[k] for k in counts}
+    del dropout_model, dropout_step
+
+    # Eval step at batch 32, and the eval-mode predictions.
+    eval_batch = task_batch(torch, spec, EVAL_BATCH, SEED + 7, device)
+    reset_counts(A, BN)             # a main path starts here
+    eval_losses = {k: float(v)
+                   for k, v in port.make_eval_step(model)(eval_batch).items()}
+    with torch.inference_mode():
+        preds = model.eval()(eval_batch)["predictions"]
+    torch.cuda.synchronize()
+    counts = launch_counts(A, BN)   # ... and ends here
+    launches = {k: launches[k] + counts[k] for k in counts}
+    # two forwards (the eval step's, the predictions'), each one micro-step
+    # of the train step's forward: half its K1 launches
+    if counts != {"K1": want["K1"], "K2": 0, "K4": 0}:
+        fail(f"{name} eval step and predictions launched {counts}")
+    if not all(np.isfinite(v) for v in eval_losses.values()):
+        fail(f"{name} eval step: non-finite losses {eval_losses}")
+    if name.endswith("classification"):
+        if tuple(preds.shape) != (EVAL_BATCH, 10):
+            fail(f"{name} predictions have shape {tuple(preds.shape)}")
+        if int(preds.min()) < 0 or int(preds.max()) >= spec.vocab_size:
+            fail(f"{name} predictions outside [0, {spec.vocab_size})")
+    else:
+        tokens = eval_batch["caption_tokens"]
+        if preds.shape != tokens.shape:
+            fail(f"{name} predictions have shape {tuple(preds.shape)}")
+        if name == "masked_lm" and bool((preds[
+                eval_batch["masked_labels"] == spec.unk_index]
+                != spec.unk_index).any()):
+            fail("masked LM predictions are not padding where the label is")
+
+    step_ms = [host_ms(torch, lambda f=f: f(batch), 2, warmup=1)
+               for f in (plain_step, step, step, plain_step)]
+    say("11 task", f"{stem}: {name} {spec.visual_name} {spec.textual_name} "
+        f"{spec.dtype}, micro-batch {TRAIN_BATCH} x accum {ACCUM}, dropout "
+        f"0: kernels {json.dumps(metrics)}; relative gaps to the plain "
+        f"versions {json.dumps(gaps)}; dropout 0.1: losses {losses}; "
+        f"launches per step {want}; eval B{EVAL_BATCH} "
+        f"{json.dumps(eval_losses)}, predictions {tuple(preds.shape)}")
+    del model, plain, step, plain_step
+    return launches, step_ms
+
+
+def task_timing_line(stem, step_ms):
+    kernels = (step_ms[1] + step_ms[2]) / 2
+    plain = (step_ms[0] + step_ms[3]) / 2
+    images = ACCUM * TRAIN_BATCH
+    return (f"{stem} host ms per step (plain, kernels, kernels, plain): "
+            f"{', '.join(f'{t:.1f}' for t in step_ms)} | kernels "
+            f"{kernels:.1f} ms = {images / kernels * 1e3:.1f} img/s; plain "
+            f"{plain:.1f} ms = {images / plain * 1e3:.1f} img/s")
+
+
+# -- phase 12 ----------------------------------------------------------------
+def boundary_rows(logits, p):
+    """Rows of (B, V) logits where some token's mass sorted strictly before
+    it (float64, descending, ties by index) lies within BOUNDARY_MARGIN of
+    ``p``."""
+    x = logits.double().sort(dim=-1, descending=True, stable=True).values
+    probs = x.softmax(dim=-1)
+    before = probs.cumsum(dim=-1) - probs
+    return ((before - p).abs() < BOUNDARY_MARGIN).any(dim=-1)
+
+
+def check_nucleus(torch, port, model, spec, images, device):
+    """Phase 12. Returns the launches of its main path and ms per batch."""
+    A, BN = port.A, port.BN
+    nspec = dataclasses.replace(spec, decoder_name="nucleus_sampling",
+                                nucleus_size=NUCLEUS_P)
+    decoder = port.CaptionDecoderFactory.from_spec(nspec)
+    caption_fn = port.make_caption_fn(model, decoder, spec.sos_index,
+                                      spec.prefix_mode)
+
+    def draw(seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return caption_fn(images, gen)
+
+    reset_counts(A, BN)             # a main path starts here
+    tokens = draw(SEED)
+    torch.cuda.synchronize()
+    counts = launch_counts(A, BN)   # ... and ends here
+    if any(counts.values()):
+        fail(f"nucleus captioning launched {counts}; its decode path uses "
+             "plain attention")
+    B = images.shape[0]
+    if tuple(tokens.shape) != (B, spec.max_decoding_steps):
+        fail(f"nucleus captions have shape {tuple(tokens.shape)}")
+    lo, hi = int(tokens.min()), int(tokens.max())
+    if lo < 0 or hi >= spec.vocab_size:
+        fail(f"nucleus caption ids outside [0, {spec.vocab_size}): "
+             f"{lo}..{hi}")
+    if not torch.equal(tokens, draw(SEED)):
+        fail("nucleus captioning: one generator seed gave two captionings")
+    if torch.equal(tokens, draw(SEED + 1)):
+        fail("nucleus captioning: another seed gave the same captions")
+
+    # The first step's drop set, on the card and on the CPU.
+    with torch.inference_mode():
+        caches = model.init_decode(model.encode_visual(images),
+                                   spec.max_decoding_steps)
+        start = torch.full((B,), spec.sos_index, dtype=torch.long,
+                           device=device)
+        logits = model.decode_step(start, 0, caches)[0].float()
+    on_card = port.topp_drop(logits, NUCLEUS_P).cpu()
+    on_cpu = port.topp_drop(logits.cpu(), NUCLEUS_P)
+    skip = boundary_rows(logits.cpu(), NUCLEUS_P)
+    if int(skip.sum()) > B // 4:
+        fail(f"nucleus drop set: {int(skip.sum())} of {B} rows sit on the "
+             "boundary")
+    if not torch.equal(on_card[~skip], on_cpu[~skip]):
+        fail("nucleus drop set: the card and the CPU disagree")
+    kept = (~on_cpu).sum(dim=-1)
+    ms = host_ms(torch, lambda: draw(SEED), 3, warmup=1)
+    say("12 nucleus", f"p {NUCLEUS_P}, {spec.max_decoding_steps} steps, "
+        f"B{B}: tokens {tuple(tokens.shape)}, ids in [{lo}, {hi}], seeded; "
+        f"no kernel launch; first-step drop set equal on the card and the "
+        f"CPU in {B - int(skip.sum())} of {B} rows (nucleus of "
+        f"{int(kept.min())}..{int(kept.max())} tokens); first caption "
+        f"{tokens[0, :10].tolist()} | {card_line()} | {ms:.1f} ms per batch")
+    return counts, ms
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import ModelSpec, OptimSpec
     from virtex_tpu_torch.engine.captioner import make_caption_fn
     from virtex_tpu_torch.engine.evaluation import make_eval_step
     from virtex_tpu_torch.engine.trainer import make_train_step
-    from virtex_tpu_torch.models.captioning import CaptioningModel
+    from virtex_tpu_torch.factories import (
+        CaptionDecoderFactory,
+        PretrainingModelFactory,
+    )
     from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
-    from virtex_tpu_torch.modules.transformer import MultiHeadAttention
+    from virtex_tpu_torch.modules.transformer import (
+        MultiHeadAttention,
+        make_self_attention_mask,
+    )
     from virtex_tpu_torch.ops import _build
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
     from virtex_tpu_torch.optim.optimizer import build_optimizer
     from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+    from virtex_tpu_torch.utils.nucleus_sampling import topp_drop
     return types.SimpleNamespace(**locals())
 
 
@@ -706,7 +1096,7 @@ def main() -> None:
     # 6. eval step, flagship at full width
     spec = port.ModelSpec.flagship()
     torch.manual_seed(SEED)
-    model = port.CaptioningModel.from_spec(spec)
+    model = port.PretrainingModelFactory.from_spec(spec)
     randomize_(torch, model, SEED)
     model = model.to(device).eval()
     plain_model = plain_copy(model, A, BN, port.MultiHeadAttention,
@@ -811,6 +1201,37 @@ def main() -> None:
         f"{images_per_step / kernel_step_ms * 1e3:.1f} img/s; plain "
         f"{plain_step_ms:.1f} ms = "
         f"{images_per_step / plain_step_ms * 1e3:.1f} img/s")
+    del train_step, plain_train_step, tbatch
+    torch.cuda.empty_cache()
+
+    # 10. K1 and K2 at 32 heads, with masked LM's pad-only mask
+    wide_k1_err, wide_k2_err, keep, summary = check_wide(torch, port, device)
+    wide_times = time_wide(torch, port, device)
+    say("10 K1 K2 32 heads", f"match the plain versions (fp32 tol "
+        f"{TOL['float32']:.0e}, bf16 tol {TOL['bfloat16']:.0e}, atol "
+        f"{ATOL}): {summary}; keep masks equal philox_keep_reference bit "
+        f"for bit (B {TRAIN_BATCH}, {WIDE_HEADS} heads, 30x49, keep "
+        f"{keep:.4f} at rate 0.1)")
+    say("10 K1 K2 32 heads", f"{card_line()} | bf16 B{TRAIN_BATCH}, device "
+        f"ms per call, K1 vs plain; K2 vs plain: " + "; ".join(
+            f"{kind} {t[0]:.4f} vs {t[1]:.4f}; {t[2]:.4f} vs {t[3]:.4f}"
+            for kind, t in wide_times.items()))
+
+    # 11. the other pretext tasks
+    task_launches = {k: 0 for k in LAUNCHES_PER_STEP}
+    task_ms = {}
+    for stem in TASKS:
+        launches, task_ms[stem] = check_task(torch, port, device, stem)
+        task_launches = {k: task_launches[k] + launches[k]
+                         for k in launches}
+        torch.cuda.empty_cache()
+    card = card_line()
+    for stem, step_ms in task_ms.items():
+        say("11 task timings", f"{card} | {task_timing_line(stem, step_ms)}")
+
+    # 12. nucleus captioning with the flagship model of phase 6
+    nucleus_counts, _ = check_nucleus(torch, port, model, spec, images,
+                                      device)
 
     # ms: K1 as in the eval step (mean of its self and cross launches at
     # B32); K2 the mean of the train step's self and cross launches (B128);
@@ -821,8 +1242,9 @@ def main() -> None:
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:87",
-        "launches": serve_counts["K1"] + train_launches["K1"],
-        "max_abs_err": k1_err,
+        "launches": serve_counts["K1"] + train_launches["K1"]
+        + task_launches["K1"] + nucleus_counts["K1"],
+        "max_abs_err": max(k1_err, wide_k1_err),
         "ms": sum(t[0] for t in eval_k1) / 2,
         "plain_ms": sum(t[1] for t in eval_k1) / 2,
     }, {
@@ -830,8 +1252,9 @@ def main() -> None:
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:103",
-        "launches": train_launches["K2"],
-        "max_abs_err": k2_err,
+        "launches": train_launches["K2"] + task_launches["K2"]
+        + nucleus_counts["K2"],
+        "max_abs_err": max(k2_err, wide_k2_err),
         "ms": sum(t[0] for t in k2_times.values()) / 2,
         "plain_ms": sum(t[1] for t in k2_times.values()) / 2,
     }, {
@@ -839,7 +1262,8 @@ def main() -> None:
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:128",
-        "launches": train_launches["K4"],
+        "launches": train_launches["K4"] + task_launches["K4"]
+        + nucleus_counts["K4"],
         "max_abs_err": k4_err,
         "ms": k4_step[0] / bn_calls,
         "plain_ms": k4_step[1] / bn_calls,

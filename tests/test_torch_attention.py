@@ -56,7 +56,15 @@ def _mask(kind, seed=0):
         m = rng.rand(B, N, Tq, Tk) > 0.4
         m[..., 0] = True
         return m
+    if kind == "pad_only":  # masked LM's key padding alone, (B, 1, 1, Tq)
+        lengths = np.array([Tq, 5])
+        return (np.arange(Tq)[None, :] < lengths[:, None])[:, None, None, :]
     raise ValueError(kind)
+
+
+# Self-attention masks: keys are the queries' positions.
+SELF_KINDS = ("causal_pad", "pad_only")
+KINDS = ["none", "causal_pad", "per_head", "pad_only"]
 
 
 @pytest.fixture
@@ -77,17 +85,17 @@ def _port(q, k, v, mask):
                              _torch(mask)).numpy()
 
 
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_matches_jax_xla_attention(kind, jax_attn):
-    q, k, v = _qkv(1, Tq if kind == "causal_pad" else Tk)
+    q, k, v = _qkv(1, Tq if kind in SELF_KINDS else Tk)
     mask = _mask(kind)
     ref = jax_attn.xla_attention(q, k, v, mask)
     assert rel_err(_port(q, k, v, mask), ref, ATOL) <= TOL
 
 
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_matches_jax_pallas_kernel(kind, jax_attn, interpret_mode):
-    q, k, v = _qkv(2, Tq if kind == "causal_pad" else Tk)
+    q, k, v = _qkv(2, Tq if kind in SELF_KINDS else Tk)
     mask = _mask(kind)
     ref = jax_attn.fused_attention(q, k, v, mask)
     assert rel_err(_port(q, k, v, mask), ref, ATOL) <= TOL
@@ -147,10 +155,10 @@ def cuda(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_kernel_matches_plain_on_card(cuda, dtype, kind):
     q, k, v = (_torch(x).to(cuda, dtype)
-               for x in _qkv(5, Tq if kind == "causal_pad" else Tk))
+               for x in _qkv(5, Tq if kind in SELF_KINDS else Tk))
     mask = _torch(_mask(kind))
     mask = None if mask is None else mask.to(cuda)
     before = A.launch_count
@@ -158,6 +166,46 @@ def test_kernel_matches_plain_on_card(cuda, dtype, kind):
     assert A.launch_count == before + 1
     ref = A.attention_reference(q, k, v, mask)
     assert out.dtype == ref.dtype == dtype
+    assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) <= CARD_TOL[dtype]
+
+
+def _task_ablation_case(kind, dtype, device, seed):
+    """The attention of the task ablations' ``L1_H2048_A32_F8192`` head:
+    32 heads of 64, q/k/v ~ N(0, 1) at batch 8, with the mask as
+    ``make_self_attention_mask`` returns it: causal + key padding (B, 1,
+    30, 30) for captioning, key padding alone (B, 1, 1, 30) for masked LM,
+    which the kernels read with a query stride of 0; none for the 30×49
+    cross-attention."""
+    from virtex_tpu_torch.modules.transformer import make_self_attention_mask
+    b, t, n, d = 8, 30, 32, 64
+    rng = np.random.RandomState(seed)
+    tk = 49 if kind == "cross" else t
+
+    def draw(tt):
+        return torch.from_numpy(rng.randn(b, tt, n, d).astype(
+            np.float32)).to(device, dtype)
+    q, k, v = draw(t), draw(tk), draw(tk)
+    if kind == "cross":
+        return q, k, v, None
+    lengths = rng.randint(3, t + 1, b)
+    lengths[0] = t
+    mask = make_self_attention_mask(
+        torch.zeros(b, t, dtype=torch.long, device=device),
+        torch.from_numpy(lengths).to(device), causal=kind == "causal_pad")
+    assert mask.shape == ((b, 1, t, t) if kind == "causal_pad"
+                          else (b, 1, 1, t))
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["causal_pad", "pad_only", "cross"])
+def test_kernel_matches_plain_at_32_heads_on_card(cuda, dtype, kind):
+    q, k, v, mask = _task_ablation_case(kind, dtype, cuda, 9)
+    before = A.launch_count
+    out = A.fused_attention(q, k, v, mask)
+    assert A.launch_count == before + 1
+    ref = A.attention_reference(q, k, v, mask)
     assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) <= CARD_TOL[dtype]
 
 

@@ -55,11 +55,19 @@ def _mask(kind, tq=Tq, tk=Tk, seed=0):
         m = rng.rand(B, N, tq, tk) > 0.4
         m[..., 0] = True
         return m
+    if kind == "pad_only":  # masked LM's key padding alone, (B, 1, 1, tq)
+        lengths = np.array([tq, 5])
+        return (np.arange(tq)[None, :] < lengths[:, None])[:, None, None, :]
     raise ValueError(kind)
 
 
+# Self-attention masks: keys are the queries' positions.
+SELF_KINDS = ("causal_pad", "pad_only")
+KINDS = ["none", "causal_pad", "per_head", "pad_only"]
+
+
 def _case(kind, seed):
-    tk = Tq if kind == "causal_pad" else Tk
+    tk = Tq if kind in SELF_KINDS else Tk
     q, k, v, g = _inputs(seed, tk)
     return q, k, v, g, _mask(kind, Tq, tk)
 
@@ -100,7 +108,7 @@ def _explicit_plain(q, k, v, g, mask):
 
 
 @pytest.mark.parametrize("port", ["autograd", "explicit"])
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_gradients_match_jax_pallas_kernel(kind, port, interpret_mode):
     from virtex_tpu.ops import attention as jattn
     q, k, v, g, mask = _case(kind, 1)
@@ -111,7 +119,7 @@ def test_gradients_match_jax_pallas_kernel(kind, port, interpret_mode):
 
 
 @pytest.mark.parametrize("port", ["autograd", "explicit"])
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_gradients_match_jax_xla_attention(kind, port):
     from virtex_tpu.ops import attention as jattn
     q, k, v, g, mask = _case(kind, 2)
@@ -194,7 +202,7 @@ def cuda(monkeypatch):
 
 def _card_case(kind, dtype, device, seed, tq=Tq, tk=Tk, d=D):
     rng = np.random.RandomState(seed)
-    tk = tq if kind == "causal_pad" else tk
+    tk = tq if kind in SELF_KINDS else tk
 
     def draw(t):
         return torch.from_numpy(rng.randn(B, t, N, d).astype(np.float32)).to(
@@ -215,7 +223,7 @@ def _k2(q, k, v, g, mask, rate=0.0, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["none", "causal_pad", "per_head"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_kernel_gradients_match_plain_on_card(cuda, dtype, kind):
     q, k, v, g, mask = _card_case(kind, dtype, cuda, 5)
     ours = _k2(q, k, v, g, mask)
@@ -224,6 +232,43 @@ def test_kernel_gradients_match_plain_on_card(cuda, dtype, kind):
         assert a.dtype == r.dtype == dtype
         assert rel_err(a.float().cpu(), r.float().cpu(), 1.0) \
             <= CARD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["causal_pad", "pad_only", "cross"])
+def test_kernel_gradients_match_plain_at_32_heads_on_card(cuda, dtype, kind):
+    """The task ablations' 32 heads of 64 at batch 8, with masks as
+    ``make_self_attention_mask`` returns them: causal + key padding (B, 1,
+    30, 30), masked LM's key padding alone (B, 1, 1, 30), read with a
+    query stride of 0, and none for the 30×49 cross-attention; without and
+    with dropout."""
+    from virtex_tpu_torch.modules.transformer import make_self_attention_mask
+    b, tq, n, d = 8, 30, 32, 64
+    tk = 49 if kind == "cross" else tq
+    rng = np.random.RandomState(10)
+
+    def draw(t):
+        return torch.from_numpy(rng.randn(b, t, n, d).astype(np.float32)).to(
+            cuda, dtype)
+    q, k, v, g = draw(tq), draw(tk), draw(tk), draw(tq)
+    mask = None
+    if kind != "cross":
+        lengths = rng.randint(3, tq + 1, b)
+        lengths[0] = tq
+        mask = make_self_attention_mask(
+            torch.zeros(b, tq, dtype=torch.long, device=cuda),
+            torch.from_numpy(lengths).to(cuda), causal=kind == "causal_pad")
+        assert mask.shape[2] == (tq if kind == "causal_pad" else 1)
+    rate, seed = 0.1, 77
+    keep = A.philox_keep_reference(seed, b, n, tq, tk, rate, device=cuda)
+    for r, ref in ((0.0, A.attention_backward_reference(q, k, v, mask, g)),
+                   (rate, A.attention_backward_reference(q, k, v, mask, g,
+                                                         keep, rate))):
+        ours = _k2(q, k, v, g, mask, r, seed)
+        for name, a, x in zip("qkv", ours, ref):
+            assert rel_err(a.float().cpu(), x.float().cpu(), 1.0) \
+                <= CARD_TOL[dtype], (r, name)
 
 
 @pytest.mark.cuda

@@ -20,10 +20,8 @@ from virtex_tpu.optim.optimizer import cnn_mask as jax_cnn_mask
 from virtex_tpu.optim.optimizer import decay_mask as jax_decay_mask
 from virtex_tpu.optim.optimizer import param_path_names
 from virtex_tpu_torch.config import ModelSpec, OptimSpec
-from virtex_tpu_torch.models.captioning import (
-    CaptioningModel,
-    token_cross_entropy,
-)
+from virtex_tpu_torch.factories import PretrainingModelFactory as PortFactory
+from virtex_tpu_torch.models.captioning import token_cross_entropy
 from virtex_tpu_torch.optim.lr_schedules import make_schedule
 from virtex_tpu_torch.optim.optimizer import (
     NO_DECAY,
@@ -31,7 +29,11 @@ from virtex_tpu_torch.optim.optimizer import (
     cnn_mask,
     decay_mask,
 )
-from virtex_tpu_torch.utils.weights import flax_names, state_dict_from_flax
+from virtex_tpu_torch.utils.weights import (
+    flax_name_map,
+    flax_names,
+    state_dict_from_flax,
+)
 
 
 # -- schedules ----------------------------------------------------------------
@@ -54,48 +56,82 @@ def test_flagship_optim_spec_is_the_jax_default():
 
 
 # -- masks --------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def tiny():
-    cfg = tiny_config()
+def _mask_setup(model_name):
+    cfg = tiny_config(model_name=model_name)
     jm = PretrainingModelFactory.from_config(cfg)
     batch = caption_batch(2, 64, cfg.DATA.MAX_CAPTION_LENGTH,
                           cfg.DATA.VOCAB_SIZE, seed=2)
+    batch["labels"] = batch["caption_tokens"]
     variables = jax_variables(jm, batch, seed=2)
-    model = CaptioningModel.from_spec(ModelSpec.from_config(cfg))
-    return variables, model
+    return variables, PortFactory.from_spec(ModelSpec.from_config(cfg))
 
 
-def test_flax_names_cover_the_jax_parameters_once(tiny):
-    variables, model = tiny
+@pytest.fixture(scope="module")
+def tiny():
+    return _mask_setup("bicaptioning")
+
+
+@pytest.fixture(scope="module")
+def tiny_linear_head():
+    """A classification model, whose linear head's output bias is
+    ``textual.output.bias`` in the JAX package (not ``output_bias``)."""
+    return _mask_setup("token_classification")
+
+
+# Holds the linear head's output bias out of decay under its JAX name only.
+LINEAR_HEAD_NO_DECAY = r".*textual\.output\.bias"
+
+
+def _check_flax_names(variables, model):
     jax_names = jax.tree.leaves(param_path_names(variables["params"]))
-    ours = [n for name, _ in model.named_parameters()
-            for n in flax_names(name)]
+    ours = [n for names in flax_name_map(
+        n for n, _ in model.named_parameters()).values() for n in names]
     # every JAX parameter once; the tied and shared ones are one port entry
     assert sorted(ours) == sorted(jax_names)
 
 
-@pytest.mark.parametrize("which", ["decay", "cnn"])
-def test_masks_equal_the_jax_masks_through_the_bridge(tiny, which):
-    variables, model = tiny
+def _check_masks(variables, model, which, no_decay):
     params = variables["params"]
-    jmask = (jax_decay_mask(params, NO_DECAY) if which == "decay"
+    jmask = (jax_decay_mask(params, no_decay) if which == "decay"
              else jax_cnn_mask(params))
     bridged = state_dict_from_flax({
         "params": jax.tree.map(lambda m, p: np.full(np.shape(p), float(m)),
                                jmask, params),
         "batch_stats": variables["batch_stats"]})
-    ours = (decay_mask(model.named_parameters()) if which == "decay"
+    ours = (decay_mask(model.named_parameters(), no_decay) if which == "decay"
             else cnn_mask(model.named_parameters()))
     assert set(ours) == {n for n, _ in model.named_parameters()}
     for name, value in ours.items():
         carried = bridged[name]
         assert bool(carried.all()) == bool(carried.any()) == value, name
+    return ours
+
+
+def test_flax_names_cover_the_jax_parameters_once(tiny):
+    _check_flax_names(*tiny)
+
+
+def test_flax_names_cover_the_linear_head_once(tiny_linear_head):
+    _check_flax_names(*tiny_linear_head)
+
+
+@pytest.mark.parametrize("which", ["decay", "cnn"])
+def test_masks_equal_the_jax_masks_through_the_bridge(tiny, which):
+    ours = _check_masks(*tiny, which, NO_DECAY)
     if which == "decay":
         # The JAX package's regex misses its backward transformer's norms
         # and biases ("textual.backward_transformer..."), so they decay;
         # matched on the JAX names, the port's mask keeps that.
         assert ours["backward_textual.transformer.layers.0.norm1.bias"]
         assert not ours["textual.transformer.layers.0.norm1.bias"]
+
+
+@pytest.mark.parametrize("which", ["decay", "cnn"])
+def test_linear_head_masks_equal_the_jax_masks(tiny_linear_head, which):
+    ours = _check_masks(*tiny_linear_head, which, LINEAR_HEAD_NO_DECAY)
+    if which == "decay":
+        assert not ours["textual.output.bias"]
+        assert ours["textual.output.weight"]
 
 
 # -- the optimizer chain against optax ----------------------------------------

@@ -18,7 +18,7 @@ from tests.torch_parity import caption_batch, jax_variables, tiny_config
 from virtex_tpu.factories import PretrainingModelFactory
 from virtex_tpu.utils.checkpoint_convert import export_virtex_checkpoint
 from virtex_tpu_torch.config import ModelSpec
-from virtex_tpu_torch.models.captioning import CaptioningModel
+from virtex_tpu_torch.factories import PretrainingModelFactory as PortFactory
 from virtex_tpu_torch.utils.weights import state_dict_from_flax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,13 +54,13 @@ def test_state_dict_equals_the_reference_export(tiny):
 
 def test_port_loads_both_strictly(tiny):
     spec, variables = tiny
-    model = CaptioningModel.from_spec(spec)
+    model = PortFactory.from_spec(spec)
     assert sorted(model.state_dict()) == sorted(state_dict_from_flax(
         variables))
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     export = {k: torch.from_numpy(np.array(v))
               for k, v in export_virtex_checkpoint(variables).items()}
-    fresh = CaptioningModel.from_spec(spec)
+    fresh = PortFactory.from_spec(spec)
     fresh.load_state_dict(export, strict=True)
     for name, value in model.state_dict().items():
         assert torch.equal(fresh.state_dict()[name], value), name
@@ -96,7 +96,11 @@ SLICE_MODULES = [
     "virtex_tpu_torch.modules.transformer",
     "virtex_tpu_torch.modules.textual_heads",
     "virtex_tpu_torch.models.captioning",
+    "virtex_tpu_torch.models.classification",
+    "virtex_tpu_torch.models.masked_lm",
+    "virtex_tpu_torch.factories",
     "virtex_tpu_torch.utils.beam_search",
+    "virtex_tpu_torch.utils.nucleus_sampling",
     "virtex_tpu_torch.utils.weights",
     "virtex_tpu_torch.engine.captioner",
     "virtex_tpu_torch.engine.evaluation",

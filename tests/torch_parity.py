@@ -16,7 +16,7 @@ import torch
 
 from virtex_tpu.config import Config
 from virtex_tpu_torch.config import ModelSpec
-from virtex_tpu_torch.models.captioning import CaptioningModel
+from virtex_tpu_torch.factories import PretrainingModelFactory
 from virtex_tpu_torch.utils.weights import state_dict_from_flax
 
 
@@ -28,17 +28,22 @@ def rel_err(a, ref, atol: float) -> float:
     return float(np.max(np.abs(a - ref) / (np.abs(ref) + atol)))
 
 
-def tiny_config(dtype: str = "float32") -> Config:
+def tiny_config(dtype: str = "float32", model_name: str = "") -> Config:
     """``__graft_entry__._flagship_config(tiny=True)`` with ``DTYPE``
     replaced: the flagship's model name and grammar at a few layers and
-    narrow widths (resnet18, L1_H128_A4_F256, captions of 8 tokens)."""
+    narrow widths (resnet18, L1_H128_A4_F256, captions of 8 tokens).
+    ``model_name`` replaces ``MODEL.NAME``; a classification name takes the
+    linear head (``TEXTUAL.NAME: "none"``)."""
     from __graft_entry__ import _flagship_config
     c = _flagship_config(tiny=True)
+    name = model_name or c.MODEL.NAME
+    textual = ("none" if name.endswith("classification")
+               else c.MODEL.TEXTUAL.NAME)
     return Config(override_list=[
-        "MODEL.NAME", c.MODEL.NAME,
+        "MODEL.NAME", name,
         "MODEL.VISUAL.NAME", c.MODEL.VISUAL.NAME,
         "MODEL.VISUAL.FEATURE_SIZE", c.MODEL.VISUAL.FEATURE_SIZE,
-        "MODEL.TEXTUAL.NAME", c.MODEL.TEXTUAL.NAME,
+        "MODEL.TEXTUAL.NAME", textual,
         "DATA.MAX_CAPTION_LENGTH", c.DATA.MAX_CAPTION_LENGTH,
         "DTYPE", dtype,
     ])
@@ -91,7 +96,8 @@ def redraw(tree, rng, path=()):
 def jax_variables(model, batch: dict, seed: int,
                   output_bias_std: float = 0.0) -> dict:
     """Flax init, then the redraw above; ``output_bias_std`` > 0 draws the
-    output bias from N(0, std²)."""
+    output bias (the transformer head's ``output_bias`` or the linear
+    head's ``output.bias``) from N(0, std²)."""
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     init = jax.jit(lambda key, b: model.init(key, b, train=False))
     variables = init(jax.random.PRNGKey(seed), jb)
@@ -101,15 +107,57 @@ def jax_variables(model, batch: dict, seed: int,
     rng = np.random.RandomState(seed)
     variables = redraw(variables, rng)
     if output_bias_std:
-        bias = variables["params"]["textual"]["output_bias"]
-        variables["params"]["textual"]["output_bias"] = (
-            output_bias_std * rng.randn(*bias.shape)).astype(np.float32)
+        _draw_output_bias(variables, rng, output_bias_std)
     return variables
 
 
-def port_model(spec: ModelSpec, variables: dict) -> CaptioningModel:
-    """The port's model, loaded strictly from the JAX variables."""
-    model = CaptioningModel.from_spec(spec)
+def drawn_variables(model, batch: dict, seed: int,
+                    output_bias_std: float = 0.0) -> dict:
+    """Variables of ``model`` drawn from a numpy seed, with no flax init to
+    compile: shapes from ``jax.eval_shape`` of the init; conv kernels
+    N(0, 2/fan_in), dense kernels and embedding tables N(0, 0.02²), biases
+    zero; then the redraw and the output bias as in :func:`jax_variables`."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    shapes = jax.eval_shape(
+        lambda b: model.init(jax.random.PRNGKey(seed), b, train=False), jb)
+    rng = np.random.RandomState(seed)
+
+    def fill(tree):
+        out = {}
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[key] = fill(leaf)
+                continue
+            shape = leaf.shape
+            if key == "kernel" and len(shape) == 4:   # HWIO convolution
+                std = float(np.sqrt(2.0 / np.prod(shape[:3])))
+            elif key in ("kernel", "embedding"):
+                std = 0.02
+            else:
+                std = 0.0
+            out[key] = (std * rng.randn(*shape)).astype(np.float32)
+        return out
+
+    variables = redraw(fill({"params": shapes["params"],
+                             "batch_stats": shapes["batch_stats"]}), rng)
+    if output_bias_std:
+        _draw_output_bias(variables, rng, output_bias_std)
+    return variables
+
+
+def _draw_output_bias(variables: dict, rng, std: float) -> None:
+    """The transformer head's ``output_bias`` or the linear head's
+    ``output.bias`` from N(0, std²), in place."""
+    textual = variables["params"]["textual"]
+    owner, key = ((textual, "output_bias") if "output_bias" in textual
+                  else (textual["output"], "bias"))
+    owner[key] = (std * rng.randn(*owner[key].shape)).astype(np.float32)
+
+
+def port_model(spec: ModelSpec, variables: dict) -> torch.nn.Module:
+    """The port's model for ``spec.model_name``, loaded strictly from the
+    JAX variables."""
+    model = PretrainingModelFactory.from_spec(spec)
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model.eval()
 

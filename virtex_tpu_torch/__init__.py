@@ -6,10 +6,11 @@ the module at the same path there. The port imports torch and never jax or
 ``virtex_tpu``. Kernels written by hand for ``sm_90a`` live in ``csrc/``
 and are built at first use (``ops/_build.py``).
 
-This release covers the captioning models: the train step with gradient
-accumulation and the optimizer chain (``engine/trainer.py``,
-``optim/``), the eval step (``engine/evaluation.py``) and beam-search
-captioning (``engine/captioner.py``).
+This release covers the six pretext-task models of ``MODEL.NAME``
+(``factories.py``): the train step with gradient accumulation and the
+optimizer chain (``engine/trainer.py``, ``optim/``), the eval step
+(``engine/evaluation.py``), and captioning by beam search or nucleus
+sampling (``engine/captioner.py``).
 """
 
 __version__ = "0.1.0"

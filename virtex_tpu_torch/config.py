@@ -2,12 +2,15 @@ r"""
 The model and optimizer descriptions that the port reads.
 
 Counterpart of :class:`virtex_tpu.config.Config`, cut to the keys that
-building, running and training a captioning model need. It reads no yaml:
-:meth:`ModelSpec.flagship` builds the flagship ``bicaptioning_R_50_L1_H1024``
-in code, :class:`OptimSpec` holds the ``OPTIM.*`` keys with the JAX
-package's defaults (the flagship trains with them), and the
-``from_config`` methods copy the keys out of a ``virtex_tpu.config.Config``
-(duck-typed, so this module imports nothing of the JAX package).
+building, running and training the pretext-task models need. It reads no
+yaml: :meth:`ModelSpec.flagship` builds the flagship
+``bicaptioning_R_50_L1_H1024`` in code, :meth:`ModelSpec.task_ablation`
+and :meth:`OptimSpec.task_ablation` build the five
+``configs/task_ablations/*.yaml``, :class:`OptimSpec` holds the ``OPTIM.*``
+keys with the JAX package's defaults (the flagship trains with them), and
+the ``from_config`` methods copy the keys out of a
+``virtex_tpu.config.Config`` (duck-typed, so this module imports nothing
+of the JAX package).
 """
 from __future__ import annotations
 
@@ -27,6 +30,27 @@ TEXTUAL_NAME_RE = re.compile(
 # caption in both directions (virtex_tpu/factories.py).
 CAPTIONING_MODELS = ("virtex", "captioning", "bicaptioning")
 BIDIRECTIONAL_MODELS = ("virtex", "bicaptioning")
+MODEL_NAMES = CAPTIONING_MODELS + (
+    "masked_lm", "token_classification", "multilabel_classification")
+DECODER_NAMES = ("beam_search", "nucleus_sampling")
+
+# configs/task_ablations/<stem>.yaml: the keys each file sets over
+# configs/_base_bicaptioning_R_50_L1_H1024.yaml (the base's MODEL.NAME is
+# "virtex"). Both classification files also set OPTIM.NO_DECAY "none".
+_H2048 = "transdec_postnorm::L1_H2048_A32_F8192"
+TASK_ABLATIONS = {
+    "bicaptioning_R_50_L1_H2048": {"model_name": "virtex",
+                                   "textual_name": _H2048},
+    "captioning_R_50_L1_H2048": {"model_name": "captioning",
+                                 "textual_name": _H2048},
+    "masked_lm_R_50_L1_H2048": {"model_name": "masked_lm",
+                                "textual_name": _H2048},
+    "token_classification_R_50": {"model_name": "token_classification",
+                                  "textual_name": "none"},
+    "multilabel_classification_R_50": {
+        "model_name": "multilabel_classification", "textual_name": "none",
+        "vocab_size": 81},
+}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -49,9 +73,20 @@ class ModelSpec:
     unk_index: int = 0
     sos_index: int = 1
     eos_index: int = 2
+    mask_index: int = 3
+    decoder_name: str = "beam_search"
     beam_size: int = 5
+    nucleus_size: float = 0.9
     max_decoding_steps: int = 30
     prefix_mode: str = "reference"
+
+    def __post_init__(self):
+        if self.model_name not in MODEL_NAMES:
+            raise KeyError(f"unknown MODEL.NAME {self.model_name!r}; "
+                           f"known: {MODEL_NAMES}")
+        if self.decoder_name not in DECODER_NAMES:
+            raise KeyError(f"unknown MODEL.DECODER.NAME "
+                           f"{self.decoder_name!r}; known: {DECODER_NAMES}")
 
     @classmethod
     def flagship(cls) -> "ModelSpec":
@@ -59,6 +94,15 @@ class ModelSpec:
         ``__graft_entry__._flagship_config()`` builds."""
         return cls(model_name="bicaptioning",
                    textual_name="transdec_postnorm::L1_H1024_A16_F4096")
+
+    @classmethod
+    def task_ablation(cls, name: str) -> "ModelSpec":
+        """``configs/task_ablations/<name>.yaml``, e.g.
+        ``masked_lm_R_50_L1_H2048`` or ``token_classification_R_50``."""
+        if name not in TASK_ABLATIONS:
+            raise KeyError(f"unknown task ablation {name!r}; known: "
+                           f"{sorted(TASK_ABLATIONS)}")
+        return cls(**TASK_ABLATIONS[name])
 
     @classmethod
     def from_config(cls, cfg: Any) -> "ModelSpec":
@@ -81,7 +125,10 @@ class ModelSpec:
             unk_index=int(D.UNK_INDEX),
             sos_index=int(D.SOS_INDEX),
             eos_index=int(D.EOS_INDEX),
+            mask_index=int(D.MASK_INDEX),
+            decoder_name=M.DECODER.NAME,
             beam_size=int(M.DECODER.BEAM_SIZE),
+            nucleus_size=float(M.DECODER.NUCLEUS_SIZE),
             max_decoding_steps=int(M.DECODER.MAX_DECODING_STEPS),
             prefix_mode=M.DECODER.PREFIX_MODE,
         )
@@ -101,6 +148,12 @@ class ModelSpec:
         if zoo not in ("", "torchvision"):
             raise KeyError(f"unknown visual backbone family {zoo!r}")
         return arch
+
+    @property
+    def linear_head(self) -> bool:
+        """``TEXTUAL.NAME: "none"``: the pooled linear head of the
+        classification tasks."""
+        return self.textual_name == "none"
 
     @property
     def textual(self) -> dict:
@@ -146,6 +199,14 @@ class OptimSpec:
         """The flagship's optimizer: ``_flagship_config()`` keeps every
         ``OPTIM`` default."""
         return cls()
+
+    @classmethod
+    def task_ablation(cls, name: str) -> "OptimSpec":
+        """The optimizer of ``configs/task_ablations/<name>.yaml``: the
+        defaults, and NO_DECAY "none" (no name matches, so every parameter
+        decays) for the two with the linear head."""
+        linear = ModelSpec.task_ablation(name).linear_head
+        return cls(no_decay="none") if linear else cls()
 
     @classmethod
     def from_config(cls, cfg: Any) -> "OptimSpec":

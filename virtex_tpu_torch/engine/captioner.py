@@ -1,29 +1,37 @@
 r"""
-End-to-end caption generation: visual encode → KV-cache init → beam search.
+End-to-end caption generation: visual encode → KV-cache init → beam search
+or nucleus sampling.
 
-Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`
-for beam search. The visual grid is encoded once, the cross-attention K/V
-are projected once per image and held outside the search state (they do
+Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`.
+The visual grid is encoded once and the cross-attention K/V are projected
+once per image. Beam search holds them outside the search state (they do
 not differ between an image's beams, so the per-step beam reorder never
-gathers them), and the self-attention caches follow the beams. Nucleus
-sampling is not ported yet.
+gathers them) and reorders the self-attention caches with the beams.
+Nucleus sampling keeps one row per image, so its state is the whole cache.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+from virtex_tpu_torch.utils.nucleus_sampling import (
+    AutoRegressiveNucleusSampling,
+)
+
+CaptionFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
 
-def make_caption_fn(model, decoder: AutoRegressiveBeamSearch,
-                    sos_index: int = 1, prefix_mode: str = "reference"
-                    ) -> Callable[[torch.Tensor], torch.Tensor]:
-    r"""Build ``images → predictions`` (B, max_steps) token ids, the start
-    token excluded.
+def make_caption_fn(model, decoder, sos_index: int = 1,
+                    prefix_mode: str = "reference") -> CaptionFn:
+    r"""Build ``(images, generator=None) → predictions`` (B, max_steps)
+    token ids, the start token excluded. Nucleus sampling draws from
+    ``generator`` (on the images' device) and raises without one; beam
+    search takes none.
 
-    ``prefix_mode`` (config ``MODEL.DECODER.PREFIX_MODE``):
+    ``prefix_mode`` (config ``MODEL.DECODER.PREFIX_MODE``), beam search
+    only:
 
     - ``"reference"`` (default, the parity contract): prefixes EXCLUDE the
       start token, as the reference decodes, so generated token i sits at
@@ -31,22 +39,30 @@ def make_caption_fn(model, decoder: AutoRegressiveBeamSearch,
       This is the reference's train/inference mismatch, kept on purpose
       so that published checkpoints caption as they did.
     - ``"sos"``: keep SOS at position 0, as in training.
+
+    Nucleus sampling always keeps SOS at position 0, as the reference
+    does, and its step returns raw logits, not log-probabilities.
     """
-    if not isinstance(decoder, AutoRegressiveBeamSearch):
-        raise NotImplementedError("only beam search is ported")
+    if not isinstance(decoder, (AutoRegressiveBeamSearch,
+                                AutoRegressiveNucleusSampling)):
+        raise TypeError(f"unknown caption decoder {type(decoder).__name__}")
     if prefix_mode not in ("reference", "sos"):
         raise ValueError(f"unknown prefix_mode {prefix_mode!r}")
-    rebase = prefix_mode == "reference"
     max_pos = model.textual.max_caption_length
     if decoder.max_steps > max_pos:
         raise ValueError(
             f"decoder.max_steps={decoder.max_steps} exceeds the positional "
             f"table ({max_pos} rows); raise DATA.MAX_CAPTION_LENGTH or "
             "lower MODEL.DECODER.MAX_DECODING_STEPS")
+    if isinstance(decoder, AutoRegressiveNucleusSampling):
+        return _nucleus_caption_fn(model, decoder, sos_index)
+    rebase = prefix_mode == "reference"
     K = decoder.beam_size
 
     @torch.inference_mode()
-    def caption_fn(images: torch.Tensor) -> torch.Tensor:
+    def caption_fn(images: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         model.eval()
         grid = model.encode_visual(images)
         B = images.shape[0]
@@ -69,6 +85,28 @@ def make_caption_fn(model, decoder: AutoRegressiveBeamSearch,
         start = torch.full((B,), sos_index, dtype=torch.long,
                            device=images.device)
         preds, _ = decoder.search(start, step_fn, self_caches)
+        return preds
+
+    return caption_fn
+
+
+def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
+                        sos_index: int) -> CaptionFn:
+    @torch.inference_mode()
+    def caption_fn(images: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        if generator is None:
+            # A fixed seed would make "sampling" deterministic with no
+            # symptom; the caller threads its own randomness.
+            raise ValueError("nucleus captioning needs a torch.Generator "
+                             "(generator=)")
+        model.eval()
+        caches = model.init_decode(model.encode_visual(images),
+                                   decoder.max_steps)
+        start = torch.full((images.shape[0],), sos_index, dtype=torch.long,
+                           device=images.device)
+        preds, _ = decoder.search(start, model.decode_step, caches, generator)
         return preds
 
     return caption_fn

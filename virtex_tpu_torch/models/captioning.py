@@ -16,7 +16,6 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
-from virtex_tpu_torch.config import CAPTIONING_MODELS, ModelSpec
 from virtex_tpu_torch.modules.textual_heads import TransformerTextualHead
 from virtex_tpu_torch.modules.transformer import Cache
 from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
@@ -69,28 +68,6 @@ class CaptioningModel(nn.Module):
         if caption_backward:
             self.backward_textual = textual.backward_head()
 
-    @classmethod
-    def from_spec(cls, spec: ModelSpec) -> "CaptioningModel":
-        if spec.model_name not in CAPTIONING_MODELS:
-            raise NotImplementedError(
-                f"MODEL.NAME {spec.model_name!r}: only the captioning "
-                f"models {CAPTIONING_MODELS} are ported")
-        dtype = spec.torch_dtype
-        visual = ResNetVisualBackbone(
-            spec.visual_arch, frozen=spec.visual_frozen, dtype=dtype,
-            bn_stat_stride=spec.bn_stat_stride, stem_s2d=spec.stem_s2d,
-            remat=spec.remat)
-        textual = TransformerTextualHead(
-            visual_feature_size=spec.visual_feature_size,
-            vocab_size=spec.vocab_size, dropout=spec.textual_dropout,
-            mask_future_positions=True,
-            max_caption_length=spec.max_caption_length,
-            padding_idx=spec.unk_index, dtype=dtype, remat=spec.remat,
-            **spec.textual)
-        return cls(visual, textual, caption_backward=spec.caption_backward,
-                   sos_index=spec.sos_index, eos_index=spec.eos_index,
-                   padding_idx=spec.unk_index)
-
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
@@ -126,6 +103,15 @@ class CaptioningModel(nn.Module):
         return self.textual.decode_step(token, position, caches)
 
 
+class ForwardCaptioningModel(CaptioningModel):
+    """``MODEL.NAME: captioning``: the forward direction only."""
+
+    def __init__(self, visual, textual, **kwargs):
+        super().__init__(visual, textual, caption_backward=False, **kwargs)
+
+
 class BidirectionalCaptioningModel(CaptioningModel):
+    """``MODEL.NAME: virtex`` or ``bicaptioning``."""
+
     def __init__(self, visual, textual, **kwargs):
         super().__init__(visual, textual, caption_backward=True, **kwargs)

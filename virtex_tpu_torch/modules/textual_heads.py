@@ -1,8 +1,10 @@
 r"""
-Transformer textual head: visual grid + caption tokens → vocabulary logits.
+Textual heads: the visual grid (and caption tokens) → vocabulary logits.
 
-Counterpart of ``virtex_tpu/modules/textual_heads.py``
-:class:`TransformerTextualHead`: visual projection C→H over the flattened
+Counterpart of ``virtex_tpu/modules/textual_heads.py``.
+:class:`LinearTextualHead` (the classification tasks) pools the grid and
+applies one fp32 linear layer. :class:`TransformerTextualHead`: visual
+projection C→H over the flattened
 grid, word + position embedding, transformer decoder with
 cross-attention to the visual tokens, and an output projection whose
 weight is the word table (``output.weight`` is tied to
@@ -29,6 +31,25 @@ from virtex_tpu_torch.modules.transformer import (
     TransformerDecoder,
     make_self_attention_mask,
 )
+
+
+class LinearTextualHead(nn.Module):
+    """Average-pool the (B, Hg, Wg, C) grid, then an fp32 ``Linear`` to
+    the vocabulary (weight N(0, 0.02), bias zero)."""
+
+    def __init__(self, visual_feature_size: int, vocab_size: int):
+        super().__init__()
+        self.output = nn.Linear(visual_feature_size, vocab_size)
+        nn.init.normal_(self.output.weight, std=0.02)
+        nn.init.zeros_(self.output.bias)
+
+    def forward(self, visual_grid, caption_tokens=None, caption_lengths=None,
+                generator: Optional[torch.Generator] = None):
+        """(B, Hg, Wg, C) → (B, vocab) fp32 logits. The mean is taken in
+        fp32 and rounded to the grid's dtype, as ``jnp.mean`` of a bf16
+        grid returns bf16, before the fp32 layer."""
+        pooled = visual_grid.float().mean(dim=(1, 2)).to(visual_grid.dtype)
+        return self.output(pooled.float())
 
 
 class TransformerTextualHead(nn.Module):

@@ -284,8 +284,10 @@ class TransformerDecoder(nn.Module):
 def make_self_attention_mask(tokens: torch.Tensor, lengths: torch.Tensor,
                              causal: bool,
                              ) -> torch.Tensor:
-    """Boolean (B, 1, T, T) mask: key padding (positions ≥ length masked)
-    and, if ``causal``, the future. True = attend."""
+    """Boolean mask, True = attend: key padding (positions ≥ length
+    masked) and, if ``causal``, the future, (B, 1, T, T); without
+    ``causal`` the key padding alone, (B, 1, 1, T), which the attention
+    broadcasts over the queries."""
     T = tokens.shape[1]
     pos = torch.arange(T, device=tokens.device)
     mask = (pos[None, :] < lengths[:, None])[:, None, None, :]

@@ -16,7 +16,7 @@ holds plain parameters throughout.
 
 Names: the NO_DECAY regex, the "cnn" group and ``frozen_pattern`` match
 each parameter's name in the JAX package's dotted form
-(:func:`virtex_tpu_torch.utils.weights.flax_names`), so the masks are the
+(:func:`virtex_tpu_torch.utils.weights.flax_name_map`), so the masks are the
 JAX package's, parameter for parameter. Each tied or shared parameter is
 one entry (``named_parameters()`` yields it once), so it is clipped,
 decayed and stepped once. The schedule and the Lookahead sync depend only
@@ -32,7 +32,7 @@ import torch
 
 from virtex_tpu_torch.config import OptimSpec
 from virtex_tpu_torch.optim.lr_schedules import Schedule, make_schedule
-from virtex_tpu_torch.utils.weights import flax_names
+from virtex_tpu_torch.utils.weights import flax_name_map
 
 NO_DECAY = r".*textual.(embedding|transformer).*(norm.*|bias)"
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.scale_by_adam
@@ -51,16 +51,18 @@ def decay_mask(named_params: Iterable[Tuple[str, torch.Tensor]],
                no_decay_pattern: str = NO_DECAY) -> Dict[str, bool]:
     """True where weight decay applies: the JAX name does not match
     ``no_decay_pattern`` (``re.match``)."""
-    return {name: not _match(flax_names(name),
+    return {name: not _match(jax_names,
                              lambda n: re.match(no_decay_pattern, n))
-            for name, _ in named_params}
+            for name, jax_names in flax_name_map(
+                n for n, _ in named_params).items()}
 
 
 def cnn_mask(named_params: Iterable[Tuple[str, torch.Tensor]]
              ) -> Dict[str, bool]:
     """True for the visual backbone's parameters (name holds "cnn")."""
-    return {name: _match(flax_names(name), lambda n: "cnn" in n)
-            for name, _ in named_params}
+    return {name: _match(jax_names, lambda n: "cnn" in n)
+            for name, jax_names in flax_name_map(
+                n for n, _ in named_params).items()}
 
 
 class Optimizer:
@@ -92,8 +94,9 @@ class Optimizer:
         self.lookahead_k, self.lookahead_alpha = lookahead_k, lookahead_alpha
         decay = decay_mask(named, no_decay_pattern)
         cnn = cnn_mask(named)
+        jax_names = flax_name_map(self.names)
         frozen = {n: frozen_pattern is not None and _match(
-            flax_names(n), lambda m: re.search(frozen_pattern, m))
+            jax_names[n], lambda m: re.search(frozen_pattern, m))
             for n in self.names}
         self._decay = [i for i, n in enumerate(self.names) if decay[n]]
         self._frozen = [i for i, n in enumerate(self.names) if frozen[n]]

@@ -2,23 +2,25 @@ r"""
 The weight bridge: flax variables of the JAX package → the port's state dict.
 
 :func:`state_dict_from_flax` takes ``{"params", "batch_stats"}`` as nested
-dicts of numpy arrays and returns a ``state_dict`` for
-:class:`virtex_tpu_torch.models.captioning.CaptioningModel`. Its names are
-the reference's torch names (torchvision ResNet keys with
+dicts of numpy arrays and returns a ``state_dict`` for any of the port's
+pretext-task models (``virtex_tpu_torch.factories``). Its names are the
+reference's torch names (torchvision ResNet keys with
 ``num_batches_tracked``, ``nn.TransformerDecoder`` keys with the packed
-``in_proj_weight``, and for bicaptioning ``backward_textual.*`` duplicates
-of the shared projection, embedding and output), the same mapping as
+``in_proj_weight``, for bicaptioning ``backward_textual.*`` duplicates of
+the shared projection, embedding and output, and ``textual.output.*`` for
+the classification tasks' linear head), the same mapping as
 ``virtex_tpu.utils.checkpoint_convert.export_virtex_checkpoint``. So the
 port loads either with ``load_state_dict(strict=True)``.
 
 :func:`flax_names` reads the bridge backwards, giving a port parameter's
 dotted name in the JAX package, which the optimizer's NO_DECAY regex and
-LR groups match against, as the JAX package's do.
+LR groups match against, as the JAX package's do. :func:`flax_name_map`
+applies it to a model's parameter names.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterable, List
 
 import numpy as np
 import torch
@@ -124,18 +126,23 @@ _FLAX_NAME_RULES = [
     (r"\.downsample\.0\.", ".downsample_conv."),
     (r"\.downsample\.1\.", ".downsample_bn."),
     (r"transformer\.norm\.", "transformer.final_norm."),
-    (r"^textual\.output\.bias$", "textual.output_bias"),
     (r"\.(words|positions)\.weight$", r".\1.embedding"),
 ]
+# The transformer head's fp32 output bias is a parameter of its own in the
+# JAX package; the linear head's is a Dense bias, ``textual.output.bias``.
+_TRANSFORMER_OUTPUT_BIAS = (r"^textual\.output\.bias$", "textual.output_bias")
 _NORM_SCOPE = re.compile(r"(bn\d*|norm\d*|final_norm|layer_norm)$")
 
 
-def flax_names(name: str) -> List[str]:
+def flax_names(name: str, linear_head: bool = False) -> List[str]:
     """The JAX package's dotted name(s) of the port's parameter ``name``:
     three for a packed ``in_proj_*`` (query, key, value), else one. E.g.
     ``backward_textual.transformer.layers.0.norm1.weight`` →
-    ``textual.backward_transformer.layer_0.norm1.scale``."""
-    for pattern, repl in _FLAX_NAME_RULES:
+    ``textual.backward_transformer.layer_0.norm1.scale``. ``linear_head``:
+    the model's textual head is :class:`LinearTextualHead`."""
+    rules = _FLAX_NAME_RULES if linear_head else (
+        _FLAX_NAME_RULES + [_TRANSFORMER_OUTPUT_BIAS])
+    for pattern, repl in rules:
         name = re.sub(pattern, repl, name)
     scope, _, leaf = name.rpartition(".")
     if leaf.startswith("in_proj_"):
@@ -144,6 +151,16 @@ def flax_names(name: str) -> List[str]:
     if leaf == "weight":
         leaf = "scale" if _NORM_SCOPE.search(scope) else "kernel"
     return [f"{scope}.{leaf}"]
+
+
+def flax_name_map(names: Iterable[str]) -> Dict[str, List[str]]:
+    """:func:`flax_names` of each of a model's parameter names. A
+    transformer head ties its output weight to the word table, so
+    ``named_parameters()`` names that tensor ``textual.embedding.words.weight``;
+    a parameter named ``textual.output.weight`` is the linear head's."""
+    names = list(names)
+    linear = "textual.output.weight" in names
+    return {n: flax_names(n, linear) for n in names}
 
 
 def state_dict_from_flax(variables: Tree) -> Dict[str, torch.Tensor]:
@@ -160,6 +177,10 @@ def state_dict_from_flax(variables: Tree) -> Dict[str, torch.Tensor]:
     if "textual" not in params:
         return out
     t = params["textual"]
+    if "visual_projection" not in t:  # the linear head
+        out["textual.output.weight"] = _lin(t["output"]["kernel"])
+        out["textual.output.bias"] = _t(t["output"]["bias"])
+        return out
     _textual_shared(out, "textual", t)
     _transformer(out, "textual.transformer", t["transformer"])
     if "backward_transformer" in t:
