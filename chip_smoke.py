@@ -14,17 +14,24 @@ prints no result, when there is no card or when any phase fails:
 3. K1 against its plain PyTorch version on the card: the flagship's
    attention shapes (batch 128, 16 heads of 64; self 30×30 causal + pad,
    cross 30×49), a per-head mask, the wide gate shape (640, 30, 79, 32, 64),
-   fp32 and bf16, and dropout's keep fraction and seeding.
+   fp32 (the scalar variant) and bf16 (the tensor-core variant, checked by
+   its launch count), and dropout's keep fraction and seeding.
 4. K2 against its plain version at the train step's shapes (batch 128; self
    30×30 causal + pad and cross 30×49, q/k/v strided views of the packed
    projection), fp32 and bf16; with dropout 0.1, K1's and K2's keep masks
-   equal ``philox_keep_reference`` bit for bit, and K2's gradients match
-   the plain version given that mask.
+   equal ``philox_keep_reference`` bit for bit in both variants, and K2's
+   gradients match the plain version given that mask. Then K1 and K2 in
+   bf16 at the edges of the tensor-core tiling (Tq 1, Tk 1, a fully masked
+   query row, D 32 and 128, q/k/v views that are not 16-byte aligned), and
+   one dropout forward and backward of ``MultiHeadAttention`` under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
 5. K4 against its plain version at the 12 ResNet-50 BatchNorm shapes at
    batch 128 with bf16 x, an NCHW-contiguous dy and an odd M; two launches
    give equal bits.
 6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
-   bf16 (weights from a numpy seed), batch 32 of captions of varied length.
+   bf16 (built by ``PretrainingModelFactory.from_spec`` on the card, its
+   default; weights from a numpy seed), batch 32 of captions of varied
+   length.
    Finite losses, exactly 4 K1 launches, and the same losses from a copy
    of the model whose attention calls the plain version.
 7. captioning: beam search (K = 5, 30 steps) on 32 images.
@@ -34,17 +41,21 @@ prints no result, when there is no card or when any phase fails:
    match a copy whose attention and BatchNorm backward call the plain
    versions; then five steps with dropout 0.1 and no warmup give finite
    losses and a Lookahead sync at step 5. Every step makes exactly 8 K1,
-   8 K2 and 106 K4 launches.
-9. timings: K1, K2 and K4 against their plain versions (device time from
-   CUDA-graph replay), the eval step, beam captioning, and the train step
-   with the kernels and with the plain versions (host clock).
+   8 K2 and 106 K4 launches, every K1 and K2 launch of a bf16 main path
+   (here and in phases 6 and 11) in the tensor-core variant.
+9. timings: K1, K2 and K4 beside their bounds, their plain versions and
+   their library calls (``scaled_dot_product_attention`` pinned to
+   SDPA_BACKEND, its aten backward op, ``torch.batch_norm_backward_reduce``;
+   device time from CUDA-graph replay, in turns), the eval step, beam
+   captioning, and the train step with the kernels and with the plain
+   versions (host clock).
 10. K1 and K2 at the task ablations' attention (``L1_H2048_A32_F8192``:
     batch 128, 32 heads of 64), fp32 and bf16, with the masks as
     ``make_self_attention_mask`` returns them: causal + pad (B, 1, T, T)
     and masked LM's pad-only (B, 1, 1, T), which the kernels read with a
     query stride of 0; and the 30×49 cross-attention. With dropout 0.1 the
     keep masks equal ``philox_keep_reference`` bit for bit. Device times
-    against the plain versions.
+    beside the bounds, the plain versions and the library calls.
 11. the four other pretext tasks of ``configs/task_ablations`` (forward
     captioning, masked LM, token and multilabel classification) at full
     width in bf16, micro-batch 128 × accumulation 2, on batches shaped as
@@ -122,6 +133,16 @@ MAX_LABELS = 80
 # sorted mass before some token lies this close to p are not compared
 # (fp32 sums in other orders may fall on either side).
 NUCLEUS_P, BOUNDARY_MARGIN = 0.9, 1e-6
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s, dense bf16 tensor-core and fp32 (outside the tensor cores)
+# FLOP/s. A kernel's bound is the larger of its bytes (each input read
+# once, each output written once) and its operations at these rates.
+HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# The PyTorch call timed beside K1 and K2 (never called by the port):
+# scaled_dot_product_attention with the same bool mask, pinned to this
+# backend; K2's is that backend's aten backward op on its forward's saved
+# outputs.
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
 # Every distinct (H, C) of ResNet-50's BatchNorm layers at 224²
 # (tests/tpu_bn_parity.py).
 R50_BN_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
@@ -184,6 +205,30 @@ def self_mask(torch, B, T, device, seed, lengths=None):
     return key_ok & (pos[None, :] <= pos[:, None])[None, None]
 
 
+def tensor_core_wanted(torch, A, q, k):
+    """Whether K1 and K2 should take their tensor-core variant for these
+    operands; every bf16 shape this script runs must."""
+    want = A.use_tensor_cores(q.dtype, q.shape[3], k.shape[1])
+    if q.dtype == torch.bfloat16 and not want:
+        fail(f"bf16 q {tuple(q.shape)}, k {tuple(k.shape)}: the wrapper "
+             "would not take the tensor-core variant")
+    return want
+
+
+def k1_out(torch, A, name, q, k, v, mask, rate=0.0, seed=None):
+    """fused_attention on the card, checked to launch K1 once, in the
+    tensor-core variant exactly where the operands are bf16."""
+    want = tensor_core_wanted(torch, A, q, k)
+    before = (A.launch_count, A.mma_launch_count)
+    out = A.fused_attention(q, k, v, mask, rate, seed)
+    torch.cuda.synchronize()
+    if (A.launch_count, A.mma_launch_count) != (before[0] + 1,
+                                                before[1] + int(want)):
+        fail(f"K1 {name}: fused_attention did not launch K1's "
+             f"{'tensor-core' if want else 'scalar'} variant once")
+    return out
+
+
 def check_k1(torch, A, device):
     """K1 against ``attention_reference`` on the card. Returns the largest
     absolute bf16 error at the eval step's shapes, the dropout keep
@@ -220,11 +265,7 @@ def check_k1(torch, A, device):
                 mask = torch.from_numpy(m).to(device)
             else:
                 mask = None
-            before = A.launch_count
-            out = A.fused_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            if A.launch_count != before + 1:
-                fail(f"K1 {name}: fused_attention did not launch K1")
+            out = k1_out(torch, A, f"{name} {dtype_name}", q, k, v, mask)
             ref = A.attention_reference(q, k, v, mask)
             if out.shape != ref.shape or out.dtype != ref.dtype:
                 fail(f"K1 {name} {dtype_name}: {out.shape} {out.dtype} vs "
@@ -262,13 +303,17 @@ def check_k1(torch, A, device):
 
 # -- phase 4 -----------------------------------------------------------------
 def k2_grads(torch, A, q, k, v, mask, g, rate=0.0, seed=None):
-    """dq, dk, dv through K1 and K2 (one K2 launch, checked)."""
+    """dq, dk, dv through K1 and K2 (one K2 launch, checked, in the
+    tensor-core variant exactly where the operands are bf16)."""
+    want = tensor_core_wanted(torch, A, q, k)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    before = A.bwd_launch_count
+    before = (A.bwd_launch_count, A.mma_bwd_launch_count)
     A.fused_attention(q, k, v, mask, rate, seed).backward(g)
     torch.cuda.synchronize()
-    if A.bwd_launch_count != before + 1:
-        fail("K2: the attention backward did not launch K2")
+    if (A.bwd_launch_count, A.mma_bwd_launch_count) != (
+            before[0] + 1, before[1] + int(want)):
+        fail(f"K2: the attention backward did not launch K2's "
+             f"{'tensor-core' if want else 'scalar'} variant once")
     return q.grad, k.grad, v.grad
 
 
@@ -318,36 +363,133 @@ def check_k2(torch, A, device):
                         main_err = max(main_err, float(
                             (a.float() - b.float()).abs().max()))
 
-    keep = check_keep_bits(torch, A, device, 16, rate, seed)
+    keep = [check_keep_bits(torch, A, device, 16, rate, seed, dtype)
+            for dtype in (torch.float32, torch.bfloat16)][-1]
     summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
     return main_err, keep, summary
 
 
-def check_keep_bits(torch, A, device, N, rate, seed):
+def check_keep_bits(torch, A, device, N, rate, seed, dtype):
     """K1's and K2's keep masks at (B 128, N heads, 30, 49) against
-    ``philox_keep_reference``, bit for bit; returns the kept fraction.
+    ``philox_keep_reference``, bit for bit, in ``dtype`` (fp32: the scalar
+    variants; bf16: the tensor-core ones); returns the kept fraction.
 
     q = k = 0 makes P uniform. With v the identity over (key, d), K1's
     output row i is keep[i, :]/(Tk·(1 − rate)); with g the identity over
     (query, d), K2's dv[j, i] is keep[i, j]/(Tk·(1 − rate))."""
     B, Tq, Tk, D = TRAIN_BATCH, 30, 49, 64
     want = A.philox_keep_reference(seed, B, N, Tq, Tk, rate, device=device)
-    zq = torch.zeros(B, Tq, N, D, device=device)
-    zk = torch.zeros(B, Tk, N, D, device=device)
+    zq = torch.zeros(B, Tq, N, D, device=device, dtype=dtype)
+    zk = torch.zeros(B, Tk, N, D, device=device, dtype=dtype)
 
     def eye(T):
-        return torch.eye(T, D, device=device)[None, :, None, :].expand(
-            B, T, N, D).contiguous()
+        return torch.eye(T, D, device=device, dtype=dtype)[
+            None, :, None, :].expand(B, T, N, D).contiguous()
 
-    out = A.fused_attention(zq, zk, eye(Tk), None, rate, seed)
+    out = k1_out(torch, A, "keep mask", zq, zk, eye(Tk), None, rate, seed)
     if not torch.equal(out.permute(0, 2, 1, 3)[..., :Tk] > 0, want):
-        fail(f"K1 dropout, {N} heads: the keep mask is not "
+        fail(f"K1 dropout, {N} heads, {dtype}: the keep mask is not "
              "philox_keep_reference's")
     _, _, dv = k2_grads(torch, A, zq, zk, eye(Tk), None, eye(Tq), rate, seed)
     if not torch.equal(dv.permute(0, 2, 3, 1)[:, :, :Tq, :] > 0, want):
-        fail(f"K2 dropout, {N} heads: the keep mask is not "
+        fail(f"K2 dropout, {N} heads, {dtype}: the keep mask is not "
              "philox_keep_reference's")
     return float(want.float().mean())
+
+
+# name: (B, Tq, Tk, N, D, mask kind); bf16, so the tensor-core variants
+EDGE_CASES = {
+    "Tq 1": (32, 1, 49, 16, 64, "none"),
+    "Tk 1": (32, 30, 1, 16, 64, "none"),
+    "fully masked query row": (32, 30, 30, 16, 64, "row_masked"),
+    "D 32": (32, 30, 49, 16, 32, "per_head"),
+    "D 128": (32, 30, 30, 8, 128, "causal_pad"),
+    "unaligned strided q/k/v": (32, 30, 30, 16, 64, "causal_pad"),
+}
+
+
+def edge_case(torch, name, device, seed):
+    """bf16 q, k, v, g and the mask of ``EDGE_CASES[name]``. The unaligned
+    case takes q/k/v as views of a packed projection one element in, so
+    that neither their base pointers nor their row strides are 16-byte
+    aligned and the wrapper must copy them."""
+    B, Tq, Tk, N, D, kind = EDGE_CASES[name]
+    rng = np.random.RandomState(seed)
+    draw = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
+    if name.startswith("unaligned"):
+        q, k, v = (t.view(B, Tq, N, D) for t in draw(
+            B, Tq, 3 * N * D + 1)[..., 1:].split(N * D, dim=-1))
+    else:
+        q, k, v = draw(B, Tq, N, D), draw(B, Tk, N, D), draw(B, Tk, N, D)
+    g = draw(B, Tq, N, D)
+    if kind == "none":
+        return q, k, v, g, None
+    if kind == "per_head":
+        return q, k, v, g, torch.from_numpy(rng.rand(B, N, Tq, Tk) > 0.4).to(
+            device)
+    mask = self_mask(torch, B, Tq, device, seed)
+    if kind == "row_masked":
+        mask = mask.clone()
+        mask[:, :, 3, :] = False
+    return q, k, v, g, mask
+
+
+def check_edges(torch, A, device):
+    """K1 and K2 against their plain versions at the edges of the
+    tensor-core variants' tiling. Returns the largest absolute errors of
+    K1 and K2 and a summary of the relative ones."""
+    worst, abs_err = {}, {"K1": 0.0, "K2": 0.0}
+    tol = TOL["bfloat16"]
+    for i, name in enumerate(EDGE_CASES):
+        q, k, v, g, mask = edge_case(torch, name, device, SEED + 60 + i)
+        if name.startswith("unaligned") and A.aligned_16(q):
+            fail("the unaligned edge case is aligned")
+        out = k1_out(torch, A, name, q, k, v, mask)
+        pairs = [("out", out, A.attention_reference(q, k, v, mask))]
+        pairs += list(zip(("dq", "dk", "dv"),
+                          k2_grads(torch, A, q, k, v, mask, g),
+                          A.attention_backward_reference(q, k, v, mask, g)))
+        for part, got, ref in pairs:
+            err = rel_err(got, ref, ATOL)
+            worst[f"{name} {part}"] = err
+            if got.shape != ref.shape or not err <= tol:
+                fail(f"edge case {name} {part}: {tuple(got.shape)} vs "
+                     f"{tuple(ref.shape)}, error {err:.3e} > {tol:.0e}")
+            kernel = "K1" if part == "out" else "K2"
+            abs_err[kernel] = max(abs_err[kernel], float(
+                (got.float() - ref.float()).abs().max()))
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return abs_err["K1"], abs_err["K2"], summary
+
+
+def check_no_sync_dropout(torch, port, device):
+    """One dropout forward and backward of ``MultiHeadAttention`` at the
+    flagship's width (B 128, 16 heads, causal + pad mask) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the seed is drawn on the
+    card and K1 and K2 read it there, so nothing is read back."""
+    A = port.A
+    mha = port.MultiHeadAttention(1024, 16, dropout=0.1).to(device).train()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    x = torch.randn(TRAIN_BATCH, 30, 1024, device=device, generator=gen,
+                    dtype=torch.bfloat16)
+    mask = self_mask(torch, TRAIN_BATCH, 30, device, SEED)
+    torch.cuda.synchronize()
+    before = (A.mma_launch_count, A.mma_bwd_launch_count)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mha(x, x, mask, generator=gen).float().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if (A.mma_launch_count, A.mma_bwd_launch_count) != (before[0] + 1,
+                                                        before[1] + 1):
+        fail("MultiHeadAttention with dropout did not launch the "
+             "tensor-core K1 and K2 once each")
+    grad = mha.in_proj_weight.grad
+    if grad is None or not bool(torch.isfinite(grad).all()):
+        fail("MultiHeadAttention with dropout: no finite gradient")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -456,6 +598,14 @@ def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
 
 # -- phase 8 -----------------------------------------------------------------
 def launch_counts(A, BN) -> dict:
+    """The launches since ``reset_counts``. Every main path here runs in
+    bf16, so each of its K1 and K2 launches must have taken the
+    tensor-core variant."""
+    scalar = (A.launch_count - A.mma_launch_count,
+              A.bwd_launch_count - A.mma_bwd_launch_count)
+    if scalar != (0, 0):
+        fail(f"{scalar[0]} K1 and {scalar[1]} K2 launches of a bf16 main "
+             "path took the scalar variant")
     return {"K1": A.launch_count, "K2": A.bwd_launch_count,
             "K4": BN.launch_count}
 
@@ -544,52 +694,125 @@ def host_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def time_k1(torch, A, device, B, Tq, Tk, causal):
-    """K1 and the plain version in turns (plain, K1, K1, plain), bf16, at
-    (B, Tq, Tk) with 16 heads of 64. Returns ms per call as
-    ``(K1 device, plain device, K1 eager, plain eager)``: device time from
-    CUDA-graph replay, and back-to-back eager calls, which include the
-    host's launch work."""
-    q, k, v = attention_inputs(torch, B, Tq, Tk, 16, 64, torch.bfloat16,
-                               device, SEED)
-    mask = self_mask(torch, B, Tq, device, SEED) if causal else None
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(bytes_moved: float, flops: float, flop_rate: float = BF16_FLOPS):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of moving ``bytes_moved`` at HBM rate and doing ``flops`` at
+    ``flop_rate``."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(q, k, mask, backward):
+    """K1's (or K2's) bound: q, k, v (and g) read once, the output (or
+    dq, dk, dv) written once, the mask read once; 2 (or 5) products of
+    2·B·N·Tq·Tk·D FLOPs in bf16."""
+    B, Tq, N, D = q.shape
+    Tk = k.shape[1]
+    qb, kb = nbytes(q), nbytes(k)
+    moved = (2 * qb + 2 * kb + 2 * kb + qb if backward
+             else qb + 2 * kb + qb) + nbytes(mask)
+    return bound(moved, 2 * (5 if backward else 2) * B * N * Tq * Tk * D)
+
+
+def time_turns(torch, kernel, plain, library):
+    """Device ms per call of a kernel's wrapper, its plain version and its
+    library call, by CUDA-graph replay in turns (plain, library, kernel,
+    kernel, library, plain). Returns (kernel, plain, library)."""
+    p1, l1, k1, k2, l2, p2 = (graph_ms(torch, f) for f in (
+        plain, library, kernel, kernel, library, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+
+
+def sdpa_call(torch, q, k, v, mask):
+    """K1's library call: one ``scaled_dot_product_attention`` on (B, N, T,
+    D) views of the same operands, with the same bool mask, pinned to
+    SDPA_BACKEND."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        with sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND)):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    return call
+
+
+def sdpa_backward_call(torch, q, k, v, g, mask):
+    """K2's library call: the backward op of SDPA's memory-efficient
+    backend, on the outputs its forward saves, with the bool mask turned
+    into the additive bias that SDPA makes of it (-inf where False, the key
+    dimension padded to 16 for alignment)."""
+    aten = torch.ops.aten
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+    B, N, Tq, _ = qt.shape
+    Tk = kt.shape[2]
+    bias = None
+    if mask is not None:
+        full = torch.zeros(*mask.shape[:3], -(-Tk // 16) * 16,
+                           dtype=q.dtype, device=q.device)
+        full[..., :Tk].masked_fill_(~mask, float("-inf"))
+        bias = full[..., :Tk].expand(B, N, Tq, Tk)
+    out, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias, True)
+
+    def call():
+        return aten._scaled_dot_product_efficient_attention_backward(
+            gt, qt, kt, vt, bias, out, lse, seed, offset, 0.0,
+            [True, True, True, False])
+    return call
+
+
+def time_attention(torch, A, q, k, v, g, mask):
+    """K1, and K2 if ``g`` is not None, at one shape, bf16: {"K1"|"K2":
+    (kernel ms, plain ms, library ms, bound ms, bound_by)}, device time per
+    call in turns."""
+    k1 = time_turns(torch, lambda: A.fused_attention(q, k, v, mask),
+                    lambda: A.attention_reference(q, k, v, mask),
+                    sdpa_call(torch, q, k, v, mask))
+    if g is None:
+        return {"K1": k1 + attention_bound(q, k, mask, False)}
+    k2 = time_turns(torch, lambda: A._launch_bwd(q, k, v, mask, g, 0.0, None),
+                    lambda: A.attention_backward_reference(q, k, v, mask, g),
+                    sdpa_backward_call(torch, q, k, v, g, mask))
+    return {"K1": k1 + attention_bound(q, k, mask, False),
+            "K2": k2 + attention_bound(q, k, mask, True)}
+
+
+def time_k1_eager(torch, A, q, k, v, mask):
+    """K1 and the plain version by back-to-back eager calls, which include
+    the host's launch work: (K1 ms, plain ms)."""
     kernel = lambda: A.fused_attention(q, k, v, mask)  # noqa: E731
     plain = lambda: A.attention_reference(q, k, v, mask)  # noqa: E731
-    order = (plain, kernel, kernel, plain)
-    p1, k1, k2, p2 = (graph_ms(torch, f) for f in order)
-    e1, e2, e3, e4 = (cuda_ms(torch, f, 200) for f in order)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (e2 + e3) / 2, (e1 + e4) / 2
-
-
-def time_pair(torch, kernel, plain):
-    """Device ms per call of a kernel's wrapper and of its plain version,
-    by CUDA-graph replay, in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = (graph_ms(torch, f) for f in (plain, kernel, kernel,
-                                                    plain))
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def time_k2(torch, A, device, kind):
-    """K2 and the plain backward at the train step's ``kind`` of attention,
-    bf16, batch 128."""
-    q, k, v, g, mask = train_attention_inputs(torch, kind, torch.bfloat16,
-                                              device, SEED)
-    return time_pair(
-        torch, lambda: A._launch_bwd(q, k, v, mask, g, 0.0, 0),
-        lambda: A.attention_backward_reference(q, k, v, mask, g))
+    e1, e2, e3, e4 = (cuda_ms(torch, f, 200)
+                      for f in (plain, kernel, kernel, plain))
+    return (e2 + e3) / 2, (e1 + e4) / 2
 
 
 def time_k4(torch, BN, device):
-    """K4 and the plain sums at the 12 ResNet-50 shapes, bf16, batch 128:
-    {(H, C): (kernel ms, plain ms)}."""
+    """K4, the plain sums and ``torch.batch_norm_backward_reduce`` (the
+    same sums but Σ dy·(x − μ) without the rstd factor) at the 12 ResNet-50
+    shapes, bf16, batch 128: {(H, C): (kernel ms, plain ms, library ms,
+    bound ms, bound_by)}."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     times = {}
     for hw, C in R50_BN_SHAPES:
         dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device, gen)
-        times[(hw, C)] = time_pair(
+        weight = torch.ones(C, device=device)
+        M = TRAIN_BATCH * hw * hw
+        times[(hw, C)] = time_turns(
             torch, lambda: BN.bn_backward_sums(dy, x, mean, rstd),
-            lambda: BN.bn_backward_sums_reference(dy, x, mean, rstd))
+            lambda: BN.bn_backward_sums_reference(dy, x, mean, rstd),
+            lambda: torch.batch_norm_backward_reduce(
+                dy, x, mean, rstd, weight, True, False, False)) + bound(
+            nbytes(dy, x, mean, rstd) + 2 * C * 4, 4 * M * C, FP32_FLOPS)
     return times
 
 
@@ -737,11 +960,8 @@ def check_wide(torch, port, device):
         for i, kind in enumerate(WIDE_KINDS):
             q, k, v, g, mask = wide_attention_case(torch, port, kind, dtype,
                                                    device, SEED + 40 + i)
-            before = A.launch_count
-            out = A.fused_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            if A.launch_count != before + 1:
-                fail(f"K1 {kind} 32 heads: fused_attention did not launch K1")
+            out = k1_out(torch, A, f"{kind} 32 heads {dtype_name}", q, k, v,
+                         mask)
             err = check(f"K1 {kind} {dtype_name}", out,
                         A.attention_reference(q, k, v, mask), dtype_name)
             if dtype_name == "bfloat16":
@@ -758,24 +978,24 @@ def check_wide(torch, port, device):
                                 a, b, dtype_name)
                     if dtype_name == "bfloat16" and r == 0.0:
                         k2_err = max(k2_err, err)
-    keep = check_keep_bits(torch, A, device, WIDE_HEADS, rate, seed)
+    keep = [check_keep_bits(torch, A, device, WIDE_HEADS, rate, seed, dtype)
+            for dtype in (torch.float32, torch.bfloat16)][-1]
     summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
     return k1_err, k2_err, keep, summary
 
 
 def time_wide(torch, port, device):
-    """K1 and K2 against their plain versions at 32 heads, bf16, batch 128:
-    {kind: (K1 ms, plain ms, K2 ms, plain ms)}, device time per call."""
-    A, times = port.A, {}
-    for kind in WIDE_KINDS:
-        q, k, v, g, mask = wide_attention_case(torch, port, kind,
-                                               torch.bfloat16, device, SEED)
-        times[kind] = time_pair(
-            torch, lambda: A.fused_attention(q, k, v, mask),
-            lambda: A.attention_reference(q, k, v, mask)) + time_pair(
-            torch, lambda: A._launch_bwd(q, k, v, mask, g, 0.0, 0),
-            lambda: A.attention_backward_reference(q, k, v, mask, g))
-    return times
+    """K1 and K2 at 32 heads, bf16, batch 128: {kind: time_attention's
+    result}."""
+    return {kind: time_attention(torch, port.A, *wide_attention_case(
+        torch, port, kind, torch.bfloat16, device, SEED))
+        for kind in WIDE_KINDS}
+
+
+def timing_text(t) -> str:
+    """kernel, plain, library and bound ms of one time_turns + bound."""
+    return (f"{t[0]:.4f} (plain {t[1]:.4f}, library {t[2]:.4f}, bound "
+            f"{t[3]:.4f} by {t[4]}, {t[3] / t[0]:.0%} of bound)")
 
 
 # -- phase 11 ----------------------------------------------------------------
@@ -1085,8 +1305,17 @@ def main() -> None:
     k2_err, keep, summary = check_k2(torch, A, device)
     say("4 K2", f"matches the plain version (fp32 tol {TOL['float32']:.0e},"
         f" bf16 tol {TOL['bfloat16']:.0e}, atol {ATOL}): {summary}; K1's "
-        f"and K2's keep masks equal philox_keep_reference bit for bit "
-        f"(B {TRAIN_BATCH}, 16 heads, 30x49, keep {keep:.4f} at rate 0.1)")
+        f"and K2's keep masks equal philox_keep_reference bit for bit in "
+        f"both variants (fp32 scalar, bf16 tensor-core; B {TRAIN_BATCH}, "
+        f"16 heads, 30x49, keep {keep:.4f} at rate 0.1)")
+
+    edge_k1_err, edge_k2_err, summary = check_edges(torch, A, device)
+    say("4 K1 K2 edges", f"tensor-core variants match the plain versions "
+        f"(bf16 tol {TOL['bfloat16']:.0e}, atol {ATOL}): {summary}")
+    check_no_sync_dropout(torch, port, device)
+    say("4 K1 K2 seed", "a dropout forward and backward of "
+        "MultiHeadAttention (B 128, 16 heads) made no host sync under "
+        "torch.cuda.set_sync_debug_mode('error')")
 
     # 5. K4 against the plain version
     k4_err, summary = check_k4(torch, BN, device)
@@ -1096,9 +1325,12 @@ def main() -> None:
     # 6. eval step, flagship at full width
     spec = port.ModelSpec.flagship()
     torch.manual_seed(SEED)
-    model = port.PretrainingModelFactory.from_spec(spec)
+    model = port.PretrainingModelFactory.from_spec(spec)  # on the card
+    if next(model.parameters()).device != device:
+        fail(f"PretrainingModelFactory.from_spec built the model on "
+             f"{next(model.parameters()).device}, not {device}")
     randomize_(torch, model, SEED)
-    model = model.to(device).eval()
+    model = model.eval()
     plain_model = plain_copy(model, A, BN, port.MultiHeadAttention,
                              port.SubsampledBatchNorm)
     batch = caption_batch(torch, EVAL_BATCH, spec.image_size,
@@ -1156,19 +1388,23 @@ def main() -> None:
         check_train(torch, port, device)
 
     # 9. timings
-    shapes = {"self B32": (EVAL_BATCH, 30, 30, True),
-              "cross B32": (EVAL_BATCH, 30, 49, False),
-              "self B128": (TRAIN_BATCH, 30, 30, True),
-              "cross B128": (TRAIN_BATCH, 30, 49, False)}
-    k1_times = {name: time_k1(torch, A, device, *shape)
-                for name, shape in shapes.items()}
-    k2_times = {kind: time_k2(torch, A, device, kind)
-                for kind in ("self", "cross")}
+    eval_shapes = {"self B32": (30, True), "cross B32": (49, False)}
+    k1_eval, k1_eager = {}, {}
+    for name, (Tk, causal) in eval_shapes.items():
+        q, k, v = attention_inputs(torch, EVAL_BATCH, 30, Tk, 16, 64,
+                                   torch.bfloat16, device, SEED)
+        mask = self_mask(torch, EVAL_BATCH, 30, device, SEED) if causal \
+            else None
+        k1_eval[name] = time_attention(torch, A, q, k, v, None, mask)["K1"]
+        k1_eager[name] = time_k1_eager(torch, A, q, k, v, mask)
+    train_times = {kind: time_attention(torch, A, *train_attention_inputs(
+        torch, kind, torch.bfloat16, device, SEED))
+        for kind in ("self", "cross")}
     k4_times = time_k4(torch, BN, device)
     # K4 per train step: each BatchNorm input shape of the step's forward
     # passes, (B, C, H, W), times the device ms at its (H, C).
     k4_step = [sum(n * k4_times[(s[2], s[1])][i] for s, n in bn_shapes.items())
-               for i in (0, 1)]
+               for i in (0, 1, 2, 3)]
     bn_calls = sum(bn_shapes.values())
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
@@ -1179,21 +1415,28 @@ def main() -> None:
     plain_step_ms = (step_ms[0] + step_ms[3]) / 2
     images_per_step = ACCUM * TRAIN_BATCH
     card = card_line()
-    k1_text = "; ".join(
-        f"{name} {t[0]:.4f} vs {t[1]:.4f} (eager {t[2]:.4f} vs {t[3]:.4f})"
-        for name, t in k1_times.items())
-    k2_text = "; ".join(f"{kind} B{TRAIN_BATCH} {t[0]:.4f} vs {t[1]:.4f}"
-                        for kind, t in k2_times.items())
-    k4_text = "; ".join(f"{hw}x{hw}x{C} {t[0]:.4f} vs {t[1]:.4f}"
-                        for (hw, C), t in k4_times.items())
-    say("9 timings", f"{card} | K1 vs plain, bf16, device ms per call: "
-        f"{k1_text} | eval step B{EVAL_BATCH} {eval_ms:.2f} ms = "
+    lib = f"library: scaled_dot_product_attention, {SDPA_BACKEND}"
+    say("9 timings", f"{card} | K1, bf16, 16 heads, device ms per call "
+        f"({lib}): " + "; ".join(
+            f"{name} {timing_text(k1_eval[name])}, eager {k1_eager[name][0]:.4f}"
+            f" vs plain {k1_eager[name][1]:.4f}" for name in eval_shapes)
+        + "; " + "; ".join(f"{kind} B{TRAIN_BATCH} "
+                           f"{timing_text(t['K1'])}"
+                           for kind, t in train_times.items())
+        + f" | eval step B{EVAL_BATCH} {eval_ms:.2f} ms = "
         f"{EVAL_BATCH / eval_ms * 1e3:.1f} img/s | beam captioning "
         f"B{EVAL_BATCH} {caption_ms:.1f} ms per batch")
-    say("9 timings", f"{card} | K2 vs plain, bf16, device ms per call: "
-        f"{k2_text} | K4 vs plain, bf16 B{TRAIN_BATCH}, device ms per call: "
-        f"{k4_text}; per train step ({bn_calls} calls) {k4_step[0]:.3f} vs "
-        f"{k4_step[1]:.3f}")
+    say("9 timings", f"{card} | K2, bf16, 16 heads, device ms per call "
+        f"({lib}: its aten backward op): " + "; ".join(
+            f"{kind} B{TRAIN_BATCH} {timing_text(t['K2'])}"
+            for kind, t in train_times.items()))
+    say("9 timings", f"{card} | K4, bf16 B{TRAIN_BATCH}, device ms per call "
+        f"(library: torch.batch_norm_backward_reduce): " + "; ".join(
+            f"{hw}x{hw}x{C} {timing_text(t)}"
+            for (hw, C), t in k4_times.items())
+        + f" | per train step ({bn_calls} calls): K4 {k4_step[0]:.3f}, "
+        f"plain {k4_step[1]:.3f}, library {k4_step[2]:.3f}, bound "
+        f"{k4_step[3]:.3f} ({k4_step[3] / k4_step[0]:.0%} of bound)")
     say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "
         f"accum {ACCUM}, bf16, host ms per step (plain, kernels, kernels, "
         f"plain): {', '.join(f'{t:.1f}' for t in step_ms)} | kernels "
@@ -1210,12 +1453,13 @@ def main() -> None:
     say("10 K1 K2 32 heads", f"match the plain versions (fp32 tol "
         f"{TOL['float32']:.0e}, bf16 tol {TOL['bfloat16']:.0e}, atol "
         f"{ATOL}): {summary}; keep masks equal philox_keep_reference bit "
-        f"for bit (B {TRAIN_BATCH}, {WIDE_HEADS} heads, 30x49, keep "
-        f"{keep:.4f} at rate 0.1)")
+        f"for bit in both variants (B {TRAIN_BATCH}, {WIDE_HEADS} heads, "
+        f"30x49, keep {keep:.4f} at rate 0.1)")
     say("10 K1 K2 32 heads", f"{card_line()} | bf16 B{TRAIN_BATCH}, device "
-        f"ms per call, K1 vs plain; K2 vs plain: " + "; ".join(
-            f"{kind} {t[0]:.4f} vs {t[1]:.4f}; {t[2]:.4f} vs {t[3]:.4f}"
-            for kind, t in wide_times.items()))
+        f"ms per call (library: scaled_dot_product_attention, "
+        f"{SDPA_BACKEND}; K2's: its aten backward op): " +
+        "; ".join(f"{kind} K1 {timing_text(t['K1'])}, K2 "
+                  f"{timing_text(t['K2'])}" for kind, t in wide_times.items()))
 
     # 11. the other pretext tasks
     task_launches = {k: 0 for k in LAUNCHES_PER_STEP}
@@ -1233,10 +1477,17 @@ def main() -> None:
     nucleus_counts, _ = check_nucleus(torch, port, model, spec, images,
                                       device)
 
-    # ms: K1 as in the eval step (mean of its self and cross launches at
-    # B32); K2 the mean of the train step's self and cross launches (B128);
-    # K4 the mean over one train step's launches.
-    eval_k1 = [k1_times["self B32"], k1_times["cross B32"]]
+    # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
+    # (mean of its self and cross launches at B32); K2 the mean of the
+    # train step's self and cross launches (B128); K4 the mean over one
+    # train step's launches.
+    def row(times):
+        return {"ms": sum(t[0] for t in times) / len(times),
+                "plain_ms": sum(t[1] for t in times) / len(times),
+                "bound_ms": sum(t[3] for t in times) / len(times),
+                "bound_by": times[0][4],
+                "library_ms": sum(t[2] for t in times) / len(times)}
+
     print(json.dumps({"kernels": [{
         "name": "K1 attention_fwd",
         "route": "cuda",
@@ -1244,9 +1495,8 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/attention.py:87",
         "launches": serve_counts["K1"] + train_launches["K1"]
         + task_launches["K1"] + nucleus_counts["K1"],
-        "max_abs_err": max(k1_err, wide_k1_err),
-        "ms": sum(t[0] for t in eval_k1) / 2,
-        "plain_ms": sum(t[1] for t in eval_k1) / 2,
+        "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err),
+        **row(list(k1_eval.values())),
     }, {
         "name": "K2 attention_bwd",
         "route": "cuda",
@@ -1254,9 +1504,8 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/attention.py:103",
         "launches": train_launches["K2"] + task_launches["K2"]
         + nucleus_counts["K2"],
-        "max_abs_err": max(k2_err, wide_k2_err),
-        "ms": sum(t[0] for t in k2_times.values()) / 2,
-        "plain_ms": sum(t[1] for t in k2_times.values()) / 2,
+        "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err),
+        **row([t["K2"] for t in train_times.values()]),
     }, {
         "name": "K4 bn_backward_sums",
         "route": "cuda",
@@ -1265,8 +1514,8 @@ def main() -> None:
         "launches": train_launches["K4"] + task_launches["K4"]
         + nucleus_counts["K4"],
         "max_abs_err": k4_err,
-        "ms": k4_step[0] / bn_calls,
-        "plain_ms": k4_step[1] / bn_calls,
+        **row([tuple(t / bn_calls for t in k4_step)
+               + (next(iter(k4_times.values()))[4],)]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

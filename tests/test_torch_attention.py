@@ -124,6 +124,67 @@ def _keep_fraction(fn, rate, seed):
     return float(out.mean()) * (1.0 - rate), out
 
 
+# -- which variant of K1/K2 a call takes, and what it copies first -----------
+@pytest.mark.parametrize("dtype,D,Tk,want", [
+    (torch.bfloat16, 64, 30, True),     # flagship self-attention
+    (torch.bfloat16, 64, 49, True),     # cross-attention over 7x7 tokens
+    (torch.bfloat16, 64, 79, True),     # the wide gate shape
+    (torch.bfloat16, 16, 1, True),
+    (torch.bfloat16, 128, 128, True),
+    (torch.bfloat16, 64, 129, False),   # logits of 16 rows exceed registers
+    (torch.bfloat16, 24, 30, False),    # not whole k16 tiles
+    (torch.bfloat16, 144, 30, False),   # over 128
+    (torch.float32, 64, 30, False),     # fp32 keeps the scalar kernel
+    (torch.float16, 64, 30, False),
+])
+def test_variant_rule(dtype, D, Tk, want):
+    assert A.use_tensor_cores(dtype, D, Tk) is want
+
+
+def _packed_views(extra, dtype=torch.bfloat16, b=2, t=5, n=4, d=16):
+    """q, k, v as views of one (b, t, 3·n·d + extra) projection, starting
+    ``extra`` elements in."""
+    buf = torch.zeros(b, t, 3 * n * d + extra, dtype=dtype)
+    return [x.view(b, t, n, d) for x in buf[..., extra:].split(n * d, -1)]
+
+
+def test_alignment_rule():
+    q = torch.zeros(2, 5, 4, 16, dtype=torch.bfloat16)
+    assert A.aligned_16(q)
+    assert all(A.aligned_16(x) for x in _packed_views(0))
+    # one element in: base pointer 2 bytes off, row stride 193 elements
+    assert not any(A.aligned_16(x) for x in _packed_views(1))
+    # eight elements in: base 16 bytes in, row stride 200 elements = 400 B
+    assert all(A.aligned_16(x) for x in _packed_views(8))
+    # a stride that is never used (a dimension of 1) does not count
+    one = torch.zeros(1, 5, 4, 16, dtype=torch.bfloat16).as_strided(
+        (1, 5, 4, 16), (3, 64, 16, 1))
+    assert A.aligned_16(one)
+    # fp32 rows of 4 are 16 bytes; heads of 3 elements are not
+    assert A.aligned_16(torch.zeros(2, 5, 4, 4))
+    assert not A.aligned_16(torch.zeros(2, 5, 4, 3)[..., :2])
+
+
+def test_unaligned_operand_is_copied_aligned_and_equal():
+    q, _, _ = _packed_views(1)
+    q.copy_(torch.randn(q.shape).to(q.dtype))
+    got = A._mma_operand(q)
+    assert got.data_ptr() != q.data_ptr() and A.aligned_16(got)
+    assert got.is_contiguous() and torch.equal(got, q)
+    aligned = _packed_views(0)[0]
+    assert A._mma_operand(aligned) is aligned
+
+
+def test_seed_tensor_is_an_int64_view_of_a_device_seed():
+    seed = torch.tensor(123456789, dtype=torch.int64)
+    got = A._seed_tensor(seed, seed.device)
+    assert got.dtype == torch.int64 and got.shape == (1,)
+    assert got.data_ptr() == seed.data_ptr()  # a view: nothing is read back
+    assert int(A._seed_tensor(7, "cpu")) == 7
+    assert A._seed_tensor(torch.tensor([5], dtype=torch.int32), "cpu").dtype \
+        == torch.int64
+
+
 def test_plain_dropout_keep_rate_and_seeding():
     rate = 0.1
     keep, out = _keep_fraction(A.attention_reference, rate, 7)
@@ -249,3 +310,108 @@ def test_kernel_dropout_keep_rate_on_card(cuda):
     _, again = _keep_fraction(kernel, rate, 42)
     _, other = _keep_fraction(kernel, rate, 43)
     assert torch.equal(out, again) and not torch.equal(out, other)
+
+
+# -- K1's tensor-core variant on the card ------------------------------------
+# bf16 with D a multiple of 16: the main path's shapes at a small batch and
+# the edges of the tiling. Tolerance as above (CARD_TOL, bf16).
+MMA_CASES = {
+    # name: (B, Tq, Tk, N, D, mask kind)
+    "self 30x30 causal+pad": (4, 30, 30, 16, 64, "causal_pad"),
+    "cross 30x49": (4, 30, 49, 16, 64, "none"),
+    "32 heads pad-only": (4, 30, 30, 32, 64, "pad_only"),
+    "gate 30x79": (4, 30, 79, 32, 64, "none"),
+    "per-head mask": (2, 30, 49, 4, 64, "per_head"),
+    "Tq 1": (3, 1, 49, 4, 64, "none"),
+    "Tk 1": (3, 30, 1, 4, 64, "none"),
+    "fully masked row": (2, 30, 30, 4, 64, "row_masked"),
+    "D 16": (2, 30, 30, 4, 16, "causal_pad"),
+    "D 32": (2, 30, 49, 4, 32, "per_head"),
+    "D 128": (2, 30, 49, 4, 128, "causal_pad"),
+    "Tq 100 (two Q chunks)": (2, 100, 49, 4, 64, "per_head"),
+    "Tk 128": (2, 30, 128, 4, 64, "per_head"),
+    "Tk 100 D 128": (2, 17, 100, 4, 128, "none"),
+}
+
+
+def card_case(B, Tq, Tk, N, D, kind, device, seed=11, dtype=torch.bfloat16):
+    """q (B, Tq, N, D), k and v (B, Tk, N, D) ~ N(0, 1) and the mask:
+    causal + key padding, key padding alone (B, 1, 1, Tk), per head, or
+    causal with query row 3 fully masked. Shared with the K2 tests."""
+    rng = np.random.RandomState(seed)
+
+    def draw(t):
+        return torch.from_numpy(rng.randn(B, t, N, D).astype(np.float32)).to(
+            device, dtype)
+    q, k, v = draw(Tq), draw(Tk), draw(Tk)
+    lengths = rng.randint(1, Tk + 1, B)
+    lengths[0] = Tk
+    key_ok = np.arange(Tk)[None, :] < lengths[:, None]
+    causal = np.arange(Tk)[None, :] <= np.arange(Tq)[:, None]
+    if kind == "none":
+        m = None
+    elif kind == "causal_pad":
+        m = key_ok[:, None, None, :] & causal[None, None]
+    elif kind == "pad_only":
+        m = key_ok[:, None, None, :]
+    elif kind == "per_head":
+        m = rng.rand(B, N, Tq, Tk) > 0.4
+    elif kind == "row_masked":
+        m = np.broadcast_to(causal, (B, 1, Tq, Tk)).copy()
+        m[:, :, 3, :] = False
+    else:
+        raise ValueError(kind)
+    mask = None if m is None else torch.from_numpy(np.ascontiguousarray(
+        m)).to(device)
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_variant_matches_plain_on_card(cuda, name):
+    q, k, v, mask = card_case(*MMA_CASES[name], cuda)
+    before, before_mma = A.launch_count, A.mma_launch_count
+    out = A.fused_attention(q, k, v, mask)
+    assert (A.launch_count, A.mma_launch_count) == (before + 1,
+                                                    before_mma + 1)
+    ref = A.attention_reference(q, k, v, mask)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) \
+        <= CARD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Tk", [(torch.float32, 64, 49),
+                                        (torch.bfloat16, 24, 49),
+                                        (torch.bfloat16, 64, 130)])
+def test_scalar_variant_takes_the_rest_on_card(cuda, dtype, D, Tk):
+    q, k, v, mask = card_case(2, 30, Tk, 4, D, "per_head", cuda, dtype=dtype)
+    before, before_mma = A.launch_count, A.mma_launch_count
+    out = A.fused_attention(q, k, v, mask)
+    assert (A.launch_count, A.mma_launch_count) == (before + 1, before_mma)
+    ref = A.attention_reference(q, k, v, mask)
+    assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) \
+        <= CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [1, 8])
+def test_tensor_core_variant_reads_unaligned_views_on_card(cuda, extra):
+    """q/k/v as views of one packed projection starting ``extra`` elements
+    in: at 1 neither the base nor the row stride is 16-byte aligned, so the
+    wrapper copies them; at 8 it reads them in place. Either way the output
+    is that of contiguous copies."""
+    b, t, n, d = 3, 30, 4, 64
+    rng = np.random.RandomState(12)
+    buf = torch.from_numpy(rng.randn(b, t, 3 * n * d + extra).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (x.view(b, t, n, d) for x in buf[..., extra:].split(n * d, -1))
+    assert A.aligned_16(q) is (extra == 8)
+    mask = card_case(b, t, t, n, d, "causal_pad", cuda)[3]
+    before_mma = A.mma_launch_count
+    out = A.fused_attention(q, k, v, mask)
+    assert A.mma_launch_count == before_mma + 1
+    ref = A.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            mask)
+    assert torch.equal(out, ref)

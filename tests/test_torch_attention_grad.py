@@ -337,3 +337,116 @@ def test_kernel_dropout_gradients_match_plain_on_card(cuda, dtype):
     for name, a, r in zip("qkv", ours, ref):
         assert rel_err(a.float().cpu(), r.float().cpu(), 1.0) \
             <= CARD_TOL[dtype], name
+
+
+# -- K2's tensor-core variant on the card ------------------------------------
+# bf16, D a multiple of 16. dS and Pd are fp32 and enter their products as
+# two-term bf16 splits (~2^-16 relative), so the error left is the bf16
+# rounding of the stored gradients: CARD_TOL[bf16] as above.
+MMA_CASES = {
+    # name: (B, Tq, Tk, N, D, mask kind)
+    "self 30x30 causal+pad": (4, 30, 30, 16, 64, "causal_pad"),
+    "cross 30x49": (4, 30, 49, 16, 64, "none"),
+    "32 heads pad-only": (4, 30, 30, 32, 64, "pad_only"),
+    "per-head mask": (2, 30, 49, 4, 64, "per_head"),
+    "Tq 1": (3, 1, 49, 4, 64, "none"),
+    "Tk 1": (3, 30, 1, 4, 64, "none"),
+    "fully masked row": (2, 30, 30, 4, 64, "row_masked"),
+    "D 16": (2, 30, 30, 4, 16, "causal_pad"),
+    "D 32": (2, 30, 49, 4, 32, "per_head"),
+    "D 128": (2, 30, 49, 4, 128, "causal_pad"),
+    "Tq 70": (2, 70, 49, 4, 64, "per_head"),
+    "Tk 128": (2, 30, 128, 4, 64, "per_head"),
+    "Tk 100 D 128": (2, 17, 100, 4, 128, "none"),
+}
+
+
+def _mma_case(B, Tq, Tk, N, D, kind, device, seed=13):
+    """bf16 q, g (B, Tq, N, D), k, v (B, Tk, N, D) ~ N(0, 1) and the mask:
+    causal + key padding, key padding alone (B, 1, 1, Tk), per head, or
+    causal with query row 3 fully masked."""
+    rng = np.random.RandomState(seed)
+
+    def draw(t):
+        return torch.from_numpy(rng.randn(B, t, N, D).astype(np.float32)).to(
+            device, torch.bfloat16)
+    q, k, v, g = draw(Tq), draw(Tk), draw(Tk), draw(Tq)
+    lengths = rng.randint(1, Tk + 1, B)
+    lengths[0] = Tk
+    key_ok = np.arange(Tk)[None, :] < lengths[:, None]
+    causal = np.arange(Tk)[None, :] <= np.arange(Tq)[:, None]
+    m = {"none": None,
+         "causal_pad": key_ok[:, None, None, :] & causal[None, None],
+         "pad_only": key_ok[:, None, None, :],
+         "per_head": rng.rand(B, N, Tq, Tk) > 0.4,
+         "row_masked": np.broadcast_to(causal, (B, 1, Tq, Tk)).copy()}[kind]
+    if kind == "row_masked":
+        m[:, :, 3, :] = False
+    mask = None if m is None else torch.from_numpy(np.ascontiguousarray(
+        m)).to(device)
+    return q, k, v, g, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_tensor_core_gradients_match_plain_on_card(cuda, name, rate):
+    B_, Tq_, Tk_, N_ = MMA_CASES[name][:4]
+    q, k, v, g, mask = _mma_case(*MMA_CASES[name], cuda)
+    seed = 31
+    before = A.mma_bwd_launch_count
+    ours = _k2(q, k, v, g, mask, rate, seed)
+    assert A.mma_bwd_launch_count == before + 1
+    keep = (A.philox_keep_reference(seed, B_, N_, Tq_, Tk_, rate, device=cuda)
+            if rate else None)
+    ref = A.attention_backward_reference(q, k, v, mask, g, keep, rate)
+    for part, a, r in zip("qkv", ours, ref):
+        assert a.dtype == r.dtype == torch.bfloat16
+        assert torch.isfinite(a.float()).all(), part
+        assert rel_err(a.float().cpu(), r.float().cpu(), 1.0) \
+            <= CARD_TOL[torch.bfloat16], part
+
+
+@pytest.mark.cuda
+def test_tensor_core_gradients_read_unaligned_views_on_card(cuda):
+    """q/k/v one element into a packed projection and g a transposed view:
+    copied by the wrapper, the gradients equal those of contiguous
+    copies."""
+    b, t, n, d = 3, 30, 4, 64
+    rng = np.random.RandomState(14)
+    buf = torch.from_numpy(rng.randn(b, t, 3 * n * d + 1).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (x.view(b, t, n, d) for x in buf[..., 1:].split(n * d, -1))
+    g = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    assert not A.aligned_16(q)
+    mask = _mma_case(b, t, t, n, d, "causal_pad", cuda)[4]
+    before = A.mma_bwd_launch_count
+    ours = _k2(q, k, v, g, mask)
+    ref = _k2(q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous(),
+              mask)
+    assert A.mma_bwd_launch_count == before + 2
+    for a, r in zip(ours, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_tensor_core_dropout_is_philox_bit_for_bit_on_card(cuda):
+    """As the fp32 case above, in bf16, so that both tensor-core variants
+    draw their keep masks: K1's output and K2's dv are positive exactly
+    where philox_keep_reference keeps."""
+    rate, seed, tq, tk, d = 0.1, 4321, 30, 49, 64
+    z_q = torch.zeros(B, tq, N, d, device=cuda, dtype=torch.bfloat16)
+    z_k = torch.zeros(B, tk, N, d, device=cuda, dtype=torch.bfloat16)
+
+    def eye(t):
+        return torch.eye(t, d, device=cuda, dtype=torch.bfloat16)[
+            None, :, None, :].expand(B, t, N, d).contiguous()
+    want = A.philox_keep_reference(seed, B, N, tq, tk, rate, device=cuda)
+    before = (A.mma_launch_count, A.mma_bwd_launch_count)
+    out = A.fused_attention(z_q, z_k, eye(tk), None, rate, seed)
+    assert torch.equal(out.permute(0, 2, 1, 3)[..., :tk] > 0, want)
+    _, _, dv = _k2(z_q, z_k, eye(tk), eye(tq), None, rate, seed)
+    assert torch.equal(dv.permute(0, 2, 3, 1)[:, :, :tq, :] > 0, want)
+    assert (A.mma_launch_count, A.mma_bwd_launch_count) == (
+        before[0] + 2, before[1] + 1)

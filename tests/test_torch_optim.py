@@ -63,7 +63,8 @@ def _mask_setup(model_name):
                           cfg.DATA.VOCAB_SIZE, seed=2)
     batch["labels"] = batch["caption_tokens"]
     variables = jax_variables(jm, batch, seed=2)
-    return variables, PortFactory.from_spec(ModelSpec.from_config(cfg))
+    return variables, PortFactory.from_spec(ModelSpec.from_config(cfg),
+                                         device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -54,13 +54,13 @@ def test_state_dict_equals_the_reference_export(tiny):
 
 def test_port_loads_both_strictly(tiny):
     spec, variables = tiny
-    model = PortFactory.from_spec(spec)
+    model = PortFactory.from_spec(spec, device="cpu")
     assert sorted(model.state_dict()) == sorted(state_dict_from_flax(
         variables))
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     export = {k: torch.from_numpy(np.array(v))
               for k, v in export_virtex_checkpoint(variables).items()}
-    fresh = PortFactory.from_spec(spec)
+    fresh = PortFactory.from_spec(spec, device="cpu")
     fresh.load_state_dict(export, strict=True)
     for name, value in model.state_dict().items():
         assert torch.equal(fresh.state_dict()[name], value), name
@@ -69,6 +69,21 @@ def test_port_loads_both_strictly(tiny):
     assert fresh.textual.output.weight is fresh.textual.embedding.words.weight
     assert (fresh.backward_textual.output.weight
             is fresh.textual.embedding.words.weight)
+
+
+def test_from_spec_builds_on_the_card_unless_asked(tiny):
+    """The factory is an entry point: its default device is the card, and
+    without one it raises instead of building on the CPU."""
+    spec, _ = tiny
+    if torch.cuda.is_available():
+        model = PortFactory.from_spec(spec)
+        assert next(model.parameters()).device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PortFactory.from_spec(spec)
+    model = PortFactory.from_spec(spec, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert {b.device.type for b in model.buffers()} == {"cpu"}
 
 
 def test_partial_trees_give_partial_state_dicts(tiny):

@@ -157,7 +157,7 @@ def _draw_output_bias(variables: dict, rng, std: float) -> None:
 def port_model(spec: ModelSpec, variables: dict) -> torch.nn.Module:
     """The port's model for ``spec.model_name``, loaded strictly from the
     JAX variables."""
-    model = PretrainingModelFactory.from_spec(spec)
+    model = PretrainingModelFactory.from_spec(spec, device="cpu")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model.eval()
 

@@ -21,8 +21,16 @@
 // coalesced), and the block's 8 warps are summed in a fixed order into one
 // partial per (chunk, channel); stage 2 sums the chunks in order. The
 // number of chunks is chosen by the host for about two waves of blocks.
-// Wider loads (two channels per thread) and fusing the dx pass are later
-// work.
+//
+// Against its library call, torch.batch_norm_backward_reduce on the same
+// channels-last bf16 operands (the same sums without the rstd factor),
+// chip_smoke.py phase 9 measured on an H100 SXM at 700 W: 7.53 ms per
+// train step for K4 (106 launches, 45% of the 3.40 ms byte bound) against
+// 5.80 ms for the library. K4 loses most where C is small: at
+// (128 * 56 * 56, 64) it takes 0.126 ms to the library's 0.053, since its
+// 32 lanes read one 64-byte segment per row and a block covers only 32
+// channels. Wider loads (two or more channels per thread) and fusing the
+// dx pass are the next work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

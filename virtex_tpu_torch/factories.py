@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import torch
 from torch import nn
 
 from virtex_tpu_torch.config import CAPTIONING_MODELS, ModelSpec
@@ -64,21 +65,33 @@ class PretrainingModelFactory:
     }
 
     @classmethod
-    def from_spec(cls, spec: ModelSpec) -> nn.Module:
+    def from_spec(cls, spec: ModelSpec,
+                  device: Union[str, torch.device] = "cuda") -> nn.Module:
+        """The model of ``spec`` on ``device``: the card unless the caller
+        asks for another. Raises if the device is CUDA and there is none.
+        Parameters are drawn on the CPU and moved, so a seed gives the same
+        weights on every device."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PretrainingModelFactory.from_spec: no CUDA "
+                               "device; pass device='cpu' to build on the "
+                               "CPU")
         visual, textual = visual_from_spec(spec), textual_from_spec(spec)
         name = spec.model_name
         product = cls.PRODUCTS[name]
         if name in CAPTIONING_MODELS:
-            return product(visual, textual, sos_index=spec.sos_index,
-                           eos_index=spec.eos_index,
-                           padding_idx=spec.unk_index)
-        if name == "masked_lm":
-            return product(visual, textual, padding_idx=spec.unk_index)
-        if name == "token_classification":
-            return product(visual, textual, ignore_indices=(
+            model = product(visual, textual, sos_index=spec.sos_index,
+                            eos_index=spec.eos_index,
+                            padding_idx=spec.unk_index)
+        elif name == "masked_lm":
+            model = product(visual, textual, padding_idx=spec.unk_index)
+        elif name == "token_classification":
+            model = product(visual, textual, ignore_indices=(
                 spec.unk_index, spec.sos_index, spec.eos_index,
                 spec.mask_index))
-        return product(visual, textual, ignore_indices=(0,))
+        else:
+            model = product(visual, textual, ignore_indices=(0,))
+        return model.to(device)
 
 
 Decoder = Union[AutoRegressiveBeamSearch, AutoRegressiveNucleusSampling]

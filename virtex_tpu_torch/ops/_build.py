@@ -30,29 +30,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _U32 = ctypes.c_float, ctypes.c_uint32
-# restype, argtypes of every exported C function.
-SIGNATURES = {
-    "virtex_attention_fwd": (
-        _I, [_P, _P, _P, _P, _P,            # q, k, v, mask, out
-             _I, _I, _I, _I, _I, _I,        # B, Tq, Tk, N, D, is_bf16
-             _LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
+_FWD = [_P, _P, _P, _P, _P,                # q, k, v, mask, out
+        _I, _I, _I, _I, _I]                 # B, Tq, Tk, N, D
+_FWD_REST = [_LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
              _LL, _LL, _LL,                 # v strides
              _LL, _LL, _LL, _LL,            # mask strides (b, h, q, k)
-             _F, _F,                        # scale, rate
-             _U32, _U32,                    # threshold, seed
-             _P]),                          # stream
-    "virtex_attention_fwd_smem_bytes": (ctypes.c_ulonglong, [_I, _I]),
-    "virtex_attention_bwd": (
-        _I, [_P, _P, _P, _P, _P,            # q, k, v, mask, g
-             _P, _P, _P,                    # dq, dk, dv
-             _I, _I, _I, _I, _I, _I,        # B, Tq, Tk, N, D, is_bf16
-             _LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
+             _F, _F, _U32,                  # scale, rate, threshold
+             _P, _P]                        # seed (int64 on the card), stream
+_BWD = [_P, _P, _P, _P, _P,                 # q, k, v, mask, g
+        _P, _P, _P,                         # dq, dk, dv
+        _I, _I, _I, _I, _I]                 # B, Tq, Tk, N, D
+_BWD_REST = [_LL, _LL, _LL, _LL, _LL, _LL,  # q and k strides (b, t, n)
              _LL, _LL, _LL, _LL, _LL, _LL,  # v and g strides
              _LL, _LL, _LL, _LL,            # mask strides (b, h, q, k)
-             _F, _F,                        # scale, rate
-             _U32, _U32,                    # threshold, seed
-             _P]),                          # stream
+             _F, _F, _U32,                  # scale, rate, threshold
+             _P, _P]                        # seed, stream
+# restype, argtypes of every exported C function; the scalar variants take
+# is_bf16 after D.
+SIGNATURES = {
+    "virtex_attention_fwd": (_I, _FWD + [_I] + _FWD_REST),
+    "virtex_attention_fwd_mma": (_I, _FWD + _FWD_REST),
+    "virtex_attention_fwd_smem_bytes": (ctypes.c_ulonglong, [_I, _I]),
+    "virtex_attention_bwd": (_I, _BWD + [_I] + _BWD_REST),
+    "virtex_attention_bwd_mma": (_I, _BWD + _BWD_REST),
     "virtex_attention_bwd_smem_bytes": (ctypes.c_ulonglong, [_I, _I, _I]),
+    "virtex_attention_bwd_mma_smem_bytes": (ctypes.c_ulonglong,
+                                            [_I, _I, _I]),
     "virtex_bn_backward_sums": (
         _I, [_P, _P, _P, _P,                # dy, x, mean, rstd
              _P, _P,                        # partial (chunks, 2, C), out

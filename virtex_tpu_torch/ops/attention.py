@@ -12,13 +12,20 @@ given an explicit keep mask.
 On a CPU tensor :func:`fused_attention` computes the plain version, and
 autograd differentiates it. On a CUDA tensor it launches K1
 (``csrc/attention_fwd.cu``), whose gradient launches K2
-(``csrc/attention_bwd.cu``), or raises; there is no fallback.
-:data:`launch_count` counts K1 launches and :data:`bwd_launch_count` K2's.
+(``csrc/attention_bwd.cu``), or raises; there is no fallback. Each kernel
+has two variants, chosen by :func:`use_tensor_cores`: bf16 operands with D
+a multiple of 16 up to 128 and at most 128 keys take the tensor-core
+variant (``mma.sync``), everything else the scalar one. An operand the
+tensor-core variant cannot read with 16-byte loads (:func:`aligned_16`) is
+copied first. :data:`launch_count` and :data:`bwd_launch_count` count K1's
+and K2's launches, :data:`mma_launch_count` and
+:data:`mma_bwd_launch_count` those of their tensor-core variants.
 
 Dropout on the card draws from Philox4x32-10 (``csrc/philox.cuh``), keyed
 on (seed, b) and counted on (head, q, k), so K2 regenerates K1's keep
 mask; :func:`philox_keep_reference` computes that mask in torch integer
-ops, bit for bit.
+ops, bit for bit. The kernels read the seed from device memory, so a
+seed drawn on the card is never read back to the host.
 
 Layouts: q (B, Tq, N, D); k, v (B, Tk, N, D); bool mask (B, 1|N, Tq, Tk),
 True = attend. Returns (B, Tq, N, D) in q's dtype.
@@ -35,18 +42,30 @@ MAX_SMEM_BYTES = 227 * 1024  # shared memory one Hopper block can use
 
 Seed = Union[int, torch.Tensor, None]
 
-launch_count = 0      # K1 launches since import or the last reset
-bwd_launch_count = 0  # K2 launches since import or the last reset
+launch_count = 0          # K1 launches since import or the last reset
+bwd_launch_count = 0      # K2 launches
+mma_launch_count = 0      # of those, K1's tensor-core variant
+mma_bwd_launch_count = 0  # and K2's
 
 
 def reset_launch_count() -> None:
-    """Zero the K1 and K2 launch counts."""
+    """Zero the K1 and K2 launch counts, both variants."""
     global launch_count, bwd_launch_count
+    global mma_launch_count, mma_bwd_launch_count
     launch_count = bwd_launch_count = 0
+    mma_launch_count = mma_bwd_launch_count = 0
 
 
 def _seed_int(seed: Seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+def _seed_tensor(seed: Seed, device) -> torch.Tensor:
+    """The dropout seed as one int64 on ``device``; a tensor already there
+    is viewed, not read."""
+    if torch.is_tensor(seed):
+        return seed.reshape(-1)[:1].to(device=device, dtype=torch.int64)
+    return torch.tensor([int(seed)], dtype=torch.int64, device=device)
 
 
 def _threshold(rate: float) -> int:
@@ -220,9 +239,36 @@ def _strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def use_tensor_cores(dtype: torch.dtype, D: int, Tk: int) -> bool:
+    """Whether K1 and K2 take their tensor-core variants: bf16 operands, D
+    a multiple of 16 up to 128 (whole m16n8k16 tiles, fragments that fit
+    in registers) and at most 128 keys (the logits of 16 query rows held
+    in registers)."""
+    return (dtype == torch.bfloat16 and D % 16 == 0 and D <= 128
+            and Tk <= 128)
+
+
+def aligned_16(t: torch.Tensor) -> bool:
+    """Whether the tensor-core variants can stage ``t`` (B, T, N, D), unit
+    stride along D, with 16-byte loads: its base pointer and the strides of
+    its B, T and N dimensions longer than 1 are multiples of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        stride * size % 16 == 0
+        for n, stride in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
+def _mma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy where it is not aligned_16 (a
+    contiguous view at an odd offset stays one under ``contiguous()``)."""
+    return t if aligned_16(t) else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 class _AttentionFwd(torch.autograd.Function):
     """K1 launch; its gradient is a K2 launch, which recomputes P from the
-    saved operands and regenerates the dropout mask from the seed."""
+    saved operands and regenerates the dropout mask from the seed (a
+    device tensor, or None without dropout)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, rate, seed):
@@ -237,35 +283,53 @@ class _AttentionFwd(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _launch(q, k, v, mask, rate: float, seed: int) -> torch.Tensor:
-    global launch_count
+def _seed_arg(rate: float, seed: Optional[torch.Tensor]):
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed tensor")
+    return None if rate == 0.0 else seed.data_ptr()
+
+
+def _launch(q, k, v, mask, rate: float,
+            seed: Optional[torch.Tensor]) -> torch.Tensor:
+    """K1 on the card; ``seed`` is one int64 on q's device (or None when
+    ``rate`` is 0)."""
+    global launch_count, mma_launch_count
     from virtex_tpu_torch.ops import _build
 
     _check_kernel_operands("K1", q, k, v)
     B, Tq, N, D = q.shape
     Tk = k.shape[1]
     lib = _build.library()
-    smem = lib.virtex_attention_fwd_smem_bytes(Tk, D)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"K1: Tk={Tk}, D={D} needs {smem} B of shared "
-                         f"memory, more than a block has")
+    mma = use_tensor_cores(q.dtype, D, Tk)
+    if mma:
+        q, k, v = (_mma_operand(t) for t in (q, k, v))
+    else:
+        smem = lib.virtex_attention_fwd_smem_bytes(Tk, D)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"K1: Tk={Tk}, D={D} needs {smem} B of shared "
+                             f"memory, more than a block has")
     mask_ptr, ms = _mask_arg(mask, B, Tq, Tk)
     out = torch.empty((B, Tq, N, D), dtype=q.dtype, device=q.device)
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                out.data_ptr(), B, Tq, Tk, N, D)
+    rest = (*_strides(q), *_strides(k), *_strides(v), *ms,
+            1.0 / math.sqrt(D), rate, _threshold(rate), _seed_arg(rate, seed))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.virtex_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            out.data_ptr(), B, Tq, Tk, N, D, int(q.dtype == torch.bfloat16),
-            *_strides(q), *_strides(k), *_strides(v), *ms,
-            1.0 / math.sqrt(D), rate, _threshold(rate), seed & _MASK32,
-            stream)
+        if mma:
+            err = lib.virtex_attention_fwd_mma(*operands, *rest, stream)
+        else:
+            err = lib.virtex_attention_fwd(
+                *operands, int(q.dtype == torch.bfloat16), *rest, stream)
     _build.check(err, "K1 attention_fwd launch")
     launch_count += 1
+    mma_launch_count += int(mma)
     return out
 
 
-def _launch_bwd(q, k, v, mask, g, rate: float, seed: int):
-    global bwd_launch_count
+def _launch_bwd(q, k, v, mask, g, rate: float, seed: Optional[torch.Tensor]):
+    """K2 on the card: (dq, dk, dv); ``seed`` as for :func:`_launch`."""
+    global bwd_launch_count, mma_bwd_launch_count
     from virtex_tpu_torch.ops import _build
 
     _check_kernel_operands("K2", q, k, v)
@@ -277,7 +341,12 @@ def _launch_bwd(q, k, v, mask, g, rate: float, seed: int):
     B, Tq, N, D = q.shape
     Tk = k.shape[1]
     lib = _build.library()
-    smem = lib.virtex_attention_bwd_smem_bytes(Tq, Tk, D)
+    mma = use_tensor_cores(q.dtype, D, Tk)
+    if mma:
+        q, k, v, g = (_mma_operand(t) for t in (q, k, v, g))
+        smem = lib.virtex_attention_bwd_mma_smem_bytes(Tq, Tk, D)
+    else:
+        smem = lib.virtex_attention_bwd_smem_bytes(Tq, Tk, D)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"K2: Tq={Tq}, Tk={Tk}, D={D} needs {smem} B of "
                          f"shared memory, more than a block has")
@@ -285,17 +354,21 @@ def _launch_bwd(q, k, v, mask, g, rate: float, seed: int):
     dq = torch.empty((B, Tq, N, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Tk, N, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Tk, N, D), dtype=v.dtype, device=q.device)
+    operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Tq, Tk, N, D)
+    rest = (*_strides(q), *_strides(k), *_strides(v), *_strides(g), *ms,
+            1.0 / math.sqrt(D), rate, _threshold(rate), _seed_arg(rate, seed))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.virtex_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Tq, Tk, N, D, int(q.dtype == torch.bfloat16),
-            *_strides(q), *_strides(k), *_strides(v), *_strides(g), *ms,
-            1.0 / math.sqrt(D), rate, _threshold(rate), seed & _MASK32,
-            stream)
+        if mma:
+            err = lib.virtex_attention_bwd_mma(*operands, *rest, stream)
+        else:
+            err = lib.virtex_attention_bwd(
+                *operands, int(q.dtype == torch.bfloat16), *rest, stream)
     _build.check(err, "K2 attention_bwd launch")
     bwd_launch_count += 1
+    mma_bwd_launch_count += int(mma)
     return dq, dk, dv
 
 
@@ -319,5 +392,5 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_reference(q, k, v, mask, rate, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for {q.device}")
-    seed = _seed_int(dropout_seed) if dropout_seed is not None else 0
+    seed = _seed_tensor(dropout_seed, q.device) if rate > 0.0 else None
     return _AttentionFwd.apply(q, k, v, mask, rate, seed)
