@@ -9,8 +9,9 @@ Run from the repository root, on a machine with a CUDA card, ``nvcc``
 prints no result, when there is no card or when any phase fails:
 
 1. device: the card's name and power limit; TF32 off for every comparison.
-2. build: kernels K1, K2 and K4 (``virtex_tpu_torch/csrc/*.cu``) are built
-   with ``nvcc`` for ``sm_90a``, one process per source, in parallel.
+2. build: kernels K1, K2 and K4's two stages
+   (``virtex_tpu_torch/csrc/*.cu``) are built with ``nvcc`` for ``sm_90a``,
+   one process per source, in parallel.
 3. K1 against its plain PyTorch version on the card: the flagship's
    attention shapes (batch 128, 16 heads of 64; self 30×30 causal + pad,
    cross 30×49), a per-head mask, the wide gate shape (640, 30, 79, 32, 64),
@@ -25,9 +26,11 @@ prints no result, when there is no card or when any phase fails:
    query row, D 32 and 128, q/k/v views that are not 16-byte aligned), and
    one dropout forward and backward of ``MultiHeadAttention`` under
    ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
-5. K4 against its plain version at the 12 ResNet-50 BatchNorm shapes at
-   batch 128 with bf16 x, an NCHW-contiguous dy and an odd M; two launches
-   give equal bits.
+5. K4's stage 1 (the channel sums) and stage 2 (dx) against their plain
+   versions at the 12 ResNet-50 BatchNorm shapes at batch 128 in bf16 (the
+   vector variants), with an NCHW-contiguous dy, an odd M, a C of 60 (the
+   scalar variants), and the fp32 and both mixed-dtype instantiations; two
+   launches of each give equal bits.
 6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
    bf16 (built by ``PretrainingModelFactory.from_spec`` on the card, its
    default; weights from a numpy seed), batch 32 of captions of varied
@@ -41,14 +44,19 @@ prints no result, when there is no card or when any phase fails:
    match a copy whose attention and BatchNorm backward call the plain
    versions; then five steps with dropout 0.1 and no warmup give finite
    losses and a Lookahead sync at step 5. Every step makes exactly 8 K1,
-   8 K2 and 106 K4 launches, every K1 and K2 launch of a bf16 main path
-   (here and in phases 6 and 11) in the tensor-core variant.
-9. timings: K1, K2 and K4 beside their bounds, their plain versions and
-   their library calls (``scaled_dot_product_attention`` pinned to
-   SDPA_BACKEND, its aten backward op, ``torch.batch_norm_backward_reduce``;
-   device time from CUDA-graph replay, in turns), the eval step, beam
-   captioning, and the train step with the kernels and with the plain
-   versions (host clock).
+   8 K2 and 106 launches of each K4 stage, every K1 and K2 launch of a bf16
+   main path (here and in phases 6 and 11) in the tensor-core variant and
+   every K4 launch in the vector variant.
+9. timings: K1, K2, K4's two stages and the whole BatchNorm backward
+   beside their bounds, their plain versions and their library calls
+   (``scaled_dot_product_attention`` pinned to SDPA_BACKEND, its aten
+   backward op, ``torch.batch_norm_backward_reduce`` and
+   ``torch.batch_norm_backward_elemt``; device time from CUDA-graph replay,
+   in turns), per call and per train step, and how many of a step's
+   BatchNorm backwards got a dy that had to be copied to rows; the eval
+   step, beam captioning, and the train step with the kernels and with the
+   plain versions (host clock); one flagship train step under
+   ``torch.profiler``: device busy time and kernel time by kind.
 10. K1 and K2 at the task ablations' attention (``L1_H2048_A32_F8192``:
     batch 128, 32 heads of 64), fp32 and bf16, with the masks as
     ``make_self_attention_mask`` returns them: causal + pad (B, 1, T, T)
@@ -61,8 +69,9 @@ prints no result, when there is no card or when any phase fails:
     width in bf16, micro-batch 128 × accumulation 2, on batches shaped as
     their datasets make them. With dropout 0 the first step's losses and
     ``grad_norm`` match a plain-kernel copy; three steps with dropout 0.1
-    give finite losses; every step makes exactly 4 K1, 4 K2 and 106 K4
-    launches (0, 0 and 106 for the classification tasks); the eval step at
+    give finite losses; every step makes exactly 4 K1, 4 K2 and 106 + 106
+    K4 launches (0, 0 and 106 + 106 for the classification tasks); the eval
+    step at
     batch 32 gives finite losses and well-formed predictions. Host ms per
     step with the kernels and with the plain versions.
 12. nucleus captioning (p 0.9, 30 steps) with the flagship model of phase
@@ -76,6 +85,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -101,12 +111,17 @@ LOSS_RTOL = 1e-2
 KEEP_RANGE = (0.89, 0.91)  # dropout rate 0.1
 # The train step as bench.py runs it: micro-batch 128, accumulation 2.
 TRAIN_BATCH, ACCUM, TRAIN_STEPS = 128, 2, 5
-LAUNCHES_PER_STEP = {"K1": 8, "K2": 8, "K4": 106}
+LAUNCHES_PER_STEP = {"K1": 8, "K2": 8, "K4": 106, "K4dx": 106}
 # K2 against the plain version: as K1 (TOL, ATOL); its sums run over <= 49
 # keys or 30 queries. K4 against the plain version, per element
 # |a − b| / (|ref| + sqrt(M)): both read the inputs exactly and sum M terms
-# of scale 1 in fp32 in other orders, so sqrt(M) is the sums' scale.
+# of scale 1 in fp32 in other orders, so sqrt(M) is the sums' scale. K4's
+# dx against its plain version, per element |a − b| / (|ref| + 1) (dx is
+# γ·rstd·O(1)): both compute it in fp32 from the same sums and round once to
+# x's dtype, so fp32 differs by the association of the same terms and bf16
+# by at most one rounding (2^-8).
 K4_TOL = 1e-5
+DX_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # First train step, kernels against the plain versions (dropout 0): the
 # losses as the eval step's (LOSS_RTOL). grad_norm: the plain attention
 # backward rounds dP to bf16 through autograd of the bf16 cast of P, which
@@ -118,10 +133,14 @@ WIDE_HEADS = 32
 # configs/task_ablations/<stem>.yaml, each trained as phase 8 trains the
 # flagship; launches per step: self- and cross-attention in one direction
 # over two micro-steps, and the 53 BatchNorm layers over two.
-TASKS = {"captioning_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106},
-         "masked_lm_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106},
-         "token_classification_R_50": {"K1": 0, "K2": 0, "K4": 106},
-         "multilabel_classification_R_50": {"K1": 0, "K2": 0, "K4": 106}}
+TASKS = {"captioning_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106,
+                                      "K4dx": 106},
+         "masked_lm_R_50_L1_H2048": {"K1": 4, "K2": 4, "K4": 106,
+                                     "K4dx": 106},
+         "token_classification_R_50": {"K1": 0, "K2": 0, "K4": 106,
+                                       "K4dx": 106},
+         "multilabel_classification_R_50": {"K1": 0, "K2": 0, "K4": 106,
+                                            "K4dx": 106}}
 TASK_DROPOUT_STEPS = 3
 # Masked LM's batches: BERT-style masking of the inner positions
 # (virtex_tpu/data/datasets/masked_lm.py); multilabel's: COCO categories
@@ -143,6 +162,10 @@ HBM_BYTES_PER_S, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # backend; K2's is that backend's aten backward op on its forward's saved
 # outputs.
 SDPA_BACKEND = "EFFICIENT_ATTENTION"
+# CUDA-graph calls and replays per timing of the BatchNorm backward, whose
+# plain versions take up to ~3 ms a call.
+BN_CALLS, BN_REPLAYS = 20, 5
+L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
 # Every distinct (H, C) of ResNet-50's BatchNorm layers at 224²
 # (tests/tpu_bn_parity.py).
 R50_BN_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
@@ -493,13 +516,16 @@ def check_no_sync_dropout(torch, port, device):
 
 
 # -- phase 5 -----------------------------------------------------------------
-def bn_inputs(torch, B, hw, C, device, gen, dy_layout="channels_last"):
-    """bf16 x ~ 2·N(0, 1) + 0.5 and dy ~ N(0, 1) as NCHW views of NHWC
-    memory (dy NCHW-contiguous if asked), with x's fp32 mean and rstd."""
+def bn_inputs(torch, B, hw, C, device, gen, dy_layout="channels_last",
+              dy_dtype=None, x_dtype=None):
+    """x ~ 2·N(0, 1) + 0.5 and dy ~ N(0, 1), bf16 unless given, as NCHW
+    views of NHWC memory (dy NCHW-contiguous if asked), with x's fp32 mean
+    and rstd."""
     def draw():
         return torch.randn(B, hw, hw, C, generator=gen, device=device)
-    x = draw().mul_(2.0).add_(0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
-    dy = draw().to(torch.bfloat16).permute(0, 3, 1, 2)
+    x = draw().mul_(2.0).add_(0.5).to(x_dtype or torch.bfloat16).permute(
+        0, 3, 1, 2)
+    dy = draw().to(dy_dtype or torch.bfloat16).permute(0, 3, 1, 2)
     if dy_layout == "nchw":
         dy = dy.contiguous()
     xf = x.float()
@@ -508,43 +534,91 @@ def bn_inputs(torch, B, hw, C, device, gen, dy_layout="channels_last"):
     return dy, x, mean, 1.0 / torch.sqrt(var + 1e-5)
 
 
+# name: (B, H = W, C, dy's layout, dy's dtype, x's dtype). The 12 shapes
+# of the train step, then the edges: an NCHW-contiguous dy, an odd M, a C
+# the 8-wide bf16 vectors do not divide (the scalar variants), and the
+# fp32 and mixed-dtype instantiations.
+K4_CASES = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last",
+             "bfloat16", "bfloat16") for hw, C in R50_BN_SHAPES] + [
+    ("28x28x512 NCHW dy", TRAIN_BATCH, 28, 512, "nchw", "bfloat16",
+     "bfloat16"),
+    ("odd M 3x7x7x2048", 3, 7, 2048, "channels_last", "bfloat16",
+     "bfloat16"),
+    ("scalar variant 3x7x7x60", 3, 7, 60, "channels_last", "bfloat16",
+     "bfloat16"),
+    ("fp32 32x56x56x64", 32, 56, 64, "channels_last", "float32", "float32"),
+    ("bf16 dy fp32 x 32x56x56x64", 32, 56, 64, "channels_last", "bfloat16",
+     "float32"),
+    ("fp32 dy bf16 x 32x56x56x64", 32, 56, 64, "channels_last", "float32",
+     "bfloat16"),
+]
+
+
+def bn_counts(BN):
+    return (BN.launch_count, BN.vector_launch_count, BN.dx_launch_count,
+            BN.dx_vector_launch_count)
+
+
 def check_k4(torch, BN, device):
-    """K4 against ``bn_backward_sums_reference`` on the card at the 12
-    ResNet-50 shapes (batch 128), an NCHW-contiguous dy and an odd M; every
-    case launched twice must give equal bits. Returns the largest absolute
-    error at the 12 shapes and a summary."""
+    """K4's stage 1 against ``bn_backward_sums_reference`` and its stage 2
+    against ``bn_backward_dx_reference`` (both fed the plain sums) on the
+    card, at K4_CASES; each stage launched twice must give equal bits, in
+    the variant ``k4_vector_width`` names. Returns the largest absolute
+    errors of the sums and of dx at the 12 shapes, and a summary."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    cases = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last")
-             for hw, C in R50_BN_SHAPES]
-    cases += [("28x28x512 NCHW dy", TRAIN_BATCH, 28, 512, "nchw"),
-              ("odd M 3x7x7x2048", 3, 7, 2048, "channels_last")]
-    worst, main_err = {}, 0.0
-    for name, B, hw, C, layout in cases:
-        dy, x, mean, rstd = bn_inputs(torch, B, hw, C, device, gen, layout)
-        before = BN.launch_count
+    worst, sums_err, dx_err = {}, 0.0, 0.0
+    for name, B, hw, C, layout, dy_name, x_name in K4_CASES:
+        dy, x, mean, rstd = bn_inputs(torch, B, hw, C, device, gen, layout,
+                                      getattr(torch, dy_name),
+                                      getattr(torch, x_name))
+        weight = torch.rand(C, generator=gen, device=device) + 0.5
+        wide = torch.float32 if "float32" in (dy_name, x_name) \
+            else torch.bfloat16
+        vector = BN.k4_vector_width(wide, C, True) > 1
+        if vector == name.startswith("scalar"):
+            fail(f"K4 {name}: k4_vector_width gives the "
+                 f"{'vector' if vector else 'scalar'} variant")
+        before = bn_counts(BN)
         out = BN.bn_backward_sums(dy, x, mean, rstd)
         again = BN.bn_backward_sums(dy, x, mean, rstd)
-        torch.cuda.synchronize()
-        if BN.launch_count != before + 2:
-            fail(f"K4 {name}: bn_backward_sums did not launch K4")
-        if not torch.equal(out, again):
-            fail(f"K4 {name}: two launches gave different bits")
         ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
+        dx = BN.bn_backward_dx(dy, x, mean, rstd, weight, ref)
+        dx_again = BN.bn_backward_dx(dy, x, mean, rstd, weight, ref)
+        dx_ref = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight, ref)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(bn_counts(BN), before))
+        if launched != (2, 2 * vector, 2, 2 * vector):
+            fail(f"K4 {name}: (stage 1, vector, dx, vector) launches "
+                 f"{launched}, expected two of each stage in the "
+                 f"{'vector' if vector else 'scalar'} variant")
+        if not torch.equal(out, again) or not torch.equal(dx, dx_again):
+            fail(f"K4 {name}: two launches gave different bits")
         M = B * hw * hw
         err = rel_err(out, ref, M ** 0.5)
-        worst[name] = err
+        dx_tol = DX_TOL[x_name]
+        err_dx = rel_err(dx, dx_ref, 1.0)
+        worst[name] = (err, err_dx)
         if out.shape != (2, C) or not err <= K4_TOL:
             fail(f"K4 {name}: {tuple(out.shape)}, error {err:.3e} > "
                  f"{K4_TOL:.0e}")
+        if dx.shape != x.shape or dx.dtype != x.dtype or not err_dx <= dx_tol:
+            fail(f"K4 dx {name}: {tuple(dx.shape)} {dx.dtype}, error "
+                 f"{err_dx:.3e} > {dx_tol:.0e}")
         if layout == "nchw":
             cl = dy.contiguous(memory_format=torch.channels_last)
             if not torch.equal(out, BN.bn_backward_sums(cl, x, mean, rstd)):
                 fail("K4: an NCHW dy and its channels_last copy differ")
+            if not torch.equal(dx, BN.bn_backward_dx(cl, x, mean, rstd,
+                                                     weight, ref)):
+                fail("K4 dx: an NCHW dy and its channels_last copy differ")
         elif B == TRAIN_BATCH:
-            main_err = max(main_err, float((out - ref).abs().max()))
-    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-    return main_err, summary
+            sums_err = max(sums_err, float((out - ref).abs().max()))
+            dx_err = max(dx_err, float((dx.float() - dx_ref.float()).abs()
+                                       .max()))
+    summary = ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
+                        for k, v in worst.items())
+    return sums_err, dx_err, summary
 
 
 # -- phases 6 and 7 ----------------------------------------------------------
@@ -586,13 +660,15 @@ def caption_batch(torch, B, image_size, T, vocab, seed, device):
 
 def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
     """A copy of ``model`` whose attention (forward and, through autograd,
-    backward) and BatchNorm backward sums call the plain versions."""
+    backward) and BatchNorm backward (sums and dx) call the plain
+    versions."""
     twin = copy.deepcopy(model)
     for m in twin.modules():
         if isinstance(m, MultiHeadAttention):
             m.attention_fn = A.attention_reference
         elif isinstance(m, SubsampledBatchNorm):
             m.sums_fn = BN.bn_backward_sums_reference
+            m.dx_fn = BN.bn_backward_dx_reference
     return twin
 
 
@@ -600,14 +676,18 @@ def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
 def launch_counts(A, BN) -> dict:
     """The launches since ``reset_counts``. Every main path here runs in
     bf16, so each of its K1 and K2 launches must have taken the
-    tensor-core variant."""
+    tensor-core variant, and each of K4's (stage 1 and dx) the vector
+    one."""
     scalar = (A.launch_count - A.mma_launch_count,
-              A.bwd_launch_count - A.mma_bwd_launch_count)
-    if scalar != (0, 0):
-        fail(f"{scalar[0]} K1 and {scalar[1]} K2 launches of a bf16 main "
-             "path took the scalar variant")
+              A.bwd_launch_count - A.mma_bwd_launch_count,
+              BN.launch_count - BN.vector_launch_count,
+              BN.dx_launch_count - BN.dx_vector_launch_count)
+    if any(scalar):
+        fail(f"{scalar[0]} K1, {scalar[1]} K2, {scalar[2]} K4 and "
+             f"{scalar[3]} K4 dx launches of a bf16 main path took the "
+             "scalar variant")
     return {"K1": A.launch_count, "K2": A.bwd_launch_count,
-            "K4": BN.launch_count}
+            "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
 
 
 def reset_counts(A, BN) -> None:
@@ -720,11 +800,11 @@ def attention_bound(q, k, mask, backward):
     return bound(moved, 2 * (5 if backward else 2) * B * N * Tq * Tk * D)
 
 
-def time_turns(torch, kernel, plain, library):
+def time_turns(torch, kernel, plain, library, calls=50, replays=10):
     """Device ms per call of a kernel's wrapper, its plain version and its
     library call, by CUDA-graph replay in turns (plain, library, kernel,
     kernel, library, plain). Returns (kernel, plain, library)."""
-    p1, l1, k1, k2, l2, p2 = (graph_ms(torch, f) for f in (
+    p1, l1, k1, k2, l2, p2 = (graph_ms(torch, f, calls, replays) for f in (
         plain, library, kernel, kernel, library, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
 
@@ -795,25 +875,166 @@ def time_k1_eager(torch, A, q, k, v, mask):
     return (e2 + e3) / 2, (e1 + e4) / 2
 
 
-def time_k4(torch, BN, device):
-    """K4, the plain sums and ``torch.batch_norm_backward_reduce`` (the
-    same sums but Σ dy·(x − μ) without the rstd factor) at the 12 ResNet-50
-    shapes, bf16, batch 128: {(H, C): (kernel ms, plain ms, library ms,
-    bound ms, bound_by)}."""
+def rotating(fn, sets):
+    """A call of ``fn`` on each of ``sets`` in turn, one per call."""
+    turn = itertools.cycle(sets)
+    return lambda: fn(*next(turn))
+
+
+def time_bn(torch, BN, device):
+    """K4's stage 1, its stage 2 (dx) and the whole BatchNorm backward (the
+    two in turn) at the 12 ResNet-50 shapes, bf16, batch 128, each beside
+    its plain version and its library call: for stage 1
+    ``torch.batch_norm_backward_reduce`` (the same sums but Σ dy·(x − μ)
+    without the rstd factor), for dx ``torch.batch_norm_backward_elemt`` on
+    the same inputs and sums (count M), for the whole backward the two in
+    turn. The plain dx is the torch stage K4's stage 2 replaces. Calls take
+    copies of the inputs in turn, enough that they exceed the L2 cache
+    (L2_BYTES) twice: a train step finds x cold. Returns {(H, C): {"sums" |
+    "dx" | "bwd": (kernel ms, plain ms, library ms, bound ms, bound_by)}};
+    each bound reads every input once and writes every output once."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     times = {}
     for hw, C in R50_BN_SHAPES:
-        dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device, gen)
-        weight = torch.ones(C, device=device)
         M = TRAIN_BATCH * hw * hw
-        times[(hw, C)] = time_turns(
-            torch, lambda: BN.bn_backward_sums(dy, x, mean, rstd),
-            lambda: BN.bn_backward_sums_reference(dy, x, mean, rstd),
-            lambda: torch.batch_norm_backward_reduce(
-                dy, x, mean, rstd, weight, True, False, False)) + bound(
-            nbytes(dy, x, mean, rstd) + 2 * C * 4, 4 * M * C, FP32_FLOPS)
+        count = torch.full((1,), M, dtype=torch.int32, device=device)
+        sets = []
+        while not sets or len(sets) * nbytes(*sets[0][:2]) < 2 * L2_BYTES:
+            dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device,
+                                          gen)
+            weight = torch.rand(C, generator=gen, device=device) + 0.5
+            sums = BN.bn_backward_sums(dy, x, mean, rstd)
+            sets.append((dy, x, mean, rstd, weight, sums, sums[1] / rstd))
+
+        def kernel_sums(dy, x, mean, rstd, *_):
+            return BN.bn_backward_sums(dy, x, mean, rstd)
+
+        def plain_sums(dy, x, mean, rstd, *_):
+            return BN.bn_backward_sums_reference(dy, x, mean, rstd)
+
+        def library_sums(dy, x, mean, rstd, weight, *_):
+            return torch.batch_norm_backward_reduce(dy, x, mean, rstd, weight,
+                                                    True, False, False)
+
+        def kernel_dx(dy, x, mean, rstd, weight, sums, _):
+            return BN.bn_backward_dx(dy, x, mean, rstd, weight, sums)
+
+        def plain_dx(dy, x, mean, rstd, weight, sums, _):
+            return BN.bn_backward_dx_reference(dy, x, mean, rstd, weight,
+                                               sums)
+
+        def library_dx(dy, x, mean, rstd, weight, sums, sum_dy_xmu):
+            return torch.batch_norm_backward_elemt(
+                dy, x, mean, rstd, weight, sums[0], sum_dy_xmu, count)
+
+        def kernel_bwd(dy, x, mean, rstd, weight, *_):
+            return BN.bn_backward_dx(dy, x, mean, rstd, weight,
+                                     BN.bn_backward_sums(dy, x, mean, rstd))
+
+        def plain_bwd(dy, x, mean, rstd, weight, *_):
+            return BN.bn_backward_dx_reference(
+                dy, x, mean, rstd, weight,
+                BN.bn_backward_sums_reference(dy, x, mean, rstd))
+
+        def library_bwd(dy, x, mean, rstd, weight, *_):
+            s = torch.batch_norm_backward_reduce(dy, x, mean, rstd, weight,
+                                                 True, False, False)
+            return torch.batch_norm_backward_elemt(dy, x, mean, rstd, weight,
+                                                   s[0], s[1], count)
+
+        def timed(kernel, plain, library):
+            return time_turns(torch, *(rotating(f, sets) for f in (
+                kernel, plain, library)), BN_CALLS, BN_REPLAYS)
+
+        dy, x, mean, rstd, weight, sums, _ = sets[0]
+        channel = nbytes(mean, rstd, weight, sums)
+        times[(hw, C)] = {
+            "sums": timed(kernel_sums, plain_sums, library_sums) + bound(
+                nbytes(dy, x, mean, rstd, sums), 4 * M * C, FP32_FLOPS),
+            "dx": timed(kernel_dx, plain_dx, library_dx) + bound(
+                nbytes(dy, x, x) + channel, 6 * M * C, FP32_FLOPS),
+            "bwd": timed(kernel_bwd, plain_bwd, library_bwd) + bound(
+                nbytes(dy, x, x) + channel, 10 * M * C, FP32_FLOPS)}
+        del sets, dy, x
     return times
+
+
+def per_step(times, bn_shapes, key):
+    """One train step's (kernel, plain, library, bound) ms of ``key``:
+    each BatchNorm input shape of the step's forward passes, (B, C, H, W),
+    times the device ms at its (H, C)."""
+    return [sum(n * times[(s[2], s[1])][key][i] for s, n in bn_shapes.items())
+            for i in range(4)]
+
+
+def bn_timing_line(card, times, step, calls, title, library):
+    return (f"{card} | {title}, bf16 B{TRAIN_BATCH}, device ms per call "
+            f"(library: {library}): " + "; ".join(
+                f"{hw}x{hw}x{C} {timing_text(t)}" for (hw, C), t in
+                times.items()) + f" | per train step ({calls} calls): "
+            f"kernel {step[0]:.3f}, plain {step[1]:.3f}, library "
+            f"{step[2]:.3f}, bound {step[3]:.3f} ({step[3] / step[0]:.0%} of "
+            "bound)")
+
+
+# Kernel names, lowercased, by kind; the first kind that matches counts.
+KERNEL_KINDS = [
+    ("K1", ("attention_fwd",)), ("K2", ("attention_bwd",)),
+    ("K4 sums", ("bn_sums",)), ("K4 dx", ("bn_dx",)),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("GEMM/conv", ("gemm", "conv", "cutlass", "xmma", "cudnn", "sm90_",
+                   "implicit", "wgrad", "dgrad", "fprop", "cublas")),
+    ("elementwise", ("elementwise",)), ("reduction", ("reduce",)),
+]
+
+
+PROFILE_TOP = 8  # kernels named in the profile line
+
+
+def profile_step(torch, fn) -> str:
+    """One call of ``fn`` (warmed up by the caller) under torch.profiler:
+    the device busy ms (union of the device events' intervals), host ms,
+    peak device memory, and device ms by kernel kind."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return (f"host {host:.1f} ms, peak {peak:.2f} GiB; the profiler saw "
+                "no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kinds = {}
+    for e in events:
+        name = e.name.lower()
+        kind = next((k for k, keys in KERNEL_KINDS
+                     if any(key in name for key in keys)), "other")
+        n, ms = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, ms + (e.time_range.end - e.time_range.start)
+                       / 1e3)
+    by_kind = ", ".join(f"{k} {ms:.2f} ms ({n})" for k, (n, ms) in
+                        sorted(kinds.items(), key=lambda kv: -kv[1][1]))
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    top = "; ".join(f"{ms:.2f} ms {name[:90]}" for name, ms in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP])
+    return (f"host {host:.1f} ms, device busy {busy / 1e3:.1f} ms, "
+            f"{len(events)} device events, peak {peak:.2f} GiB; by kind "
+            f"(ms, events): {by_kind} | top kernels: {top}")
 
 
 def check_train(torch, port, device):
@@ -839,6 +1060,7 @@ def check_train(torch, port, device):
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
     first_counts = launch_counts(A, BN)  # ... and ends here
+    dy_copies = BN.dy_copy_count
     unhook()
     if first_counts != LAUNCHES_PER_STEP:
         fail(f"train step launched {first_counts}, expected "
@@ -900,7 +1122,7 @@ def check_train(torch, port, device):
         f"{LAUNCHES_PER_STEP}")
     del model5, opt5, step5
     launches = {k: first_counts[k] + counts5[k] for k in counts5}
-    return step, plain_step, batch, shapes, launches
+    return step, plain_step, batch, shapes, launches, dy_copies
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -1125,7 +1347,7 @@ def check_task(torch, port, device, stem):
     launches = {k: launches[k] + counts[k] for k in counts}
     # two forwards (the eval step's, the predictions'), each one micro-step
     # of the train step's forward: half its K1 launches
-    if counts != {"K1": want["K1"], "K2": 0, "K4": 0}:
+    if counts != {"K1": want["K1"], "K2": 0, "K4": 0, "K4dx": 0}:
         fail(f"{name} eval step and predictions launched {counts}")
     if not all(np.isfinite(v) for v in eval_losses.values()):
         fail(f"{name} eval step: non-finite losses {eval_losses}")
@@ -1318,9 +1540,12 @@ def main() -> None:
         "torch.cuda.set_sync_debug_mode('error')")
 
     # 5. K4 against the plain version
-    k4_err, summary = check_k4(torch, BN, device)
-    say("5 K4", f"matches the plain version (tol {K4_TOL:.0e} of sqrt(M)) "
-        f"and repeats its bits: {summary}")
+    k4_err, dx_err, summary = check_k4(torch, BN, device)
+    say("5 K4", f"stage 1 and dx match their plain versions (sums tol "
+        f"{K4_TOL:.0e} of sqrt(M); dx tol {DX_TOL['float32']:.0e} fp32, "
+        f"{DX_TOL['bfloat16']:.1e} bf16, of |ref| + 1) and repeat their "
+        f"bits, each in the variant k4_vector_width names (sums/dx errors):"
+        f" {summary}")
 
     # 6. eval step, flagship at full width
     spec = port.ModelSpec.flagship()
@@ -1354,7 +1579,7 @@ def main() -> None:
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in losses.values()):
         fail(f"eval step: non-finite losses {losses}")
-    if eval_counts != {"K1": 4, "K2": 0, "K4": 0}:
+    if eval_counts != {"K1": 4, "K2": 0, "K4": 0, "K4dx": 0}:
         fail(f"eval step launched {eval_counts}, expected 4 K1 launches "
              "(self + cross attention in both caption directions) only")
     plain = {k: float(v) for k, v in port.make_eval_step(plain_model)(batch)
@@ -1384,8 +1609,8 @@ def main() -> None:
         f"[{lo}, {hi}]; first caption {captions[0, :10].tolist()}")
 
     # 8. train step
-    train_step, plain_train_step, tbatch, bn_shapes, train_launches = \
-        check_train(torch, port, device)
+    (train_step, plain_train_step, tbatch, bn_shapes, train_launches,
+     dy_copies) = check_train(torch, port, device)
 
     # 9. timings
     eval_shapes = {"self B32": (30, True), "cross B32": (49, False)}
@@ -1400,11 +1625,9 @@ def main() -> None:
     train_times = {kind: time_attention(torch, A, *train_attention_inputs(
         torch, kind, torch.bfloat16, device, SEED))
         for kind in ("self", "cross")}
-    k4_times = time_k4(torch, BN, device)
-    # K4 per train step: each BatchNorm input shape of the step's forward
-    # passes, (B, C, H, W), times the device ms at its (H, C).
-    k4_step = [sum(n * k4_times[(s[2], s[1])][i] for s, n in bn_shapes.items())
-               for i in (0, 1, 2, 3)]
+    bn_times = time_bn(torch, BN, device)
+    bn_step = {key: per_step(bn_times, bn_shapes, key)
+               for key in ("sums", "dx", "bwd")}
     bn_calls = sum(bn_shapes.values())
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
@@ -1430,13 +1653,17 @@ def main() -> None:
         f"({lib}: its aten backward op): " + "; ".join(
             f"{kind} B{TRAIN_BATCH} {timing_text(t['K2'])}"
             for kind, t in train_times.items()))
-    say("9 timings", f"{card} | K4, bf16 B{TRAIN_BATCH}, device ms per call "
-        f"(library: torch.batch_norm_backward_reduce): " + "; ".join(
-            f"{hw}x{hw}x{C} {timing_text(t)}"
-            for (hw, C), t in k4_times.items())
-        + f" | per train step ({bn_calls} calls): K4 {k4_step[0]:.3f}, "
-        f"plain {k4_step[1]:.3f}, library {k4_step[2]:.3f}, bound "
-        f"{k4_step[3]:.3f} ({k4_step[3] / k4_step[0]:.0%} of bound)")
+    for key, title, library in (
+            ("sums", "K4 stage 1 (sums)", "torch.batch_norm_backward_reduce"),
+            ("dx", "K4 stage 2 (dx; plain: the torch dx stage it replaces)",
+             "torch.batch_norm_backward_elemt"),
+            ("bwd", "BatchNorm backward, both stages",
+             "batch_norm_backward_reduce + batch_norm_backward_elemt")):
+        say("9 timings", bn_timing_line(
+            card, {k: t[key] for k, t in bn_times.items()}, bn_step[key],
+            bn_calls, title, library))
+    say("9 timings", f"{card} | dy copied to rows before K4 in {dy_copies} "
+        f"of the first train step's {bn_calls} BatchNorm backwards")
     say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "
         f"accum {ACCUM}, bf16, host ms per step (plain, kernels, kernels, "
         f"plain): {', '.join(f'{t:.1f}' for t in step_ms)} | kernels "
@@ -1444,6 +1671,10 @@ def main() -> None:
         f"{images_per_step / kernel_step_ms * 1e3:.1f} img/s; plain "
         f"{plain_step_ms:.1f} ms = "
         f"{images_per_step / plain_step_ms * 1e3:.1f} img/s")
+    profile = profile_step(torch, lambda: train_step(tbatch))
+    say("9 profile", f"{card} | one flagship train step (micro-batch "
+        f"{TRAIN_BATCH} x accum {ACCUM}, dropout 0, after the timed steps) "
+        f"under torch.profiler: {profile}")
     del train_step, plain_train_step, tbatch
     torch.cuda.empty_cache()
 
@@ -1479,8 +1710,8 @@ def main() -> None:
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
-    # train step's self and cross launches (B128); K4 the mean over one
-    # train step's launches.
+    # train step's self and cross launches (B128); each K4 stage the mean
+    # over one train step's launches.
     def row(times):
         return {"ms": sum(t[0] for t in times) / len(times),
                 "plain_ms": sum(t[1] for t in times) / len(times),
@@ -1514,8 +1745,18 @@ def main() -> None:
         "launches": train_launches["K4"] + task_launches["K4"]
         + nucleus_counts["K4"],
         "max_abs_err": k4_err,
-        **row([tuple(t / bn_calls for t in k4_step)
-               + (next(iter(k4_times.values()))[4],)]),
+        **row([tuple(t / bn_calls for t in bn_step["sums"])
+               + (next(iter(bn_times.values()))["sums"][4],)]),
+    }, {
+        "name": "K4 bn_backward_dx",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
+        "replaces": "virtex_tpu/ops/batchnorm.py:278",
+        "launches": train_launches["K4dx"] + task_launches["K4dx"]
+        + nucleus_counts["K4dx"],
+        "max_abs_err": dx_err,
+        **row([tuple(t / bn_calls for t in bn_step["dx"])
+               + (next(iter(bn_times.values()))["dx"][4],)]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,16 +1,20 @@
 """The port's train-mode BatchNorm op (virtex_tpu_torch.ops.batchnorm:
-``bn_train`` with kernel K4 and its plain version) against the JAX
-package's ``virtex_tpu.ops.batchnorm``, on the same numpy inputs.
+``bn_train`` with kernel K4's two stages and their plain versions) against
+the JAX package's ``virtex_tpu.ops.batchnorm``, on the same numpy inputs.
 
 On the CPU: ``bn_train``'s output, statistics and dx, dγ, dβ against the
 JAX ``bn_train`` with its Pallas reduction in interpret mode, at the JAX
 op's four test shapes (M = 98 included, where the JAX side falls back to
 jnp), in float32 and bfloat16; ``bn_backward_sums_reference`` against the
-JAX ``bn_backward_sums(interpret=True)``. Every comparison is the
-per-element error |a − b| / (|ref| + atol) with its bound stated.
+JAX ``bn_backward_sums(interpret=True)``, and ``bn_backward_dx_reference``
+against the dx of ``jax.vjp`` of the JAX ``bn_train``. Every comparison is
+the per-element error |a − b| / (|ref| + atol) with its bound stated. The
+variant rule (``k4_vector_width``) and the grid planner (``k4_plan``) are
+pure functions, checked at ResNet-50's 12 BatchNorm shapes and the edges.
 
-Cases marked ``cuda`` hold K4 against the plain version on the card (an
-NCHW-contiguous dy, an odd M, and equal bits from two launches); they skip
+Cases marked ``cuda`` hold both stages against their plain versions on the
+card, in both variants and all four dtype pairs (an NCHW-contiguous dy, an
+odd M, unaligned views, and equal bits from two launches); they skip
 elsewhere (a CUDA kernel has no CPU mode).
 """
 import math
@@ -24,6 +28,11 @@ from virtex_tpu_torch.ops import batchnorm as BN
 EPS = 1e-5
 SHAPES = [(4, 8, 8, 256), (4, 8, 8, 64), (2, 7, 7, 2048), (16, 4, 4, 128)]
 DTYPES = ["float32", "bfloat16"]
+# Every distinct (H, C) of ResNet-50's BatchNorm layers at 224²; the train
+# step runs them at batch 128.
+R50_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
+              (28, 512), (28, 256), (14, 256), (14, 1024), (14, 512),
+              (7, 512), (7, 2048)]
 
 
 def rel_err(a, ref, atol):
@@ -143,6 +152,168 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
         BN.bn_backward_sums(_nchw(dy)[:1], _nchw(x), mean, rstd)
 
 
+def _jax_dx(x, scale, bias, dy, dtype):
+    """dx of the JAX ``bn_train`` through ``jax.vjp``, with zero cotangents
+    for the returned mean and var (as the port's running-stat update)."""
+    import jax
+    import jax.numpy as jnp
+    from virtex_tpu.ops.batchnorm import bn_train as jax_bn_train
+    jdt = getattr(jnp, dtype)
+    (_, mean, var), vjp = jax.vjp(
+        lambda a: jax_bn_train(a, jnp.asarray(scale), jnp.asarray(bias), EPS,
+                               jdt, True), jnp.asarray(x, jdt))
+    (dx,) = vjp((jnp.asarray(dy, jdt), jnp.zeros_like(mean),
+                 jnp.zeros_like(var)))
+    return np.asarray(dx.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dx_reference_matches_jax_vjp(shape, dtype, interpret_mode):
+    """K4 stage 2's plain version, fed the port's statistics and plain
+    sums, against the JAX op's dx; per element |a − b| / (|ref| + 1) (dx is
+    γ·rstd·O(1)): fp32 1e-4 (sums and statistics in other orders), bf16
+    2^-7 (both round dx once to bf16; one rounding apart is 2^-8)."""
+    x, scale, bias, dy = _inputs(shape, 8)
+    ref = _jax_dx(x, scale, bias, dy, dtype)
+    tdt = getattr(torch, dtype)
+    xt, dyt = _nchw(x, tdt), _nchw(dy, tdt)
+    st = torch.from_numpy(scale)
+    _, mean, _, rstd = BN.bn_forward(xt, st, torch.from_numpy(bias), EPS, tdt)
+    sums = BN.bn_backward_sums_reference(dyt, xt, mean, rstd)
+    dx = BN.bn_backward_dx_reference(dyt, xt, mean, rstd, st, sums)
+    assert dx.dtype == tdt and dx.shape == xt.shape
+    assert rel_err(dx.float().permute(0, 2, 3, 1), ref, 1.0) <= TOL[dtype]
+
+
+def _check_plan(plan, M, C):
+    """What both stages' kernels assume of a plan (csrc/bn_backward_sums.cu):
+    the block's threads cover its tile, the tiles cover C, the chunks cover
+    M with none empty, and the kernels' own ceil(M / chunks) is
+    rows_per_chunk."""
+    assert plan.tile_cols * plan.row_lanes <= BN._THREADS
+    assert plan.tile_cols * (plan.row_lanes + 1) > BN._THREADS
+    width = plan.tile_cols * plan.vec
+    assert (plan.col_tiles - 1) * width < C <= plan.col_tiles * width
+    assert 1 <= plan.chunks <= 65535
+    assert (plan.chunks - 1) * plan.rows_per_chunk < M
+    assert M <= plan.chunks * plan.rows_per_chunk
+    assert math.ceil(M / plan.chunks) == plan.rows_per_chunk
+
+
+@pytest.mark.parametrize("hw,C", R50_SHAPES)
+def test_vector_width_and_plan_at_resnet50_shapes(hw, C):
+    """The train step's bf16 operands take the 8-wide vector variant (fp32
+    the 4-wide one) in one wave of blocks, with no column tile wider than
+    8 vectors; small C takes more rows per block, not more tiles."""
+    M = 128 * hw * hw
+    for dtype, vec in ((torch.bfloat16, 8), (torch.float32, 4)):
+        assert BN.k4_vector_width(dtype, C, True) == vec
+        assert BN.k4_vector_width(dtype, C, False) == 1
+        plan = BN.k4_plan(M, C, vec)
+        _check_plan(plan, M, C)
+        assert plan.vec == vec and plan.tile_cols == BN._TILE_COLS
+        assert plan.col_tiles == C // (vec * BN._TILE_COLS)
+        assert plan.col_tiles * plan.chunks <= BN._VECTOR_BLOCKS
+        assert plan.chunks <= math.ceil(
+            M / (plan.row_lanes * BN._MIN_ROWS_PER_LANE))
+    _check_plan(BN.k4_plan(M, C, 1), M, C)
+    if C == 64:  # a warp reads four whole bf16 rows per load
+        assert BN.k4_plan(M, C, 8).row_lanes == 32
+
+
+def test_vector_width_and_plan_at_the_edges():
+    # C 60: not a multiple of 8 bf16 channels, a multiple of 4 fp32 ones
+    assert BN.k4_vector_width(torch.bfloat16, 60, True) == 1
+    assert BN.k4_vector_width(torch.float32, 60, True) == 4
+    for M in (147, 1, 100_003):
+        for C, vec in ((60, 1), (60, 4), (8, 8), (24, 8), (8, 1), (3, 1)):
+            _check_plan(BN.k4_plan(M, C, vec), M, C)
+    # C 8: one vector column per block, 256 row lanes
+    plan = BN.k4_plan(147, 8, 8)
+    assert (plan.tile_cols, plan.row_lanes, plan.col_tiles) == (1, 256, 1)
+    # C 24: three vector columns, 85 row lanes (one thread idle)
+    assert BN.k4_plan(10_000, 24, 8).row_lanes == 85
+    # a ragged last column tile: 320 channels are 40 vectors, 5 tiles of 8
+    assert BN.k4_plan(10_000, 320, 8).col_tiles == 5
+    assert BN.k4_plan(10_000, 328, 8).col_tiles == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operands_take_the_scalar_variant_for_an_unaligned_view(dtype):
+    """dy and x as NCHW views of NHWC memory one element into a buffer:
+    their base pointers are not 16-byte aligned, so K4 would read them
+    with the scalar variants; an aligned pair takes the vector ones."""
+    x, _, _, dy = _inputs((3, 7, 7, 64), 9)
+    aligned = [_nchw(a, dtype) for a in (dy, x)]
+    unaligned = [_offset_view(a, dtype) for a in (dy, x)]
+    assert all(BN._is_rows(t) for t in unaligned)
+    assert BN._operands(*aligned)[2].vec == 16 // dtype.itemsize
+    dy2, x2, plan = BN._operands(*unaligned)
+    assert plan.vec == 1 and dy2.data_ptr() % 16 != 0
+    mixed = BN._operands(aligned[0].to(torch.bfloat16), aligned[1].float())
+    assert mixed[2].vec == 4
+
+
+def test_cpu_tensor_takes_plain_dx_and_counts_no_launch():
+    x, scale, _, dy = _inputs((2, 3, 3, 8), 3)
+    mean, rstd = torch.full((8,), 0.5), torch.full((8,), 0.7)
+    w = torch.from_numpy(scale)
+    sums = BN.bn_backward_sums_reference(_nchw(dy), _nchw(x), mean, rstd)
+    before = (BN.dx_launch_count, BN.dx_vector_launch_count, BN.launch_count)
+    out = BN.bn_backward_dx(_nchw(dy), _nchw(x), mean, rstd, w, sums)
+    assert (BN.dx_launch_count, BN.dx_vector_launch_count,
+            BN.launch_count) == before
+    assert torch.equal(out, BN.bn_backward_dx_reference(
+        _nchw(dy), _nchw(x), mean, rstd, w, sums))
+    with pytest.raises(ValueError, match="sums"):
+        BN.bn_backward_dx(_nchw(dy), _nchw(x), mean, rstd, w, sums[:1])
+    with pytest.raises(ValueError, match="weight"):
+        BN.bn_backward_dx(_nchw(dy), _nchw(x), mean, rstd, w[:4], sums)
+
+
+def test_subsampled_batchnorm_swaps_both_backward_stages_by_name():
+    """chip_smoke.py's plain copy sets ``sums_fn`` and ``dx_fn`` on every
+    SubsampledBatchNorm: the backward then calls each once, in order, and
+    (on the CPU, where the defaults are the plain versions) gives the same
+    bits."""
+    import copy
+
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    bn = SubsampledBatchNorm(8, dtype=torch.bfloat16).train()
+    assert bn.sums_fn is BN.bn_backward_sums
+    assert bn.dx_fn is BN.bn_backward_dx
+    twin = copy.deepcopy(bn)
+    calls = []
+
+    def sums_fn(*args):
+        calls.append("sums")
+        return BN.bn_backward_sums_reference(*args)
+
+    def dx_fn(*args):
+        calls.append("dx")
+        return BN.bn_backward_dx_reference(*args)
+
+    twin.sums_fn, twin.dx_fn = sums_fn, dx_fn
+    x, _, _, w = _inputs((2, 5, 5, 8), 10)
+    grads = []
+    for module in (bn, twin):
+        xt = _nchw(x, torch.bfloat16).requires_grad_()
+        (module(xt).float() * _nchw(w)).sum().backward()
+        grads.append([xt.grad, module.weight.grad, module.bias.grad])
+    assert calls == ["sums", "dx"]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _offset_view(a, dtype, device="cpu"):
+    """NHWC numpy → an NCHW view of NHWC memory that starts one element
+    into its buffer, so its base pointer is not 16-byte aligned."""
+    flat = torch.empty(a.size + 1, dtype=dtype, device=device)
+    flat[1:] = torch.from_numpy(a).reshape(-1).to(device, dtype)
+    return flat[1:].view(a.shape).permute(0, 3, 1, 2)
+
+
 @pytest.fixture
 def interpret_mode(monkeypatch):
     """Run the JAX package's Pallas kernels in interpret mode (CPU), as
@@ -155,10 +326,17 @@ def interpret_mode(monkeypatch):
 
 # -- kernel K4 on the card ---------------------------------------------------
 # Run there with: python -m pytest tests/test_torch_batchnorm.py -m cuda
-# --noconftest. K4 and the plain version both read the inputs exactly and
-# sum in fp32 in other orders: per element |a − b| / (|ref| + sqrt(M)) with
-# sqrt(M) the scale of a sum of M terms of scale 1.
+# --noconftest. Stage 1 and its plain version both read the inputs exactly
+# and sum in fp32 in other orders: per element |a − b| / (|ref| + sqrt(M))
+# with sqrt(M) the scale of a sum of M terms of scale 1. Stage 2 and its
+# plain version compute dx in fp32 from the same sums and round once to x's
+# dtype: per element |a − b| / (|ref| + 1), 1e-5 in fp32 (other
+# association of the same terms), 2^-7 in bf16 (one rounding apart is
+# 2^-8).
 CARD_TOL = 1e-5
+DX_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+DTYPE_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+               (torch.float32, torch.bfloat16), (torch.float32, torch.float32)]
 
 
 @pytest.fixture
@@ -169,7 +347,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_sums(shape, dtype, device, seed, dy_layout="channels_last"):
+def _card_sums(shape, dtype, device, seed, dy_layout="channels_last",
+               x_dtype=None, aligned=True):
+    """dy (``dtype``) and x (``x_dtype``, default ``dtype``) as NCHW views
+    of NHWC memory (dy NCHW-contiguous if asked; both one element into
+    their buffers unless ``aligned``), and fp32 mean and rstd."""
     x, _, _, dy = _inputs(shape, seed)
     rng = np.random.RandomState(seed + 1)
     C = shape[-1]
@@ -177,20 +359,60 @@ def _card_sums(shape, dtype, device, seed, dy_layout="channels_last"):
         np.float32)).to(device)
     rstd = torch.from_numpy(rng.uniform(0.3, 0.7, C).astype(
         np.float32)).to(device)
-    xt = _nchw(x, dtype).to(device)
-    dyt = _nchw(dy, dtype).to(device)
+    x_dtype = x_dtype or dtype
+    if aligned:
+        xt = _nchw(x, x_dtype).to(device)
+        dyt = _nchw(dy, dtype).to(device)
+    else:
+        xt = _offset_view(x, x_dtype, device)
+        dyt = _offset_view(dy, dtype, device)
     if dy_layout == "nchw":
         dyt = dyt.contiguous()
         assert not dyt.is_contiguous(memory_format=torch.channels_last)
     return dyt, xt, mean, rstd
 
 
-def _k4(dy, x, mean, rstd):
-    before = BN.launch_count
+def _weight(C, device, seed):
+    rng = np.random.RandomState(seed + 2)
+    return torch.from_numpy((rng.rand(C) + 0.5).astype(np.float32)).to(device)
+
+
+def _k4(dy, x, mean, rstd, vector=None):
+    """Stage 1, checked to launch once (in the vector variant if asked)."""
+    before = (BN.launch_count, BN.vector_launch_count)
     out = BN.bn_backward_sums(dy, x, mean, rstd)
     torch.cuda.synchronize()
-    assert BN.launch_count == before + 1
+    assert BN.launch_count == before[0] + 1
+    if vector is not None:
+        assert BN.vector_launch_count == before[1] + int(vector)
     return out
+
+
+def _k4_dx(dy, x, mean, rstd, weight, sums, vector=None):
+    """Stage 2, checked likewise."""
+    before = (BN.dx_launch_count, BN.dx_vector_launch_count)
+    out = BN.bn_backward_dx(dy, x, mean, rstd, weight, sums)
+    torch.cuda.synchronize()
+    assert BN.dx_launch_count == before[0] + 1
+    if vector is not None:
+        assert BN.dx_vector_launch_count == before[1] + int(vector)
+    assert out.shape == x.shape and out.dtype == x.dtype
+    return out
+
+
+def _check_both_stages(dy, x, mean, rstd, weight, vector):
+    """Both stages against their plain versions, each launched twice for
+    equal bits; stage 2 is fed the plain sums, as its plain version is."""
+    M = x.numel() // x.shape[1]
+    sums = _k4(dy, x, mean, rstd, vector)
+    assert torch.equal(sums, _k4(dy, x, mean, rstd, vector))
+    ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
+    assert sums.shape == ref.shape == (2, x.shape[1])
+    assert rel_err(sums, ref, math.sqrt(M)) <= CARD_TOL
+    dx = _k4_dx(dy, x, mean, rstd, weight, ref, vector)
+    assert torch.equal(dx, _k4_dx(dy, x, mean, rstd, weight, ref, vector))
+    dx_ref = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight, ref)
+    assert rel_err(dx, dx_ref, 1.0) <= DX_TOL[x.dtype]
 
 
 @pytest.mark.cuda
@@ -198,44 +420,94 @@ def _k4(dy, x, mean, rstd):
 @pytest.mark.parametrize("shape", SHAPES + [(3, 7, 7, 64)])  # odd M = 147
 def test_kernel_matches_plain_on_card(cuda, shape, dtype):
     dy, x, mean, rstd = _card_sums(shape, dtype, cuda, 4)
-    out = _k4(dy, x, mean, rstd)
+    out = _k4(dy, x, mean, rstd, vector=True)
     ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
     M = math.prod(shape[:-1])
     assert out.shape == ref.shape == (2, shape[-1])
     assert rel_err(out, ref, math.sqrt(M)) <= CARD_TOL
+    _check_both_stages(dy, x, mean, rstd, _weight(shape[-1], cuda, 4), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("hw,C", R50_SHAPES)
+def test_both_stages_at_resnet50_shapes_on_card(cuda, hw, C, variant):
+    """bf16, batch 8; the scalar variant through views one element into
+    their buffers."""
+    vector = variant == "vector"
+    dy, x, mean, rstd = _card_sums((8, hw, hw, C), torch.bfloat16, cuda,
+                                   11, aligned=vector)
+    _check_both_stages(dy, x, mean, rstd, _weight(C, cuda, 11), vector)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("dy_dtype,x_dtype", DTYPE_PAIRS)
+def test_every_dtype_instantiation_on_card(cuda, dy_dtype, x_dtype,
+                                           variant):
+    """All four (dy, x) dtype pairs of both stages, at an odd M."""
+    vector = variant == "vector"
+    dy, x, mean, rstd = _card_sums((3, 7, 7, 64), dy_dtype, cuda, 12,
+                                   x_dtype=x_dtype, aligned=vector)
+    _check_both_stages(dy, x, mean, rstd, _weight(64, cuda, 12), vector)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_variant_for_c_not_a_multiple_of_8_on_card(cuda, dtype):
+    """C 60 (3·7·7 × 60): bf16 takes the scalar variants, fp32 the 4-wide
+    vector ones."""
+    dy, x, mean, rstd = _card_sums((3, 7, 7, 60), dtype, cuda, 13)
+    _check_both_stages(dy, x, mean, rstd, _weight(60, cuda, 13),
+                       dtype == torch.float32)
 
 
 @pytest.mark.cuda
 def test_kernel_reads_an_nchw_contiguous_dy_on_card(cuda):
     dy, x, mean, rstd = _card_sums((4, 8, 8, 64), torch.bfloat16, cuda, 5,
                                    dy_layout="nchw")
+    before = BN.dy_copy_count
     out = _k4(dy, x, mean, rstd)
-    same = _k4(dy.contiguous(memory_format=torch.channels_last), x, mean,
-               rstd)
-    assert torch.equal(out, same)
+    assert BN.dy_copy_count == before + 1
+    cl = dy.contiguous(memory_format=torch.channels_last)
+    same = _k4(cl, x, mean, rstd)
+    assert torch.equal(out, same) and BN.dy_copy_count == before + 1
     ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
     assert rel_err(out, ref, math.sqrt(4 * 8 * 8)) <= CARD_TOL
+    _check_both_stages(dy, x, mean, rstd, _weight(64, cuda, 5), True)
+    w = _weight(64, cuda, 5)
+    assert torch.equal(_k4_dx(dy, x, mean, rstd, w, ref),
+                       _k4_dx(cl, x, mean, rstd, w, ref))
 
 
 @pytest.mark.cuda
 def test_kernel_gives_equal_bits_twice_on_card(cuda):
     dy, x, mean, rstd = _card_sums((16, 14, 14, 256), torch.bfloat16, cuda, 6)
     assert torch.equal(_k4(dy, x, mean, rstd), _k4(dy, x, mean, rstd))
+    sums = _k4(dy, x, mean, rstd)
+    w = _weight(256, cuda, 6)
+    assert torch.equal(_k4_dx(dy, x, mean, rstd, w, sums),
+                       _k4_dx(dy, x, mean, rstd, w, sums))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_train_backward_through_kernel_on_card(cuda, dtype):
-    """dx, dγ, dβ with K4's sums equal those with the plain sums, up to
-    the sums' own rounding."""
+    """dx, dγ, dβ through both kernels equal those through both plain
+    versions, up to the sums' own rounding."""
     x, scale, bias, w = _inputs((4, 8, 8, 128), 7)
     grads = []
-    for sums_fn in (BN.bn_backward_sums, BN.bn_backward_sums_reference):
+    for fns in ((BN.bn_backward_sums, BN.bn_backward_dx),
+                (BN.bn_backward_sums_reference, BN.bn_backward_dx_reference)):
+        before = (BN.launch_count, BN.dx_launch_count)
         xt = _nchw(x, dtype).to(cuda).requires_grad_()
         st, bt = (torch.from_numpy(a).to(cuda).requires_grad_()
                   for a in (scale, bias))
-        y, _, _ = BN.bn_train(xt, st, bt, EPS, dtype, sums_fn)
+        y, _, _ = BN.bn_train(xt, st, bt, EPS, dtype, *fns)
         (y.float() * _nchw(w).to(cuda)).sum().backward()
+        kernels = fns[0] is BN.bn_backward_sums
+        assert (BN.launch_count, BN.dx_launch_count) == (
+            before[0] + kernels, before[1] + kernels)
         grads.append([xt.grad.float(), st.grad, bt.grad])
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     for name, a, r, atol in zip(("dx", "dscale", "dbias"), *grads,

@@ -12,8 +12,9 @@ Counterpart of ``virtex_tpu/modules/normalization.py``
   with the fp32 factor cast to ``dtype``, then ``+ β``;
 - in training the forward and backward are
   :func:`virtex_tpu_torch.ops.batchnorm.bn_train`, whose backward takes its
-  channel sums from ``sums_fn`` (kernel K4 on CUDA; a comparison against
-  the plain version swaps it by name).
+  channel sums from ``sums_fn`` and dx from ``dx_fn`` (kernel K4's two
+  stages on CUDA; a comparison against the plain versions swaps them by
+  name).
 
 Channels sit on dim 1 (NCHW, usually a ``channels_last`` view of NHWC
 memory). Parameter and buffer names are torch's (``weight``, ``bias``,
@@ -26,6 +27,7 @@ from torch import nn
 
 from virtex_tpu_torch.ops.batchnorm import (
     bn_apply,
+    bn_backward_dx,
     bn_backward_sums,
     bn_train,
 )
@@ -50,6 +52,7 @@ class SubsampledBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
         self.sums_fn = bn_backward_sums
+        self.dx_fn = bn_backward_dx
 
     def _update_running(self, mean, var, n: int) -> None:
         m = self.momentum
@@ -63,7 +66,7 @@ class SubsampledBatchNorm(nn.Module):
         C = x.shape[1]
         if self.training:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                    self.dtype, self.sums_fn)
+                                    self.dtype, self.sums_fn, self.dx_fn)
             self._update_running(mean, var, x.numel() // C)
             return y
         rstd = 1.0 / torch.sqrt(self.running_var + self.eps)

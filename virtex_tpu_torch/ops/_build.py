@@ -58,8 +58,15 @@ SIGNATURES = {
                                             [_I, _I, _I]),
     "virtex_bn_backward_sums": (
         _I, [_P, _P, _P, _P,                # dy, x, mean, rstd
-             _P, _P,                        # partial (chunks, 2, C), out
-             _LL, _I, _I,                   # M, C, chunks
+             _P, _P, _P,                    # partial (chunks, 2, C), tickets,
+                                            # out
+             _LL, _I, _I, _I,               # M, C, chunks, vec
+             _I, _I,                        # dy_is_bf16, x_is_bf16
+             _P]),                          # stream
+    "virtex_bn_backward_dx": (
+        _I, [_P, _P, _P, _P, _P, _P,        # dy, x, mean, rstd, weight, sums
+             _P,                            # dx
+             _LL, _I, _I, _I,               # M, C, chunks, vec
              _I, _I,                        # dy_is_bf16, x_is_bf16
              _P]),                          # stream
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),
