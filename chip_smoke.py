@@ -77,6 +77,20 @@ prints no result, when there is no card or when any phase fails:
 12. nucleus captioning (p 0.9, 30 steps) with the flagship model of phase
     6 on 32 images: tokens in range, seeded draws, no kernel launch, and
     the first step's drop set on the card equal to the CPU's.
+13. pretraining: the JPEG codecs on the machine, and the data plane's
+    decoder for the card (nvJPEG) round-tripping quality-95 images within
+    DECODE_MEAN_TOL; a synthetic COCO-2017 directory (512 train and 64 val
+    JPEGs at 640x480 and 480x640, five captions each, instances json) and
+    a tokenizer JSON written here; ``pretrain_virtex.main`` on
+    ``configs/_base_bicaptioning_R_50_L1_H1024.yaml`` for 6 iterations of
+    256 images (128 x accumulation 2, dropout 0.1), validating and saving
+    every 3: finite losses, a finite validation loss, the checkpoints and
+    ``best.json``, and exactly 8 K1, 8 K2 and 106 + 106 K4 launches per
+    train step and K1 launches in the validation eval step; then a run
+    resumed from ``checkpoint_3`` through 6 whose losses and final model
+    and optimizer state equal the unbroken run's (RESUME_RTOL; cuDNN's
+    deterministic algorithms on); the loader's images/s alone and the
+    CLI's ms per iteration.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -88,6 +102,7 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1457,17 +1472,353 @@ def check_nucleus(torch, port, model, spec, images, device):
     return counts, ms
 
 
+# -- phase 13 ----------------------------------------------------------------
+PRETRAIN_CONFIG = os.path.join("configs",
+                               "_base_bicaptioning_R_50_L1_H1024.yaml")
+PRETRAIN_ITERS, PRETRAIN_CKPT_EVERY = 6, 3
+# The pretraining CLI as bench.py trains the flagship: 256 images per
+# iteration in two micro-batches of 128 (TRAIN_BATCH x ACCUM).
+PRETRAIN_OVERRIDES = ["OPTIM.GRAD_ACCUM_STEPS", ACCUM,
+                      "OPTIM.NUM_ITERATIONS", PRETRAIN_ITERS,
+                      "OPTIM.WARMUP_STEPS", 2, "MODEL.TEXTUAL.DROPOUT", 0.1,
+                      # cuDNN's deterministic algorithms, so that the resumed
+                      # run can be held to the unbroken one bit for bit
+                      "CUDNN_DETERMINISTIC", True, "CUDNN_BENCHMARK", False]
+# A synthetic COCO-2017 directory: COCO's usual image sizes (H, W), five
+# captions per image, JPEG quality 95.
+SYNTH_TRAIN, SYNTH_VAL, SYNTH_CAPTIONS = 512, 64, 5
+COCO_SIZES = ((480, 640), (640, 480))
+JPEG_QUALITY = 95
+# Decoded pixels of smooth images encoded at quality 95 with 4:2:0 chroma,
+# against the pixels that were encoded: mean |Δ| on the 0..255 scale.
+# libjpeg gives 1.27 at these sizes on the CPU, most of it the faint noise
+# that quantization drops; planes or channels out of place are off by tens.
+DECODE_MEAN_TOL = 3.0
+DECODE_CHECK_IMAGES = 8
+# Resumed against unbroken run, steps 4-6: losses relative, and every
+# model and optimizer tensor per element relative to its own scale.
+RESUME_RTOL = 1e-3
+# The loader timed alone: batches, and the data plane's threads (the CLI's
+# --cpu-workers default).
+LOADER_TIMED_BATCHES, LOADER_THREADS = 4, 4
+_WORDS = {"color": ["red", "green", "blue", "yellow", "white", "black",
+                    "brown", "orange"],
+          "thing": ["dog", "cat", "bus", "train", "horse", "boat", "kite",
+                    "clock", "pizza", "bird"],
+          "verb": ["sitting", "standing", "parked", "lying", "waiting"],
+          "place": ["street", "field", "table", "beach", "kitchen", "park"],
+          "side": ["left", "right"]}
+
+
+def synth_caption(rng) -> str:
+    w = {k: v[rng.randint(len(v))] for k, v in _WORDS.items()}
+    return (f"a {w['color']} {w['thing']} {w['verb']} on the {w['side']} "
+            f"side of the {w['place']}")
+
+
+def write_tokenizer(path: str) -> None:
+    """A BPE tokenizer JSON in the layout ``train_tokenizer`` writes (the
+    special ids 0-3, Metaspace, fuse_unk), whose merges build every word of
+    the synthetic captions letter by letter into one ``▁word`` token."""
+    words = sorted({w for ws in _WORDS.values() for w in ws}
+                   | {"a", "on", "the", "side", "of"})
+    specials = ["<unk>", "[SOS]", "[EOS]", "[MASK]"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for c in sorted({"▁", *"".join(words)}):
+        vocab[c] = len(vocab)
+    merges = []
+    for w in words:
+        piece = "▁"
+        for c in w:
+            if piece + c not in vocab:
+                merges.append([piece, c])
+                vocab[piece + c] = len(vocab)
+            piece += c
+    meta = {"type": "Metaspace", "replacement": "▁",
+            "prepend_scheme": "always", "split": True}
+    blob = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False,
+                              "normalized": False, "special": True}
+                             for i, t in enumerate(specials)],
+            "normalizer": None, "pre_tokenizer": meta,
+            "post_processor": None, "decoder": meta,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": True,
+                      "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(blob, f, ensure_ascii=False)
+
+
+def synth_image(torch, rng, h: int, w: int, device) -> np.ndarray:
+    """A smooth RGB8 image, drawn on ``device`` from parameters drawn from
+    ``rng``: a colour, two low-frequency waves per channel and faint noise,
+    so that a quality-95 JPEG keeps it closely."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.randint(2**31)))
+    y = torch.linspace(0.0, 1.0, h, device=device)[:, None, None]
+    x = torch.linspace(0.0, 1.0, w, device=device)[None, :, None]
+    img = torch.tensor(rng.uniform(40, 215, 3), dtype=torch.float32,
+                       device=device).expand(h, w, 3)
+    for amp, sign in ((30.0, 1.0), (15.0, -1.0)):
+        fy, fx, ph = (torch.tensor(v, dtype=torch.float32, device=device)
+                      for v in rng.uniform(0.5, 3.0, (3, 3)))
+        img = img + amp * torch.sin(2 * np.pi * (fy * y + sign * fx * x)
+                                    + ph)
+    img = img + torch.randint(-2, 3, (h, w, 3), generator=gen, device=device)
+    return img.clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def probe_decoders() -> str:
+    """Which JPEG codecs this machine has, by file (nothing is imported)."""
+    import importlib.util
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    found = {
+        "jpeglib.h": any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                         for d in ("/usr/include", "/usr/local/include")),
+        "nvjpeg.h": os.path.exists(os.path.join(cuda, "include", "nvjpeg.h")),
+        "libnvjpeg.so": os.path.exists(os.path.join(cuda, "lib64",
+                                                    "libnvjpeg.so")),
+        "PIL": importlib.util.find_spec("PIL") is not None}
+    return ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in found.items())
+
+
+def check_decoder(torch, plane, device) -> float:
+    """Mean |Δ| of smooth images encoded at JPEG_QUALITY and decoded,
+    against the encoded pixels, over both COCO sizes."""
+    rng = np.random.RandomState(SEED)
+    errs = []
+    for i in range(DECODE_CHECK_IMAGES):
+        h, w = COCO_SIZES[i % 2]
+        img = synth_image(torch, rng, h, w, device)
+        out = plane.decode(plane.encode_jpeg(img, JPEG_QUALITY))
+        if out.shape != img.shape:
+            fail(f"decoded shape {out.shape}, encoded {img.shape}")
+        errs.append(float(np.abs(out.astype(np.float32) - img).mean()))
+    err = max(errs)
+    if not err <= DECODE_MEAN_TOL:
+        fail(f"{plane.decoder}: quality-{JPEG_QUALITY} round trip mean |Δ| "
+             f"{err:.3f} > {DECODE_MEAN_TOL}")
+    return err
+
+
+def write_synthetic_coco(torch, plane, root: str, device) -> None:
+    """COCO-2017 layout: {train,val}2017/*.jpg, captions_*.json and
+    instances_*.json (one to three of 80 categories per image)."""
+    rng = np.random.RandomState(SEED)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    cat_ids = [i + 1 + i // 10 for i in range(80)]  # sparse, as COCO's are
+    image_id = 0
+    for split, n in (("train", SYNTH_TRAIN), ("val", SYNTH_VAL)):
+        os.makedirs(os.path.join(root, f"{split}2017"), exist_ok=True)
+        images, caps, insts = [], [], []
+        for i in range(n):
+            image_id += 1
+            h, w = COCO_SIZES[i % 2]
+            name = f"{image_id:012d}.jpg"
+            with open(os.path.join(root, f"{split}2017", name), "wb") as f:
+                f.write(plane.encode_jpeg(synth_image(torch, rng, h, w,
+                                                      device), JPEG_QUALITY))
+            images.append({"id": image_id, "file_name": name, "height": h,
+                           "width": w})
+            caps += [{"id": len(caps) + 1, "image_id": image_id,
+                      "caption": synth_caption(rng).capitalize() + "."}
+                     for _ in range(SYNTH_CAPTIONS)]
+            insts += [{"id": len(insts) + 1, "image_id": image_id,
+                       "category_id": int(c), "bbox": [0, 0, 10, 10]}
+                      for c in rng.choice(cat_ids, rng.randint(1, 4),
+                                          replace=False)]
+        with open(os.path.join(root, "annotations",
+                               f"captions_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": caps}, f)
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": insts,
+                       "categories": [{"id": c, "name": f"category {c}"}
+                                      for c in cat_ids]}, f)
+
+
+def run_pretrain(torch, port, args: list, per_step: list, per_eval: list):
+    """``pretrain_virtex.main`` on ``args``, recording the launches of each
+    train step and each eval step (read around each call, no sync: the
+    counts are bumped on the host at launch)."""
+    cli = port.pretrain
+
+    def counted(make):
+        def factory(*a, **k):
+            step = make(*a, **k)
+
+            def wrapped(batch):
+                before = launch_counts(port.A, port.BN)
+                out = step(batch)
+                after = launch_counts(port.A, port.BN)
+                (per_step if make is cli_train else per_eval).append(
+                    {k: after[k] - before[k] for k in after})
+                return out
+            return wrapped
+        return factory
+
+    cli_train, cli_eval = cli.make_train_step, cli.make_eval_step
+    cli.make_train_step, cli.make_eval_step = (counted(cli_train),
+                                               counted(cli_eval))
+    try:
+        return cli.main(port.common_parser().parse_args(args))
+    finally:
+        cli.make_train_step, cli.make_eval_step = cli_train, cli_eval
+
+
+def flat_state(port, path: str) -> dict:
+    """A checkpoint's model and optimizer tensors, by name."""
+    ckpt = port.read_checkpoint(path)
+    out = {f"model.{k}": v for k, v in ckpt["model"].items()}
+    for key, v in ckpt["optimizer"].items():
+        if isinstance(v, dict):
+            out.update({f"optimizer.{key}.{n}": t for n, t in v.items()})
+    return out
+
+
+def check_pretraining(torch, port, device):
+    """Phase 13. Returns its launches and the lines of numbers it prints."""
+    plane = port.DataPlane(port.decoder_for(device))
+    probe = probe_decoders()
+    decode_err = check_decoder(torch, plane, device)
+    say("13 pretraining", f"decoders on this machine: {probe}; the card's "
+        f"runs decode with {plane.decoder}; quality-{JPEG_QUALITY} round "
+        f"trip of {DECODE_CHECK_IMAGES} smooth images at COCO's sizes: mean "
+        f"|Δ| {decode_err:.3f} <= {DECODE_MEAN_TOL}")
+
+    work = os.path.join(REPO, "build", "phase13")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "coco")
+    t0 = time.perf_counter()
+    write_synthetic_coco(torch, plane, root, device)
+    tokenizer = os.path.join(work, "tokenizer.json")
+    write_tokenizer(tokenizer)
+    say("13 pretraining", f"wrote {SYNTH_TRAIN} train and {SYNTH_VAL} val "
+        f"JPEGs (640x480 and 480x640, {SYNTH_CAPTIONS} captions each, "
+        f"instances json) with {plane.decoder}'s encoder and a tokenizer "
+        f"JSON in {time.perf_counter() - t0:.1f} s")
+
+    base = ["--config", os.path.join(REPO, PRETRAIN_CONFIG),
+            "--checkpoint-every", str(PRETRAIN_CKPT_EVERY), "--log-every",
+            "1", "--device", str(device), "--config-override",
+            "DATA.ROOT", root, "DATA.TOKENIZER_MODEL", tokenizer,
+            *[str(v) for v in PRETRAIN_OVERRIDES]]
+    run = os.path.join(work, "run")
+    steps, evals = [], []
+    reset_counts(port.A, port.BN)     # a main path starts here
+    result = run_pretrain(torch, port, base + ["--serialization-dir", run],
+                          steps, evals)
+    torch.cuda.synchronize()
+    launches = launch_counts(port.A, port.BN)  # ... and ends here
+    losses = [result["losses"][i] for i in range(1, PRETRAIN_ITERS + 1)]
+    if not all(np.isfinite(losses)):
+        fail(f"pretraining: losses {losses}")
+    if len(steps) != PRETRAIN_ITERS or any(c != LAUNCHES_PER_STEP
+                                           for c in steps):
+        fail(f"pretraining: train steps launched {steps}, expected "
+             f"{LAUNCHES_PER_STEP} in each of {PRETRAIN_ITERS}")
+    val = result["val"]
+    if sorted(val) != [3, 6] or not all(np.isfinite(v["loss"])
+                                        for v in val.values()):
+        fail(f"pretraining: validation {val}")
+    if not evals or any(c["K1"] == 0 or c["K2"] or c["K4"] or c["K4dx"]
+                        for c in evals):
+        fail(f"pretraining: the validation eval steps launched {evals}")
+    for name in ("checkpoint_3.pth", "checkpoint_6.pth",
+                 "checkpoint_best.pth", "best.json"):
+        if not os.path.isfile(os.path.join(run, name)):
+            fail(f"pretraining: {name} is missing from {run}")
+    seconds = [result["seconds"][i] for i in range(2, PRETRAIN_ITERS + 1)]
+    step_ms = 1e3 * float(np.median(seconds))
+    images = TRAIN_BATCH * ACCUM
+    say("13 pretraining", f"python -m virtex_tpu_torch.scripts."
+        f"pretrain_virtex on {PRETRAIN_CONFIG}, {images} images per "
+        f"iteration (micro-batch {TRAIN_BATCH} x accum {ACCUM}), dropout "
+        f"0.1: losses {json.dumps(losses)}; validation loss at 3 and 6 "
+        f"{val[3]['loss']:.4f}, {val[6]['loss']:.4f}; launches per train "
+        f"step {steps[0]} (all {PRETRAIN_ITERS}), per eval step "
+        f"{evals[0]}; checkpoint_3, checkpoint_6, checkpoint_best and "
+        f"best.json written")
+
+    # Resume from iteration 3 and run through 6.
+    resumed_run = os.path.join(work, "resumed")
+    rsteps, revals = [], []
+    resumed = run_pretrain(
+        torch, port, base + ["--serialization-dir", resumed_run,
+                             "--resume-from",
+                             os.path.join(run, "checkpoint_3.pth")],
+        rsteps, revals)
+    gaps = {i: abs(resumed["losses"][i] - result["losses"][i])
+            / abs(result["losses"][i]) for i in range(4, PRETRAIN_ITERS + 1)}
+    if sorted(resumed["losses"]) != list(range(4, PRETRAIN_ITERS + 1)) or \
+            not all(g <= RESUME_RTOL for g in gaps.values()):
+        fail(f"resumed losses {resumed['losses']} vs unbroken "
+             f"{result['losses']} (rtol {RESUME_RTOL})")
+    a = flat_state(port, os.path.join(run, "checkpoint_6.pth"))
+    b = flat_state(port, os.path.join(resumed_run, "checkpoint_6.pth"))
+    if sorted(a) != sorted(b):
+        fail("resumed checkpoint_6 holds other tensors than the unbroken")
+    worst, equal = 0.0, 0
+    for k in a:
+        if not a[k].is_floating_point():
+            if not torch.equal(a[k], b[k]):
+                fail(f"resumed {k} {b[k]} vs unbroken {a[k]}")
+            equal += 1
+            continue
+        scale = float(a[k].abs().max()) + 1e-12
+        worst = max(worst, rel_err(b[k], a[k], scale))
+        equal += int(torch.equal(a[k], b[k]))
+    if not worst <= RESUME_RTOL:
+        fail(f"resumed final state differs by {worst:.3e} of scale")
+    say("13 pretraining", f"resumed from checkpoint_3 through {PRETRAIN_ITERS}"
+        f": loss gaps {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}"
+        f" (rtol {RESUME_RTOL}); final model and optimizer state: "
+        f"{equal} of {len(a)} tensors bit-equal, worst {worst:.3e} of scale "
+        f"(cuDNN deterministic algorithms on, benchmark off)")
+
+    # The loader alone on the host, then the CLI's own step times.
+    cfg = port.Config(os.path.join(REPO, PRETRAIN_CONFIG),
+                      ["DATA.ROOT", root, "DATA.TOKENIZER_MODEL", tokenizer])
+    dataset = port.PretrainingDatasetFactory.from_config(
+        cfg, port.DataPlane(plane.decoder, threads=LOADER_THREADS), "train")
+    loader = port.DataLoader(dataset, images, num_workers=0, seed=SEED)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIMED_BATCHES):
+        next(it)
+    loader_ips = LOADER_TIMED_BATCHES * images / (time.perf_counter() - t0)
+    card = card_line()
+    say("13 pretraining", f"{card} | loader alone ({plane.decoder} decode, "
+        f"an OpenMP team of {LOADER_THREADS} on {os.cpu_count()} host "
+        "cores): "
+        f"{loader_ips:.1f} images/s over {LOADER_TIMED_BATCHES} batches of "
+        f"{images} | CLI, host ms per iteration (iterations 2-"
+        f"{PRETRAIN_ITERS}, each ending in a sync): "
+        f"{', '.join(f'{1e3 * s:.1f}' for s in seconds)}; median "
+        f"{step_ms:.1f} ms = {images / step_ms * 1e3:.1f} images/s")
+    shutil.rmtree(work)
+    return launches
+
+
 def import_port():
     """The port's entry points, as one namespace."""
-    from virtex_tpu_torch.config import ModelSpec, OptimSpec
+    from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
+    from virtex_tpu_torch.data.loader import DataLoader
     from virtex_tpu_torch.engine.captioner import make_caption_fn
+    from virtex_tpu_torch.engine.checkpointing import read_checkpoint
     from virtex_tpu_torch.engine.evaluation import make_eval_step
     from virtex_tpu_torch.engine.trainer import make_train_step
     from virtex_tpu_torch.factories import (
         CaptionDecoderFactory,
+        PretrainingDatasetFactory,
         PretrainingModelFactory,
     )
     from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    from virtex_tpu_torch.native import DataPlane, decoder_for
     from virtex_tpu_torch.modules.transformer import (
         MultiHeadAttention,
         make_self_attention_mask,
@@ -1476,7 +1827,9 @@ def import_port():
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
     from virtex_tpu_torch.optim.optimizer import build_optimizer
+    from virtex_tpu_torch.scripts import pretrain_virtex as pretrain
     from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+    from virtex_tpu_torch.utils.common import common_parser
     from virtex_tpu_torch.utils.nucleus_sampling import topp_drop
     return types.SimpleNamespace(**locals())
 
@@ -1707,6 +2060,11 @@ def main() -> None:
     # 12. nucleus captioning with the flagship model of phase 6
     nucleus_counts, _ = check_nucleus(torch, port, model, spec, images,
                                       device)
+    del model, plain_model, eval_step, caption_fn, batch, images
+    torch.cuda.empty_cache()
+
+    # 13. pretraining through the CLI, and its resume
+    pretrain_counts = check_pretraining(torch, port, device)
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -1725,7 +2083,8 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:87",
         "launches": serve_counts["K1"] + train_launches["K1"]
-        + task_launches["K1"] + nucleus_counts["K1"],
+        + task_launches["K1"] + nucleus_counts["K1"]
+        + pretrain_counts["K1"],
         "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err),
         **row(list(k1_eval.values())),
     }, {
@@ -1734,7 +2093,7 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:103",
         "launches": train_launches["K2"] + task_launches["K2"]
-        + nucleus_counts["K2"],
+        + nucleus_counts["K2"] + pretrain_counts["K2"],
         "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err),
         **row([t["K2"] for t in train_times.values()]),
     }, {
@@ -1743,7 +2102,7 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:128",
         "launches": train_launches["K4"] + task_launches["K4"]
-        + nucleus_counts["K4"],
+        + nucleus_counts["K4"] + pretrain_counts["K4"],
         "max_abs_err": k4_err,
         **row([tuple(t / bn_calls for t in bn_step["sums"])
                + (next(iter(bn_times.values()))["sums"][4],)]),
@@ -1753,7 +2112,7 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:278",
         "launches": train_launches["K4dx"] + task_launches["K4dx"]
-        + nucleus_counts["K4dx"],
+        + nucleus_counts["K4dx"] + pretrain_counts["K4dx"],
         "max_abs_err": dx_err,
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),

@@ -122,9 +122,27 @@ SLICE_MODULES = [
     "virtex_tpu_torch.engine.trainer",
     "virtex_tpu_torch.optim.lr_schedules",
     "virtex_tpu_torch.optim.optimizer",
+    "virtex_tpu_torch.utils.common",
+    "virtex_tpu_torch.utils.timer",
+    "virtex_tpu_torch.native",
+    "virtex_tpu_torch.data",
+    "virtex_tpu_torch.data.tokenizers",
+    "virtex_tpu_torch.data.readers",
+    "virtex_tpu_torch.data.transforms",
+    "virtex_tpu_torch.data.native_pipeline",
+    "virtex_tpu_torch.data.loader",
+    "virtex_tpu_torch.data.datasets",
+    "virtex_tpu_torch.data.datasets._common",
+    "virtex_tpu_torch.data.datasets.captioning",
+    "virtex_tpu_torch.data.datasets.masked_lm",
+    "virtex_tpu_torch.data.datasets.classification",
+    "virtex_tpu_torch.engine.train_state",
+    "virtex_tpu_torch.engine.checkpointing",
+    "virtex_tpu_torch.scripts",
+    "virtex_tpu_torch.scripts.pretrain_virtex",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "tokenizers",
-             "virtex_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
+             "tokenizers", "PIL", "virtex_tpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -139,3 +157,36 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_slice_modules_name_every_module_of_the_port():
+    pkg = os.path.join(REPO, "virtex_tpu_torch")
+    found = set()
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3]
+                mod = rel.replace(os.sep, ".")
+                found.add(mod[:-len(".__init__")] if mod.endswith(
+                    ".__init__") else mod)
+    missing = {m for m in found - set(SLICE_MODULES)
+               if not m.endswith(("models", "modules", "ops", "optim",
+                                  "engine", "utils"))}
+    assert not missing, sorted(missing)
+
+
+def test_checkpoints_load_only_through_the_weights_only_unpickler():
+    """Every torch.load in the port passes weights_only=True, and nothing
+    passes weights_only=False."""
+    import re
+    calls = 0
+    for dirpath, _, files in os.walk(os.path.join(REPO, "virtex_tpu_torch")):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            text = open(os.path.join(dirpath, f)).read()
+            assert "weights_only=False" not in text, f
+            for m in re.finditer(r"torch\.load\(([^)]*)\)", text):
+                calls += 1
+                assert "weights_only=True" in m.group(1), (f, m.group(0))
+    assert calls >= 1

@@ -12,6 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from virtex_tpu.config import Config
@@ -165,3 +166,14 @@ def port_model(spec: ModelSpec, variables: dict) -> torch.nn.Module:
 def torch_batch(batch: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in batch.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch CPU work on one thread. The tests run in
+    several processes on one machine, where torch's thread pool in each
+    spins against the others' and small ops slow down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

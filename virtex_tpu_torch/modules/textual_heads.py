@@ -14,7 +14,10 @@ Bicaptioning's backward direction is a second head from
 :meth:`TransformerTextualHead.backward_head` that shares the projection,
 embedding and output with this one and owns its own transformer, the way
 the reference builds it, so the state dict holds ``backward_textual.*``
-beside ``textual.*``.
+beside ``textual.*``. That transformer is initialised on its own, as
+``virtex_tpu``'s ``backward_transformer`` is (the torch original starts
+both directions from one copy); weights loaded through the bridge replace
+it either way.
 """
 from __future__ import annotations
 
@@ -68,9 +71,10 @@ class TransformerTextualHead(nn.Module):
         self.embedding = WordAndPositionalEmbedding(
             vocab_size, hidden_size, dropout, max_caption_length,
             padding_idx, dtype)
-        self.transformer = TransformerDecoder(
-            num_layers, hidden_size, attention_heads, feedforward_size,
-            dropout, norm_type, dtype, remat)
+        self._transformer_args = (num_layers, hidden_size, attention_heads,
+                                  feedforward_size, dropout, norm_type, dtype,
+                                  remat)
+        self.transformer = TransformerDecoder(*self._transformer_args)
         self.output = nn.Linear(hidden_size, vocab_size)
         self.output.weight = self.embedding.words.weight
         nn.init.zeros_(self.output.bias)
@@ -78,8 +82,10 @@ class TransformerTextualHead(nn.Module):
     def backward_head(self) -> "TransformerTextualHead":
         """A head for reversed captions: shares the visual projection, the
         embedding and the tied output with this head; its transformer is
-        its own (a copy of this one's at construction)."""
+        its own, freshly initialised (from torch's global generator, after
+        this head's)."""
         twin = copy.deepcopy(self)
+        twin.transformer = TransformerDecoder(*self._transformer_args)
         twin.visual_projection = self.visual_projection
         twin.embedding = self.embedding
         twin.output = self.output

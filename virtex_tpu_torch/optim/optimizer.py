@@ -167,6 +167,64 @@ class Optimizer:
         torch._foreach_add_(params, u)
         return norm
 
+    # -- state -----------------------------------------------------------------
+    def lookahead_slow_params(self) -> Dict[str, torch.Tensor]:
+        """The Lookahead slow weights by parameter name, or the parameters
+        themselves when the chain has no Lookahead (the counterpart of
+        ``virtex_tpu.optim.optimizer.lookahead_slow_params``; downstream
+        evaluation reads the slow weights)."""
+        return dict(zip(self.names, self.slow if self.slow is not None
+                        else self.params))
+
+    def _buffers(self) -> Dict[str, List[torch.Tensor]]:
+        out = {"trace": self.trace} if self.optimizer_name == "sgd" else {
+            "mu": self.mu, "nu": self.nu}
+        if self.slow is not None:
+            out["slow"] = self.slow
+        return out
+
+    def state_dict(self) -> Dict[str, object]:
+        """The step count, the momentum trace or the Adam moments and
+        count, and the Lookahead slow weights and count, each tensor keyed
+        by its parameter's name. The tensors are the live state, not
+        copies."""
+        state: Dict[str, object] = {
+            "optimizer_name": self.optimizer_name,
+            "step_count": self.step_count,
+            "lookahead_count": self.lookahead_count}
+        if self.optimizer_name == "adamw":
+            state["adam_count"] = self.adam_count
+        for key, tensors in self._buffers().items():
+            state[key] = dict(zip(self.names, tensors))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's state in place.
+        The optimizer, the Lookahead choice and the parameter names must
+        match."""
+        if state["optimizer_name"] != self.optimizer_name:
+            raise ValueError(f"state of {state['optimizer_name']!r}, "
+                             f"optimizer is {self.optimizer_name!r}")
+        buffers = self._buffers()
+        keys = {k for k in state if isinstance(state[k], dict)}
+        if keys != set(buffers):
+            raise ValueError(f"state holds {sorted(keys)}, optimizer "
+                             f"needs {sorted(buffers)}")
+        for key, tensors in buffers.items():
+            saved = state[key]
+            if set(saved) != set(self.names):
+                missing = sorted(set(self.names) - set(saved))[:3]
+                extra = sorted(set(saved) - set(self.names))[:3]
+                raise ValueError(f"{key}: parameter names differ (missing "
+                                 f"{missing}, unexpected {extra})")
+            for name, t in zip(self.names, tensors):
+                t.copy_(saved[name])
+        self.step_count = int(state["step_count"])
+        self.lookahead_count = int(state["lookahead_count"])
+        if self.optimizer_name == "adamw":
+            self.adam_count = int(state["adam_count"])
+
 
 def build_optimizer(named_params, spec: OptimSpec,
                     visual_frozen: bool = False) -> Optimizer:
