@@ -114,6 +114,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
 SEED = 0
 EVAL_BATCH = 32
+# The pretraining CLI's validation sweep runs the eval step on batches of
+# OPTIM.BATCH_SIZE and then the split's remainder: 64 (phase 13's whole
+# synthetic split in one batch), and on COCO val2017 (5000 images) 19
+# batches of 256 and one of 136. K1 is held to its plain version at each.
+VAL_BATCHES = (64, 256, 5000 % 256)
 # K1 against the plain version, per element |a − b| / (|ref| + ATOL):
 # q, k, v ~ N(0, 1), so outputs are O(1) and ATOL = 1 is their scale.
 ATOL = 1.0
@@ -273,10 +278,13 @@ def check_k1(torch, A, device):
     fraction, and a summary of the per-case errors."""
     cases = [
         # name, (B, Tq, Tk, N, D), mask kind; "main" cases are the eval
-        # step's launches: B=32, q/k/v strided views of one projection
-        ("main self 32x30x30 causal+pad", (EVAL_BATCH, 30, 30, 16, 64),
-         "causal_pad"),
-        ("main cross 32x30x49", (EVAL_BATCH, 30, 49, 16, 64), "none"),
+        # step's launches: B=32 (phase 6) and the validation sweep's batches,
+        # q/k/v strided views of one projection
+        *[(f"main {kind} {B}x30x{Tk}{suffix}", (B, 30, Tk, 16, 64), mask)
+          for B in (EVAL_BATCH, *VAL_BATCHES)
+          for kind, Tk, suffix, mask in (
+              ("self", 30, " causal+pad", "causal_pad"),
+              ("cross", 49, "", "none"))],
         ("self 128x30x30 causal+pad", (128, 30, 30, 16, 64), "causal_pad"),
         ("cross 128x30x49", (128, 30, 49, 16, 64), "none"),
         ("cross 128x30x49 per-head", (128, 30, 49, 16, 64), "per_head"),
@@ -1495,6 +1503,24 @@ JPEG_QUALITY = 95
 # that quantization drops; planes or channels out of place are off by tens.
 DECODE_MEAN_TOL = 3.0
 DECODE_CHECK_IMAGES = 8
+# JPEGs from libjpeg encoders (4:2:0, 4:2:2, 4:4:4, grayscale, progressive)
+# with libjpeg's decoded pixels and batch_transform outputs, written on the
+# CPU by tests/make_torch_jpeg_reference.py. The card's decoder is held to
+# them: mean |Δ| on the 0..255 scale, per image and per batch output. The
+# luma plane is never subsampled, so its mean |Δ| (Y = .299R + .587G +
+# .114B, nearly free of chroma) is the tight gate: IDCTs differ by a level
+# or two, a colour space or a chroma plane out of place by tens. RGB is
+# looser: libjpeg upsamples 4:2:0 and 4:2:2 chroma with a triangle filter
+# and nvJPEG replicates it, which differs by up to ~80 levels at the sharp
+# saturated edges these small images are full of; the batch outputs,
+# resized down, average those edges out.
+JPEG_REFERENCE = os.path.join("tests", "fixtures",
+                              "torch_jpeg_reference.npz")
+REFERENCE_LUMA_TOL = 1.0
+REFERENCE_RGB_TOL = 4.0
+REFERENCE_BATCH_TOL = 3.0
+# Each validation eval step: self- and cross-attention in both directions.
+EVAL_LAUNCHES = {"K1": 4, "K2": 0, "K4": 0, "K4dx": 0}
 # Resumed against unbroken run, steps 4-6: losses relative, and every
 # model and optimizer tensor per element relative to its own scale.
 RESUME_RTOL = 1e-3
@@ -1604,6 +1630,45 @@ def check_decoder(torch, plane, device) -> float:
     return err
 
 
+def check_reference_jpegs(port, plane):
+    """The plane's decode and batch_transform of JPEG_REFERENCE's images
+    against libjpeg's stored outputs. Returns {image: (luma mean, RGB mean,
+    RGB max) |Δ|} and the mean |Δ| of the uint8 and float32 batch outputs,
+    on the 0..255 scale."""
+    native = port.native
+    ref = np.load(os.path.join(REPO, JPEG_REFERENCE))
+    names = [str(n) for n in ref["names"]]
+    jpegs = [ref[f"jpeg_{i}"].tobytes() for i in range(len(names))]
+    luma = np.array([0.299, 0.587, 0.114], np.float32)
+    errs = {}
+    for i, name in enumerate(names):
+        got = plane.decode(jpegs[i]).astype(np.float32)
+        want = ref[f"pixels_{i}"].astype(np.float32)
+        if got.shape != want.shape:
+            fail(f"{plane.decoder}: {name} decoded to {got.shape}, libjpeg "
+                 f"{want.shape}")
+        d = np.abs(got - want)
+        errs[name] = (float(np.abs((got - want) @ luma).mean()),
+                      float(d.mean()), float(d.max()))
+    size = ref["out_uint8"].shape[1]
+    rects, flips = ref["rects"], ref["flips"]
+    u8 = plane.batch_transform(jpegs, rects, flips, size, native.RAW_MEAN,
+                               native.RAW_STD, ref["jitters"], uint8=True)
+    f32 = plane.batch_transform(jpegs, rects, flips, size)
+    batch_errs = (
+        float(np.abs(u8.astype(np.float32) - ref["out_uint8"]).mean()),
+        float((np.abs(f32 - ref["out_float32"])
+               * native.IMAGENET_STD * 255).mean()))
+    if not (all(y <= REFERENCE_LUMA_TOL and m <= REFERENCE_RGB_TOL
+                for y, m, _ in errs.values())
+            and max(batch_errs) <= REFERENCE_BATCH_TOL):
+        fail(f"{plane.decoder} against libjpeg on {JPEG_REFERENCE}: per "
+             f"image (luma mean, RGB mean, RGB max) |Δ| {errs} (tol "
+             f"{REFERENCE_LUMA_TOL}, {REFERENCE_RGB_TOL}), batch uint8/"
+             f"float32 mean |Δ| {batch_errs} (tol {REFERENCE_BATCH_TOL})")
+    return errs, batch_errs
+
+
 def write_synthetic_coco(torch, plane, root: str, device) -> None:
     """COCO-2017 layout: {train,val}2017/*.jpg, captions_*.json and
     instances_*.json (one to three of 80 categories per image)."""
@@ -1643,7 +1708,8 @@ def write_synthetic_coco(torch, plane, root: str, device) -> None:
 def run_pretrain(torch, port, args: list, per_step: list, per_eval: list):
     """``pretrain_virtex.main`` on ``args``, recording the launches of each
     train step and each eval step (read around each call, no sync: the
-    counts are bumped on the host at launch)."""
+    counts are bumped on the host at launch); an eval step's record also
+    holds its batch size under "B"."""
     cli = port.pretrain
 
     def counted(make):
@@ -1654,8 +1720,12 @@ def run_pretrain(torch, port, args: list, per_step: list, per_eval: list):
                 before = launch_counts(port.A, port.BN)
                 out = step(batch)
                 after = launch_counts(port.A, port.BN)
-                (per_step if make is cli_train else per_eval).append(
-                    {k: after[k] - before[k] for k in after})
+                counts = {k: after[k] - before[k] for k in after}
+                if make is cli_train:
+                    per_step.append(counts)
+                else:
+                    per_eval.append({**counts,
+                                     "B": int(batch["image"].shape[0])})
                 return out
             return wrapped
         return factory
@@ -1679,15 +1749,31 @@ def flat_state(port, path: str) -> dict:
     return out
 
 
+def check_evals(run: str, evals: list) -> None:
+    """Every validation eval step launched K1 as EVAL_LAUNCHES says, on a
+    batch that phase 3 held K1 against its plain version at."""
+    if not evals or any({k: c[k] for k in EVAL_LAUNCHES} != EVAL_LAUNCHES
+                        or c["B"] not in VAL_BATCHES for c in evals):
+        fail(f"{run}: the validation eval steps launched {evals}; expected "
+             f"{EVAL_LAUNCHES} each on batches of {VAL_BATCHES}")
+
+
 def check_pretraining(torch, port, device):
     """Phase 13. Returns its launches and the lines of numbers it prints."""
-    plane = port.DataPlane(port.decoder_for(device))
     probe = probe_decoders()
+    plane = port.DataPlane(port.decoder_for(device))
     decode_err = check_decoder(torch, plane, device)
+    ref_errs, batch_errs = check_reference_jpegs(port, plane)
     say("13 pretraining", f"decoders on this machine: {probe}; the card's "
         f"runs decode with {plane.decoder}; quality-{JPEG_QUALITY} round "
         f"trip of {DECODE_CHECK_IMAGES} smooth images at COCO's sizes: mean "
-        f"|Δ| {decode_err:.3f} <= {DECODE_MEAN_TOL}")
+        f"|Δ| {decode_err:.3f} <= {DECODE_MEAN_TOL}; against libjpeg on "
+        f"{JPEG_REFERENCE} (luma mean <= {REFERENCE_LUMA_TOL}, RGB mean <= "
+        f"{REFERENCE_RGB_TOL}, RGB max |Δ|): " + ", ".join(
+            f"{k} {y:.3f}, {m:.3f}, {x:.0f}"
+            for k, (y, m, x) in ref_errs.items())
+        + f"; batch_transform mean |Δ| uint8 with jitter {batch_errs[0]:.3f}"
+        f", float32 {batch_errs[1]:.3f} (<= {REFERENCE_BATCH_TOL})")
 
     work = os.path.join(REPO, "build", "phase13")
     shutil.rmtree(work, ignore_errors=True)
@@ -1724,9 +1810,7 @@ def check_pretraining(torch, port, device):
     if sorted(val) != [3, 6] or not all(np.isfinite(v["loss"])
                                         for v in val.values()):
         fail(f"pretraining: validation {val}")
-    if not evals or any(c["K1"] == 0 or c["K2"] or c["K4"] or c["K4dx"]
-                        for c in evals):
-        fail(f"pretraining: the validation eval steps launched {evals}")
+    check_evals("pretraining", evals)
     for name in ("checkpoint_3.pth", "checkpoint_6.pth",
                  "checkpoint_best.pth", "best.json"):
         if not os.path.isfile(os.path.join(run, name)):
@@ -1751,6 +1835,11 @@ def check_pretraining(torch, port, device):
                              "--resume-from",
                              os.path.join(run, "checkpoint_3.pth")],
         rsteps, revals)
+    if rsteps != [LAUNCHES_PER_STEP] * (PRETRAIN_ITERS - PRETRAIN_CKPT_EVERY):
+        fail(f"resumed run: train steps launched {rsteps}, expected "
+             f"{LAUNCHES_PER_STEP} in each of iterations "
+             f"{PRETRAIN_CKPT_EVERY + 1}-{PRETRAIN_ITERS}")
+    check_evals("resumed run", revals)
     gaps = {i: abs(resumed["losses"][i] - result["losses"][i])
             / abs(result["losses"][i]) for i in range(4, PRETRAIN_ITERS + 1)}
     if sorted(resumed["losses"]) != list(range(4, PRETRAIN_ITERS + 1)) or \
@@ -1775,7 +1864,9 @@ def check_pretraining(torch, port, device):
         fail(f"resumed final state differs by {worst:.3e} of scale")
     say("13 pretraining", f"resumed from checkpoint_3 through {PRETRAIN_ITERS}"
         f": loss gaps {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}"
-        f" (rtol {RESUME_RTOL}); final model and optimizer state: "
+        f" (rtol {RESUME_RTOL}); launches per train step {rsteps[0]} (all "
+        f"{len(rsteps)}), per eval step {revals[0]}; final model and "
+        f"optimizer state: "
         f"{equal} of {len(a)} tensors bit-equal, worst {worst:.3e} of scale "
         f"(cuDNN deterministic algorithms on, benchmark off)")
 
@@ -1784,7 +1875,7 @@ def check_pretraining(torch, port, device):
                       ["DATA.ROOT", root, "DATA.TOKENIZER_MODEL", tokenizer])
     dataset = port.PretrainingDatasetFactory.from_config(
         cfg, port.DataPlane(plane.decoder, threads=LOADER_THREADS), "train")
-    loader = port.DataLoader(dataset, images, num_workers=0, seed=SEED)
+    loader = port.DataLoader(dataset, images, background=False, seed=SEED)
     it = iter(loader)
     next(it)
     t0 = time.perf_counter()
@@ -1818,6 +1909,7 @@ def import_port():
         PretrainingModelFactory,
     )
     from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    from virtex_tpu_torch import native
     from virtex_tpu_torch.native import DataPlane, decoder_for
     from virtex_tpu_torch.modules.transformer import (
         MultiHeadAttention,

@@ -10,6 +10,8 @@ here.
 - The pixel work against cv2, at tests/test_native.py's tolerances.
 - A loader restored from its state_dict gives the same stream.
 - Two processes that build the data plane at once both load it.
+- The committed JPEG reference of chip_smoke.py's decoder check is
+  libjpeg's output; the decoder is chosen by what the machine has.
 """
 import os
 import subprocess
@@ -19,7 +21,9 @@ import time
 import cv2
 import numpy as np
 import pytest
+import torch
 
+from tests import make_torch_jpeg_reference as reference
 from tests.utils_fixtures import make_fake_coco, make_tokenizer
 from virtex_tpu.config import Config as JaxConfig
 from virtex_tpu.data.loader import DataLoader as JaxLoader
@@ -43,6 +47,7 @@ from virtex_tpu_torch.factories import PretrainingDatasetFactory
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP, BATCH, SEED = 48, 4, 3
+REFERENCE_IMAGES = list(reference.IMAGES)
 MODELS = ["bicaptioning", "masked_lm", "token_classification",
           "multilabel_classification"]
 
@@ -76,10 +81,10 @@ def test_loader_batches_equal_the_jax_loader(coco, model_name, split):
     ds = PretrainingDatasetFactory.from_config(
         Config(override_list=ov), native.DataPlane("libjpeg"), split)
     train = split == "train"
-    kw = dict(shuffle=train, num_workers=0, seed=SEED, infinite=train)
+    kw = dict(shuffle=train, seed=SEED, infinite=train)
     n = 3 if train else 2
-    ref = _batches(JaxLoader(jds, BATCH, **kw), n)
-    got = _batches(DataLoader(ds, BATCH, **kw), n)
+    ref = _batches(JaxLoader(jds, BATCH, num_workers=0, **kw), n)
+    got = _batches(DataLoader(ds, BATCH, background=False, **kw), n)
     multilabel = model_name == "multilabel_classification"
     for b_got, b_ref in zip(got, ref):
         assert sorted(b_got) == sorted(b_ref)
@@ -120,9 +125,8 @@ def test_float_images_when_the_host_normalizes(coco):
     jds = JaxDatasetFactory.from_config(JaxConfig(override_list=ov), "train")
     ds = PretrainingDatasetFactory.from_config(
         Config(override_list=ov), native.DataPlane("libjpeg"), "train")
-    kw = dict(num_workers=0, seed=SEED)
-    ref = _batches(JaxLoader(jds, BATCH, **kw), 1)[0]
-    got = _batches(DataLoader(ds, BATCH, **kw), 1)[0]
+    ref = _batches(JaxLoader(jds, BATCH, num_workers=0, seed=SEED), 1)[0]
+    got = _batches(DataLoader(ds, BATCH, background=False, seed=SEED), 1)[0]
     assert got["image"].dtype == np.float32
     np.testing.assert_array_equal(got["image"], ref["image"])
 
@@ -226,8 +230,40 @@ def test_missing_decoder_raises_and_names_it(monkeypatch, tmp_path):
         native.DataPlane("nvjpeg")
     with pytest.raises(ValueError, match="unknown decoder"):
         native.DataPlane("pil")
-    assert native.decoder_for("cuda:0") == "nvjpeg"
-    assert native.decoder_for("cpu") == "libjpeg"
+    # libjpeg wherever it is installed, beside a card too
+    assert native.decoder_for("cuda:0") == "libjpeg"
+    assert native.decoder_for(torch.device("cpu")) == "libjpeg"
+    # without it: nvJPEG for a card that has it, else an error naming both
+    monkeypatch.setattr(native.ctypes.util, "find_library", lambda name: None)
+    with pytest.raises(RuntimeError, match="libjpeg.so.*nvjpeg.h"):
+        native.decoder_for("cuda:0")
+    with pytest.raises(RuntimeError, match="missing: libjpeg.so$"):
+        native.decoder_for("cpu")
+    with pytest.raises(RuntimeError, match="libjpeg.so"):
+        native.DataPlane("libjpeg")
+    for part in ("include/nvjpeg.h", "lib64/libnvjpeg.so"):
+        (tmp_path / part).parent.mkdir(exist_ok=True)
+        (tmp_path / part).touch()
+    assert native.decoder_for("cuda") == "nvjpeg"
+    with pytest.raises(RuntimeError, match="no JPEG decoder for a run on cpu"):
+        native.decoder_for("cpu")
+
+
+@pytest.mark.parametrize("index,name", enumerate(REFERENCE_IMAGES))
+def test_libjpeg_gives_the_committed_jpeg_reference(index, name):
+    """tests/fixtures/torch_jpeg_reference.npz, against which chip_smoke.py
+    holds the card's decoder, is libjpeg's output bit for bit: each image's
+    decode, and its slot of both batch_transform outputs."""
+    ref = np.load(reference.PATH)
+    assert str(ref["names"][index]) == name
+    jpegs = [ref[f"jpeg_{i}"].tobytes() for i in range(len(ref["names"]))]
+    pixels, out_u8, out_f32 = reference.outputs(
+        native.DataPlane("libjpeg"), jpegs, ref["rects"], ref["flips"],
+        ref["jitters"])
+    np.testing.assert_array_equal(pixels[index], ref[f"pixels_{index}"])
+    np.testing.assert_array_equal(_decoded(jpegs[index]), pixels[index])
+    np.testing.assert_array_equal(out_u8[index], ref["out_uint8"][index])
+    np.testing.assert_array_equal(out_f32[index], ref["out_float32"][index])
 
 
 @pytest.mark.parametrize("names,kind", [
@@ -254,18 +290,18 @@ def test_transform_lists(names, kind):
             assert t.scale == (0.08, 1.0) and t.jitter is None
 
 
-@pytest.mark.parametrize("workers", [0, 2])
-def test_state_dict_resume_gives_the_same_stream(coco, workers):
+@pytest.mark.parametrize("background", [False, True])
+def test_state_dict_resume_gives_the_same_stream(coco, background):
     ds = PretrainingDatasetFactory.from_config(
         Config(override_list=_overrides(coco, "bicaptioning")),
         native.DataPlane("libjpeg"), "train")
-    loader = DataLoader(ds, 3, num_workers=workers, seed=SEED)
+    loader = DataLoader(ds, 3, background=background, seed=SEED)
     it = iter(loader)
     head = [next(it) for _ in range(3)]
     state = loader.state_dict()
     assert state == {"items_consumed": 9}
     tail = [next(it) for _ in range(3)]  # across the epoch boundary (8)
-    restored = DataLoader(ds, 3, num_workers=workers, seed=SEED)
+    restored = DataLoader(ds, 3, background=background, seed=SEED)
     restored.load_state_dict(state)
     again = _batches(restored, 3)
     for a, b in zip(tail, again):

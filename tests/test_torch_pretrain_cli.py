@@ -10,6 +10,7 @@ saving every 3.
 - ``--resume-from latest`` with no checkpoint starts fresh; run as
   ``python -m``.
 - ``--device cuda`` without a card raises: nothing falls back to the CPU.
+- The validation sweep equals the JAX CLI's on the same weights and data.
 """
 import os
 import subprocess
@@ -19,10 +20,16 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_parity import drawn_variables, port_model
 from tests.torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from tests.utils_fixtures import make_fake_coco, make_tokenizer
+from virtex_tpu_torch.config import Config, ModelSpec
+from virtex_tpu_torch.data.loader import DataLoader
 from virtex_tpu_torch.engine.checkpointing import read_checkpoint
-from virtex_tpu_torch.scripts.pretrain_virtex import main
+from virtex_tpu_torch.engine.evaluation import make_eval_step
+from virtex_tpu_torch.factories import PretrainingDatasetFactory
+from virtex_tpu_torch.native import DataPlane
+from virtex_tpu_torch.scripts.pretrain_virtex import main, validate
 from virtex_tpu_torch.utils.common import common_parser
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,6 +135,67 @@ def test_no_card_raises_instead_of_falling_back(data, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="one process"):
         main(common_parser().parse_args(_args(tmp_path, ov,
                                               "--num-processes", "2")))
+
+
+@pytest.mark.parametrize("batch", [4, 3])
+def test_validation_sweep_matches_the_jax_cli(data, batch):
+    """``validate`` against the JAX CLI's sweep (``scripts/pretrain_virtex.py``:
+    the mean over its val loader's batches, which drops a short one) on
+    fake COCO's 8 val images, from the same drawn weights in fp32, within
+    1e-5 relative. With batches of 4 the two are the same sum. With batches
+    of 3 the port also validates the last 2 images, so it equals the JAX
+    eval step's metrics over the JAX loader's batches with the short one
+    kept, each weighed by its images."""
+    import jax.numpy as jnp
+    from virtex_tpu.config import Config as JaxConfig
+    from virtex_tpu.data.loader import DataLoader as JaxLoader
+    from virtex_tpu.engine.train_state import TrainState
+    from virtex_tpu.engine.trainer import make_eval_step as jax_eval_step
+    from virtex_tpu.factories import OptimizerFactory
+    from virtex_tpu.factories import PretrainingDatasetFactory as JaxDatasets
+    from virtex_tpu.factories import PretrainingModelFactory as JaxModels
+
+    _, ov = data
+    ov = list(ov)
+    ov[ov.index("OPTIM.BATCH_SIZE") + 1] = str(batch)
+    jcfg, cfg = JaxConfig(CONFIG, ov), Config(CONFIG, ov)
+    jds = JaxDatasets.from_config(jcfg, split="val")
+
+    def jax_batches(drop_last):
+        return list(JaxLoader(jds, batch, shuffle=False, num_workers=0,
+                              infinite=False, drop_last=drop_last))
+
+    jm = JaxModels.from_config(jcfg)
+    variables = drawn_variables(jm, jax_batches(True)[0], seed=0,
+                                output_bias_std=1.0)
+    state = TrainState.create(variables["params"], variables["batch_stats"],
+                              OptimizerFactory.from_config(
+                                  jcfg, variables["params"]))
+    step = jax_eval_step(jm)
+
+    def jax_metrics(b):
+        return {k: float(v) for k, v in step(
+            state, {k: jnp.asarray(v) for k, v in b.items()}).items()}
+
+    cli = [jax_metrics(b) for b in jax_batches(True)]
+    cli = {k: float(np.mean([m[k] for m in cli])) for k in cli[0]}
+    sizes = [len(b["image"]) for b in jax_batches(False)]
+    kept = [jax_metrics(b) for b in jax_batches(False)]
+    weighed = {k: sum(n * m[k] for n, m in zip(sizes, kept)) / sum(sizes)
+               for k in kept[0]}
+
+    model = port_model(ModelSpec.from_config(cfg), variables)
+    ds = PretrainingDatasetFactory.from_config(cfg, DataPlane("libjpeg"),
+                                               "val")
+    got = validate(model, make_eval_step(model), lambda: DataLoader(
+        ds, batch, shuffle=False, background=False, infinite=False,
+        drop_last=False), torch.device("cpu"), cfg)
+    want = cli if batch == 4 else weighed
+    assert sizes == ([4, 4] if batch == 4 else [3, 3, 2])
+    assert set(got) == set(want) == {"loss", "captioning_forward",
+                                     "captioning_backward"}
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got, want)
 
 
 def test_cycle_rebuilds_each_epoch():

@@ -9,7 +9,7 @@ epoch's shuffle from its index, and every item's augmentation draws from
 :meth:`DataLoader.state_dict` replays the batches that an unbroken run
 would have drawn next. Each batch is fetched in one call of the dataset's
 ``get_batch`` (the data plane fans its pixel work over OpenMP threads);
-with ``num_workers`` > 0 a background thread fetches ahead of the consumer.
+with ``background`` one thread fetches ahead of the consumer.
 With ``pin_memory`` the batch arrives as page-locked torch tensors, ready
 for a ``non_blocking`` copy to the card.
 """
@@ -83,8 +83,10 @@ class DataLoader:
     Args:
         batch_size: items per batch.
         shuffle: shuffle each epoch.
-        num_workers: 0 fetches in the consumer's thread; more fetches in a
-            background thread, ``prefetch`` batches ahead.
+        background: fetch in one background thread, ``prefetch`` batches
+            ahead; else in the consumer's thread. (The JAX loader's
+            ``num_workers`` threads are the data plane's OpenMP team here:
+            :class:`~virtex_tpu_torch.native.DataPlane` ``threads``.)
         seed: the stream's seed (shuffles and augmentations).
         infinite: cycle forever, tracking the position for resume
             (pretraining); else one epoch from the start (validation).
@@ -93,13 +95,13 @@ class DataLoader:
     """
 
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True,
-                 num_workers: int = 4, seed: int = 0, prefetch: int = 2,
+                 background: bool = True, seed: int = 0, prefetch: int = 2,
                  infinite: bool = True, num_shards: int = 1,
                  shard_index: int = 0, drop_last: bool = True,
                  pin_memory: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.num_workers = max(0, num_workers)
+        self.background = background
         self.seed = seed
         self.prefetch = max(1, prefetch)
         self.infinite = infinite
@@ -145,7 +147,7 @@ class DataLoader:
             yield [next(stream) for _ in range(remainder)]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        if self.num_workers == 0:
+        if not self.background:
             for pairs in self._batch_pairs():
                 batch = self._fetch(pairs)
                 if self.infinite:

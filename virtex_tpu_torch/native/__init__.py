@@ -7,14 +7,15 @@ work so that the pixel work (``pixels.h``) is one code path whichever
 decoder feeds it. There are two decoders, each a shared library of its own
 with the same C interface:
 
-- ``libjpeg`` (``dataplane_libjpeg.cpp``, linked with ``-ljpeg``): the CPU
-  decoder, the JAX package's own, so equal bytes decode to equal pixels;
+- ``libjpeg`` (``dataplane_libjpeg.cpp``, linked with ``-ljpeg``): the
+  JAX package's decoder, so equal bytes decode to equal pixels; the decoder
+  wherever it is installed, on the CPU and beside a card alike;
 - ``nvjpeg`` (``dataplane_nvjpeg.cpp``, the CUDA toolkit's nvJPEG): decodes
   on the card and copies the pixels back for the pixel work; the decoder of
   a CUDA run on a machine without libjpeg.
 
-:func:`decoder_for` names the decoder of a device. Nothing switches
-decoders when one is missing or fails: :class:`DataPlane` raises and names
+:func:`decoder_for` chooses once, by what the machine has. Nothing switches
+decoders when the chosen one fails, and a missing decoder raises and names
 what is missing.
 
 A library is built at first use into ``build/native/`` beside the package,
@@ -26,6 +27,7 @@ runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
 import fcntl
 import hashlib
 import os
@@ -65,10 +67,24 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def decoder_for(device) -> str:
-    """The decoder of a run on ``device``: nvJPEG for a CUDA device,
-    libjpeg for the CPU."""
-    kind = device if isinstance(device, str) else device.type
-    return "nvjpeg" if kind.split(":")[0] == "cuda" else "libjpeg"
+    """The decoder of a run on ``device``: libjpeg where it is installed,
+    else nvJPEG for a CUDA device. Raises, naming what is missing, when
+    neither is there."""
+    kind = (device if isinstance(device, str) else device.type).split(":")[0]
+    missing = _missing("libjpeg")
+    if not missing:
+        return "libjpeg"
+    if kind == "cuda":
+        nv_missing = _missing("nvjpeg")
+        if not nv_missing:
+            return "nvjpeg"
+        missing += nv_missing
+    raise RuntimeError(
+        f"no JPEG decoder for a run on {kind}: libjpeg needs jpeglib.h and "
+        "libjpeg.so (Debian/Ubuntu: libjpeg-dev)"
+        + (", nvJPEG the CUDA toolkit's nvjpeg.h and libnvjpeg.so (set "
+           "CUDA_HOME)" if kind == "cuda" else "")
+        + f"; missing: {', '.join(missing)}")
 
 
 def _cuda_home() -> Path:
@@ -85,25 +101,35 @@ def _build_command(decoder: str, src: Path, out: str) -> list:
                   f"-Wl,-rpath,{lib}", "-lnvjpeg", "-lcudart"]
 
 
+def _missing(decoder: str) -> list:
+    """What ``decoder`` needs and this machine lacks: header and library
+    names, empty when it has both."""
+    if decoder == "libjpeg":
+        missing = [] if any(Path(d, "jpeglib.h").exists()
+                            for d in ("/usr/include", "/usr/local/include")) \
+            else ["jpeglib.h"]
+        return missing + ([] if ctypes.util.find_library("jpeg")
+                          else ["libjpeg.so"])
+    home = _cuda_home()
+    return [str(p) for p in (home / "include" / "nvjpeg.h",
+                             home / "lib64" / "libnvjpeg.so")
+            if not p.exists()]
+
+
 def _require(decoder: str) -> None:
     """Raise, naming what is missing, when ``decoder``'s library or header
     is not on this machine."""
-    if decoder == "libjpeg":
-        if not any(Path(d, "jpeglib.h").exists()
-                   for d in ("/usr/include", "/usr/local/include")):
-            raise RuntimeError(
-                "the libjpeg decoder needs libjpeg's header and library "
-                "(jpeglib.h, libjpeg.so; Debian/Ubuntu: libjpeg-dev), and "
-                "this machine has no jpeglib.h")
+    missing = _missing(decoder)
+    if not missing:
         return
-    home = _cuda_home()
-    missing = [str(p) for p in (home / "include" / "nvjpeg.h",
-                                home / "lib64" / "libnvjpeg.so")
-               if not p.exists()]
-    if missing:
+    if decoder == "libjpeg":
         raise RuntimeError(
-            "the nvjpeg decoder needs the CUDA toolkit's nvJPEG (set "
-            f"CUDA_HOME); missing: {', '.join(missing)}")
+            "the libjpeg decoder needs libjpeg's header and library "
+            "(jpeglib.h, libjpeg.so; Debian/Ubuntu: libjpeg-dev); missing: "
+            f"{', '.join(missing)}")
+    raise RuntimeError(
+        "the nvjpeg decoder needs the CUDA toolkit's nvJPEG (set "
+        f"CUDA_HOME); missing: {', '.join(missing)}")
 
 
 def library_path(decoder: str) -> Path:

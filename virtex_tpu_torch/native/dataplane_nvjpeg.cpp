@@ -107,7 +107,7 @@ bool reserve(ThreadState* t, size_t bytes) {
 }
 
 bool image_info(nvjpegHandle_t h, const uint8_t* buf, size_t len, int* height,
-                int* width) {
+                int* width, bool* gray = nullptr) {
   int n_comp = 0;
   nvjpegChromaSubsampling_t css;
   int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
@@ -116,24 +116,33 @@ bool image_info(nvjpegHandle_t h, const uint8_t* buf, size_t len, int* height,
   if (s != NVJPEG_STATUS_SUCCESS) return false;
   *width = widths[0];
   *height = heights[0];
+  if (gray != nullptr) *gray = n_comp == 1;
   return true;
 }
 
-// Decode a JPEG buffer to RGB8 HWC on the host.
+// Decode a JPEG buffer to RGB8 HWC on the host. A one-component (grayscale)
+// JPEG is decoded as its Y plane and copied to all three channels, as
+// libjpeg's JCS_RGB output gives it.
 bool decode_rgb(const uint8_t* buf, size_t len, std::vector<uint8_t>* out,
                 int* height, int* width) {
   nvjpegHandle_t h = handle();
   if (h == nullptr) return false;
   ThreadState* t = thread_state(h);
-  if (t == nullptr || !image_info(h, buf, len, height, width)) return false;
-  const size_t bytes = size_t(*width) * *height * 3;
+  bool gray = false;
+  if (t == nullptr || !image_info(h, buf, len, height, width, &gray)) {
+    return false;
+  }
+  const size_t pixels = size_t(*width) * *height;
+  const size_t bytes = pixels * (gray ? 1 : 3);
   if (!reserve(t, bytes)) return false;
   nvjpegImage_t dst;
   std::memset(&dst, 0, sizeof(dst));
   dst.channel[0] = t->dev;
-  dst.pitch[0] = size_t(*width) * 3;
-  nvjpegStatus_t s = nvjpegDecode(h, t->state, buf, len, NVJPEG_OUTPUT_RGBI,
-                                  &dst, t->stream);
+  dst.pitch[0] = size_t(*width) * (gray ? 1 : 3);
+  nvjpegStatus_t s =
+      nvjpegDecode(h, t->state, buf, len,
+                   gray ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_RGBI, &dst,
+                   t->stream);
   if (s != NVJPEG_STATUS_SUCCESS) {
     record("nvjpegDecode", s);
     return false;
@@ -145,7 +154,15 @@ bool decode_rgb(const uint8_t* buf, size_t len, std::vector<uint8_t>* out,
     record("cudaMemcpyAsync", e);
     return false;
   }
-  out->assign(t->host, t->host + bytes);
+  if (!gray) {
+    out->assign(t->host, t->host + bytes);
+    return true;
+  }
+  out->resize(pixels * 3);
+  uint8_t* rgb = out->data();
+  for (size_t i = 0; i < pixels; ++i) {
+    rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = t->host[i];
+  }
   return true;
 }
 

@@ -11,8 +11,8 @@ the data stream and the iteration, and the run goes on as an unbroken run
 would (dropout seeded per iteration, ``engine/train_state.py``).
 
 It trains on the card unless ``--device cpu`` is passed, and does not fall
-back to the CPU when there is no card. Images are decoded by nvJPEG on the
-card and by libjpeg on the CPU (``virtex_tpu_torch/native``).
+back to the CPU when there is no card. Images are decoded by libjpeg where
+it is installed, else on the card by nvJPEG (``virtex_tpu_torch/native``).
 
     python -m virtex_tpu_torch.scripts.pretrain_virtex \
         --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
@@ -73,15 +73,18 @@ def log_val_predictions(model, batch, _C, k: int = 3) -> None:
 
 
 def validate(model, eval_step, loader_factory, device, _C) -> Dict[str, float]:
-    """The mean of each eval metric over one pass of the validation
-    split."""
+    """Each eval metric over one pass of the validation split: the batches'
+    values weighed by their images. With batches of one size this is the
+    reference's mean over batches; a short last batch, which the reference
+    drops, counts for its images only."""
     sums: Dict[str, float] = {}
     n = 0
     for i, host_batch in enumerate(loader_factory()):
         batch = to_device(host_batch, device, 1)
+        size = int(batch["image"].shape[0])
         for key, v in eval_step(batch).items():
-            sums[key] = sums.get(key, 0.0) + float(v)
-        n += 1
+            sums[key] = sums.get(key, 0.0) + float(v) * size
+        n += size
         if i == 0:
             log_val_predictions(model, batch, _C)
     return {k: v / n for k, v in sums.items()}
@@ -104,13 +107,13 @@ def main(_A) -> Dict[str, Any]:
     val_dataset = PretrainingDatasetFactory.from_config(_C, plane, "val")
     pin = device.type == "cuda"
     train_loader = DataLoader(
-        train_dataset, batch_size, shuffle=True, num_workers=_A.cpu_workers,
-        seed=_C.RANDOM_SEED, prefetch=_C.DATA.PREFETCH, infinite=True,
-        pin_memory=pin)
-    # A short last batch is kept: the whole split is validated.
+        train_dataset, batch_size, shuffle=True, seed=_C.RANDOM_SEED,
+        prefetch=_C.DATA.PREFETCH, infinite=True, pin_memory=pin)
+    # A short last batch is kept, so the whole split is validated (the
+    # reference drops it); validate() weighs each batch by its images.
     val_loader_factory = lambda: DataLoader(  # noqa: E731
-        val_dataset, batch_size, shuffle=False, num_workers=_A.cpu_workers,
-        infinite=False, drop_last=False, pin_memory=pin)
+        val_dataset, batch_size, shuffle=False, infinite=False,
+        drop_last=False, pin_memory=pin)
 
     # ---------------------------------------------------------------- model
     torch.manual_seed(_C.RANDOM_SEED)

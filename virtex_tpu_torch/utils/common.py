@@ -32,8 +32,10 @@ def common_parser(description: str = "") -> argparse.ArgumentParser:
     parser.add_argument("--serialization-dir", default="/tmp/virtex_tpu_run",
                         help="Directory for checkpoints, logs, config dump.")
     parser.add_argument("--cpu-workers", type=int, default=4,
-                        help="Host threads of the data plane; 0 loads in "
-                             "the training thread.")
+                        help="Threads of the data plane's OpenMP team, "
+                             "which decodes and transforms each batch (0: "
+                             "one per host core). The loader fetches in "
+                             "one background thread either way.")
     parser.add_argument("--checkpoint-every", type=int, default=2000)
     parser.add_argument("--log-every", type=int, default=20)
     parser.add_argument("--resume-from", default=None,
