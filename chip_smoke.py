@@ -30,7 +30,9 @@ prints no result, when there is no card or when any phase fails:
    versions at the 12 ResNet-50 BatchNorm shapes at batch 128 in bf16 (the
    vector variants), with an NCHW-contiguous dy, an odd M, a C of 60 (the
    scalar variants), and the fp32 and both mixed-dtype instantiations; two
-   launches of each give equal bits.
+   launches of each give equal bits. Both stages also at batch 256 (the
+   fine-tune's one micro-step) at its largest and smallest shapes,
+   112×112×64 and 7×7×2048.
 6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
    bf16 (built by ``PretrainingModelFactory.from_spec`` on the card, its
    default; weights from a numpy seed), batch 32 of captions of varied
@@ -91,14 +93,40 @@ prints no result, when there is no card or when any phase fails:
     and optimizer state equal the unbroken run's (RESUME_RTOL; cuDNN's
     deterministic algorithms on); the loader's images/s alone and the
     CLI's ms per iteration.
+14. eval_captioning (``python -m virtex_tpu_torch.scripts.eval_captioning``)
+    on phase 13's last checkpoint over the synthetic val split, with
+    ``--calc-metrics --output``, by beam search and by nucleus sampling:
+    one prediction per val image, captions that decode, the metrics'
+    keys, CIDEr (the port's PTB tokenizer and CIDEr-D) finite in [0, 1000],
+    no kernel launched; then ``--images`` on a directory of JPEGs (string
+    ids). The first 4 val images' beam tokens on the card, in fp32 and in
+    bf16, against a CPU fp32 run of the same checkpoint: equal, or a near
+    tie (beam scores within BEAM_SCORE_RTOL). Host ms per batch of 32.
+15. the binary SentencePiece reader on this machine: the committed
+    ``tests/fixtures/torch_sp_bpe.model`` encodes and decodes equal to its
+    golden, importing no ``transformers``, protobuf or sentencepiece.
+16. clf_linear (``python -m virtex_tpu_torch.scripts.clf_linear``) with
+    ``--weight-init virtex`` from phase 13, on synthetic ImageNet and
+    iNaturalist trees (512 train and 128 val JPEGs each, 500x375 and
+    375x500), 4 iterations of 256, checkpoints every 2: the linear probe
+    (``configs/downstream/imagenet_clf.yaml``) launches no K4 and leaves
+    the backbone bit-unchanged; the fine-tune (``inaturalist_clf.yaml``,
+    ResNet-50 at 224², bf16, one micro-step of 256) launches exactly 53 +
+    53 K4 per step, all in the vector variants, its first step within
+    LOSS_RTOL of a copy whose BatchNorm backward runs the plain versions;
+    finite losses, top-1 in [0, 100] on the last line, checkpoints and
+    ``best.json``. Host ms per step alone and per CLI iteration, one
+    fine-tune step under ``torch.profiler``, K4 timed at batch 256.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -191,6 +219,12 @@ L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
 R50_BN_SHAPES = [(112, 64), (56, 64), (56, 256), (56, 128), (28, 128),
                  (28, 512), (28, 256), (14, 256), (14, 1024), (14, 512),
                  (7, 512), (7, 2048)]
+# clf_linear's fine-tune (configs/downstream/inaturalist_clf.yaml): batch
+# 256 in one micro-step, so every BatchNorm's M is twice the train step's.
+# K4 is held to its plain versions (phase 5) and timed (phase 16) at the
+# largest and the smallest of its shapes there.
+FINETUNE_BATCH = 256
+FINETUNE_K4_SHAPES = [(112, 64), (7, 2048)]
 
 
 def fail(msg: str) -> None:
@@ -574,7 +608,9 @@ K4_CASES = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last",
      "float32"),
     ("fp32 dy bf16 x 32x56x56x64", 32, 56, 64, "channels_last", "float32",
      "bfloat16"),
-]
+] + [(f"B{FINETUNE_BATCH} {hw}x{hw}x{C}", FINETUNE_BATCH, hw, C,
+      "channels_last", "bfloat16", "bfloat16")
+     for hw, C in FINETUNE_K4_SHAPES]
 
 
 def bn_counts(BN):
@@ -635,7 +671,7 @@ def check_k4(torch, BN, device):
             if not torch.equal(dx, BN.bn_backward_dx(cl, x, mean, rstd,
                                                      weight, ref)):
                 fail("K4 dx: an NCHW dy and its channels_last copy differ")
-        elif B == TRAIN_BATCH:
+        elif B in (TRAIN_BATCH, FINETUNE_BATCH):
             sums_err = max(sums_err, float((out - ref).abs().max()))
             dx_err = max(dx_err, float((dx.float() - dx_ref.float()).abs()
                                        .max()))
@@ -904,9 +940,10 @@ def rotating(fn, sets):
     return lambda: fn(*next(turn))
 
 
-def time_bn(torch, BN, device):
+def time_bn(torch, BN, device, batch=TRAIN_BATCH, shapes=R50_BN_SHAPES):
     """K4's stage 1, its stage 2 (dx) and the whole BatchNorm backward (the
-    two in turn) at the 12 ResNet-50 shapes, bf16, batch 128, each beside
+    two in turn) at ``shapes`` (the 12 ResNet-50 shapes), bf16, ``batch``
+    (the train step's 128), each beside
     its plain version and its library call: for stage 1
     ``torch.batch_norm_backward_reduce`` (the same sums but Σ dy·(x − μ)
     without the rstd factor), for dx ``torch.batch_norm_backward_elemt`` on
@@ -919,13 +956,12 @@ def time_bn(torch, BN, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     times = {}
-    for hw, C in R50_BN_SHAPES:
-        M = TRAIN_BATCH * hw * hw
+    for hw, C in shapes:
+        M = batch * hw * hw
         count = torch.full((1,), M, dtype=torch.int32, device=device)
         sets = []
         while not sets or len(sets) * nbytes(*sets[0][:2]) < 2 * L2_BYTES:
-            dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device,
-                                          gen)
+            dy, x, mean, rstd = bn_inputs(torch, batch, hw, C, device, gen)
             weight = torch.rand(C, generator=gen, device=device) + 0.5
             sums = BN.bn_backward_sums(dy, x, mean, rstd)
             sets.append((dy, x, mean, rstd, weight, sums, sums[1] / rstd))
@@ -1519,6 +1555,8 @@ JPEG_REFERENCE = os.path.join("tests", "fixtures",
 REFERENCE_LUMA_TOL = 1.0
 REFERENCE_RGB_TOL = 4.0
 REFERENCE_BATCH_TOL = 3.0
+# Where phases 13-16 write their data and runs; removed at the end.
+WORK = os.path.join(REPO, "build", "phase13")
 # Each validation eval step: self- and cross-attention in both directions.
 EVAL_LAUNCHES = {"K1": 4, "K2": 0, "K4": 0, "K4dx": 0}
 # Resumed against unbroken run, steps 4-6: losses relative, and every
@@ -1759,7 +1797,9 @@ def check_evals(run: str, evals: list) -> None:
 
 
 def check_pretraining(torch, port, device):
-    """Phase 13. Returns its launches and the lines of numbers it prints."""
+    """Phase 13. Returns its launches, and the run directory, the COCO root
+    and the tokenizer JSON that phases 14 and 16 read (under WORK, which
+    main removes)."""
     probe = probe_decoders()
     plane = port.DataPlane(port.decoder_for(device))
     decode_err = check_decoder(torch, plane, device)
@@ -1775,7 +1815,7 @@ def check_pretraining(torch, port, device):
         + f"; batch_transform mean |Δ| uint8 with jitter {batch_errs[0]:.3f}"
         f", float32 {batch_errs[1]:.3f} (<= {REFERENCE_BATCH_TOL})")
 
-    work = os.path.join(REPO, "build", "phase13")
+    work = WORK
     shutil.rmtree(work, ignore_errors=True)
     root = os.path.join(work, "coco")
     t0 = time.perf_counter()
@@ -1891,8 +1931,459 @@ def check_pretraining(torch, port, device):
         f"{PRETRAIN_ITERS}, each ending in a sync): "
         f"{', '.join(f'{1e3 * s:.1f}' for s in seconds)}; median "
         f"{step_ms:.1f} ms = {images / step_ms * 1e3:.1f} images/s")
-    shutil.rmtree(work)
-    return launches
+    return launches, run, root, tokenizer
+
+
+# -- phases 14-16 ------------------------------------------------------------
+NO_LAUNCHES = {"K1": 0, "K2": 0, "K4": 0, "K4dx": 0}
+# eval_captioning's batch (its --batch-size default), and the first val
+# images whose beam captions on the card are held to a CPU fp32 run.
+CAPTION_BATCH, CPU_CAPTION_IMAGES = 32, 4
+# A caption on the card that differs from the CPU fp32 one must be a near
+# tie: its beam score (the summed log-probability the search maximises)
+# within this relative gap of the CPU's, by the card's own model. fp32
+# differs from the CPU by the order of its sums; bf16 by its roundings.
+BEAM_SCORE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
+DIRECTORY_IMAGES = 6
+SP_MODEL = os.path.join("tests", "fixtures", "torch_sp_bpe.model")
+SP_GOLDEN = os.path.join("tests", "fixtures", "torch_sp_bpe_golden.json")
+# Phase 16's synthetic transfer sets: ImageNet's usual sizes (H, W), 8
+# wnids; iNaturalist labels drawn from its 8142 classes.
+DOWN_SIZES = ((375, 500), (500, 375))
+DOWN_TRAIN, DOWN_VAL, DOWN_WNIDS, INAT_CLASSES = 512, 128, 8, 8142
+CLF_ITERS, CLF_CKPT_EVERY = 4, 2
+DOWN_CONFIGS = {"probe": os.path.join("configs", "downstream",
+                                      "imagenet_clf.yaml"),
+                "finetune": os.path.join("configs", "downstream",
+                                         "inaturalist_clf.yaml")}
+# Each train step of the fine-tune: ResNet-50's 53 BatchNorm layers in one
+# micro-step; the probe's frozen backbone runs none.
+CLF_LAUNCHES = {"probe": NO_LAUNCHES,
+                "finetune": {"K1": 0, "K2": 0, "K4": 53, "K4dx": 53}}
+CLF_TIMED_STEPS = 3
+
+
+def run_cli(module, args: list, log_path: str):
+    """``module.main`` on ``args``, its standard output (the logs and what
+    it prints) written to ``log_path``; returns the result and the last
+    line it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = module.main(module.build_parser().parse_args(args))
+    with open(log_path, "w") as f:
+        f.write(out.getvalue())
+    lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+    return result, lines[-1] if lines else ""
+
+
+def caption_tokens(torch, port, spec, ckpt, images, device):
+    """Beam-search tokens and scores of ``images`` by the model of
+    ``spec`` on ``device`` with the checkpoint's weights."""
+    model = port.PretrainingModelFactory.from_spec(spec, device)
+    port.load_model_variables(ckpt, model)
+    decoder = port.CaptionDecoderFactory.from_spec(spec)
+    found = {}
+    search = decoder.search
+
+    def recording(*a, **k):
+        found["out"] = search(*a, **k)
+        return found["out"]
+    decoder.search = recording
+    fn = port.make_caption_fn(model, decoder, spec.sos_index,
+                              spec.prefix_mode)
+    fn(images.to(device))
+    tokens, scores = found["out"]
+    return tokens.cpu(), scores.float().cpu()
+
+
+def check_eval_captioning(torch, port, device, run, root, tokenizer):
+    """Phase 14."""
+    ckpt = os.path.join(run, f"checkpoint_{PRETRAIN_ITERS}.pth")
+    with open(os.path.join(root, "annotations",
+                           "captions_val2017.json")) as f:
+        val_ids = sorted(im["id"] for im in json.load(f)["images"])
+    base = ["--config", os.path.join(REPO, PRETRAIN_CONFIG),
+            "--checkpoint-path", ckpt, "--device", str(device),
+            "--batch-size", str(CAPTION_BATCH), "--calc-metrics"]
+    over = ["--config-override", "DATA.ROOT", root, "DATA.TOKENIZER_MODEL",
+            tokenizer]
+    runs = {}
+    for name, extra in (("beam", []),
+                        ("nucleus", ["MODEL.DECODER.NAME",
+                                     "nucleus_sampling"])):
+        out_dir = os.path.join(WORK, f"eval_{name}")
+        out_json = os.path.join(out_dir, "predictions.json")
+        reset_counts(port.A, port.BN)   # a main path starts here
+        result, last = run_cli(port.eval_captioning, base + [
+            "--serialization-dir", out_dir, "--output", out_json] + over
+            + extra, os.path.join(WORK, f"eval_{name}.log"))
+        torch.cuda.synchronize()
+        counts = launch_counts(port.A, port.BN)  # ... and ends here
+        if counts != NO_LAUNCHES:
+            fail(f"eval_captioning ({name}) launched {counts}; its decode "
+                 "path runs no kernel")
+        preds = result["predictions"]
+        with open(out_json) as f:
+            if json.load(f) != preds:
+                fail(f"eval_captioning ({name}): --output differs from the "
+                     "predictions")
+        if sorted(p["image_id"] for p in preds) != val_ids:
+            fail(f"eval_captioning ({name}): {len(preds)} predictions for "
+                 f"{len(val_ids)} val images")
+        if not all(isinstance(p["caption"], str) for p in preds) or not \
+                any(p["caption"] for p in preds):
+            fail(f"eval_captioning ({name}): captions {preds[:3]}")
+        metrics = json.loads(last)
+        if set(metrics) != {"CIDEr", "SPICE"} or metrics != result[
+                "metrics"] or not (np.isfinite(metrics["CIDEr"])
+                                   and 0.0 <= metrics["CIDEr"] <= 1000.0):
+            fail(f"eval_captioning ({name}): last line {last!r}")
+        runs[name] = result
+
+    # --images: a directory of JPEGs, captioned with string ids.
+    directory = os.path.join(WORK, "images")
+    os.makedirs(directory, exist_ok=True)
+    files = sorted(os.listdir(os.path.join(root, "val2017")))
+    stems = [f"photo_{i}" for i in range(DIRECTORY_IMAGES)]
+    for stem, name in zip(stems, files):
+        shutil.copyfile(os.path.join(root, "val2017", name),
+                        os.path.join(directory, f"{stem}.jpg"))
+    reset_counts(port.A, port.BN)   # a main path starts here
+    result, _ = run_cli(port.eval_captioning, base[:-1] + [
+        "--serialization-dir", os.path.join(WORK, "eval_images"),
+        "--images", directory] + over, os.path.join(WORK, "eval_images.log"))
+    torch.cuda.synchronize()
+    if launch_counts(port.A, port.BN) != NO_LAUNCHES:  # ... and ends here
+        fail("eval_captioning --images launched a kernel")
+    ids = [p["image_id"] for p in result["predictions"]]
+    if ids != stems:
+        fail(f"eval_captioning --images: ids {ids}, expected {stems}")
+
+    # The first val images: the card's beams against a CPU fp32 run.
+    cfg = port.Config(os.path.join(REPO, PRETRAIN_CONFIG),
+                      ["DATA.ROOT", root, "DATA.TOKENIZER_MODEL", tokenizer])
+    spec = port.ModelSpec.from_config(cfg)
+    spec32 = dataclasses.replace(spec, dtype="float32")
+    plane = port.DataPlane(port.decoder_for(device))
+    dataset = port.PretrainingDatasetFactory.from_config(cfg, plane, "val")
+    host = dataset.collate_fn(dataset.get_batch(
+        list(range(CPU_CAPTION_IMAGES)),
+        [np.random.RandomState(i) for i in range(CPU_CAPTION_IMAGES)]))
+    images = torch.from_numpy(host["image"])
+    cpu_tokens, cpu_scores = caption_tokens(torch, port, spec32, ckpt,
+                                            images, "cpu")
+    tok = port.TokenizerFactory.from_config(cfg)
+    cpu_captions = port.decode_predictions(cpu_tokens, tok, spec.eos_index)
+    holds = {}
+    for label, s in (("float32", spec32), ("bfloat16", spec)):
+        tokens, scores = caption_tokens(torch, port, s, ckpt, images, device)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(tokens, cpu_tokens)]
+        gaps = [0.0 if e else float(abs(scores[i] - cpu_scores[i])
+                                    / abs(cpu_scores[i]))
+                for i, e in enumerate(equal)]
+        if max(gaps) > BEAM_SCORE_RTOL[label]:
+            fail(f"beam captions on the card ({label}) against the CPU "
+                 f"fp32 run: equal {equal}, score gaps {gaps} > "
+                 f"{BEAM_SCORE_RTOL[label]}; card "
+                 f"{port.decode_predictions(tokens, tok, spec.eos_index)}, "
+                 f"CPU {cpu_captions}")
+        holds[label] = (sum(equal), max(gaps))
+    cli_first = [p["caption"] for p in runs["beam"]["predictions"][
+        :CPU_CAPTION_IMAGES]]
+    cli_equal = sum(a == b for a, b in zip(cli_first, cpu_captions))
+
+    card = card_line()
+    beam, nucleus = runs["beam"], runs["nucleus"]
+    say("14 eval_captioning", f"python -m virtex_tpu_torch.scripts."
+        f"eval_captioning on checkpoint_{PRETRAIN_ITERS} of phase 13, "
+        f"{len(val_ids)} val images, batch {CAPTION_BATCH}: beam "
+        f"{json.dumps(beam['metrics'])}, nucleus "
+        f"{json.dumps(nucleus['metrics'])} (port PTB tokenizer and CIDEr-D; "
+        f"SPICE 0.0: no java/jar); one prediction per val image in both; "
+        f"--images on {DIRECTORY_IMAGES} JPEGs gave string ids {ids[:2]}...; "
+        f"no kernel launched (decode runs plain attention); first beam "
+        f"captions {json.dumps(cli_first[:2])}")
+    say("14 eval_captioning", f"first {CPU_CAPTION_IMAGES} val images, beam "
+        f"tokens against a CPU fp32 run: card fp32 equal in "
+        f"{holds['float32'][0]}/{CPU_CAPTION_IMAGES} (score gap of the "
+        f"others {holds['float32'][1]:.2e} <= "
+        f"{BEAM_SCORE_RTOL['float32']}), card bf16 equal in "
+        f"{holds['bfloat16'][0]}/{CPU_CAPTION_IMAGES} (score gap "
+        f"{holds['bfloat16'][1]:.2e} <= {BEAM_SCORE_RTOL['bfloat16']}); "
+        f"the CLI's bf16 captions equal the CPU's in {cli_equal}/"
+        f"{CPU_CAPTION_IMAGES}")
+    per_batch = {name: ", ".join(f"{1e3 * t:.1f}" for t in r["seconds"])
+                 for name, r in runs.items()}
+    say("14 eval_captioning", f"{card} | eval_captioning host ms per batch "
+        f"of {CAPTION_BATCH} (copy in, encode, decode, captions out), each "
+        f"batch in order: beam {per_batch['beam']}; nucleus "
+        f"{per_batch['nucleus']}")
+
+
+def check_sp_model(port) -> None:
+    """Phase 15: the committed binary SentencePiece fixture, read by the
+    port on this machine, gives the JAX reader's golden ids and decodes."""
+    import importlib.util
+
+    def present(name):
+        try:
+            return importlib.util.find_spec(name) is not None
+        except ModuleNotFoundError:
+            return False
+    have = {m: present(m) for m in ("transformers", "google.protobuf",
+                                    "sentencepiece")}
+    before = set(sys.modules)
+    tok = port.SentencePieceBPETokenizer(os.path.join(REPO, SP_MODEL))
+    with open(os.path.join(REPO, SP_GOLDEN), encoding="utf-8") as f:
+        golden = json.load(f)
+    bad = [c["text"] for c in golden["cases"]
+           if tok.encode(c["text"]) != c["ids"]
+           or tok.decode(c["ids"]) != c["decoded"]]
+    if bad or tok.get_vocab_size() != golden["vocab_size"]:
+        fail(f"{SP_MODEL}: {len(bad)} of {len(golden['cases'])} captions "
+             f"differ from {SP_GOLDEN} (e.g. {bad[:3]}), vocabulary "
+             f"{tok.get_vocab_size()} vs {golden['vocab_size']}")
+    loaded = sorted(m for m in set(sys.modules) - before
+                    if m.split(".")[0] in ("transformers", "sentencepiece")
+                    or m.startswith("google.protobuf"))
+    if loaded:
+        fail(f"reading {SP_MODEL} imported {loaded}")
+    say("15 sentencepiece", f"{SP_MODEL} ({tok.get_vocab_size()} pieces) "
+        f"read by the port: {len(golden['cases'])} captions encode and "
+        f"decode equal to {SP_GOLDEN}; installed here: "
+        + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items())
+        + "; none imported")
+
+
+def write_transfer_sets(torch, plane, device):
+    """An ImageNet folder tree and an iNaturalist json tree, each with
+    DOWN_TRAIN train and DOWN_VAL val JPEGs at ImageNet's sizes. Returns
+    their roots."""
+    rng = np.random.RandomState(SEED + 16)
+    imagenet = os.path.join(WORK, "imagenet")
+    inat = os.path.join(WORK, "inaturalist")
+
+    def write(path, i):
+        h, w = DOWN_SIZES[i % 2]
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(plane.encode_jpeg(synth_image(torch, rng, h, w, device),
+                                      JPEG_QUALITY))
+
+    for split, n in (("train", DOWN_TRAIN), ("val", DOWN_VAL)):
+        for i in range(n):
+            write(os.path.join(imagenet, split, f"n{i % DOWN_WNIDS:08d}",
+                               f"{split}_{i:05d}.JPEG"), i)
+        images, annotations = [], []
+        for i in range(n):
+            name = f"{split}/{i:05d}.jpg"
+            write(os.path.join(inat, name), i)
+            images.append({"id": i + 1, "file_name": name})
+            annotations.append({"image_id": i + 1, "category_id":
+                                int(rng.randint(INAT_CLASSES))})
+        os.makedirs(os.path.join(inat, "annotations"), exist_ok=True)
+        with open(os.path.join(inat, "annotations", f"{split}2018.json"),
+                  "w") as f:
+            json.dump({"images": images, "annotations": annotations}, f)
+    return imagenet, inat
+
+
+def run_clf(torch, port, name, args, first_step):
+    """``clf_linear.main`` on ``args``, recording each train step's
+    launches and device-synced ms. With ``first_step`` (a dict), the first
+    step is also taken by a copy of the model and optimizer whose BatchNorm
+    backward calls the plain versions, and both steps' metrics are stored
+    there. Returns the CLI's result, its last line, the per-step records,
+    and the train step and the last batch for timing afterwards."""
+    cli, A, BN = port.clf_linear, port.A, port.BN
+    make = cli.make_train_step
+    steps, kept = [], {}
+
+    def factory(model, optimizer, *a, **k):
+        step = make(model, optimizer, *a, **k)
+
+        def wrapped(batch):
+            plain_step = None
+            if first_step is not None and not steps:
+                twin, twin_opt = copy.deepcopy((model, optimizer))
+                for m in twin.modules():
+                    if isinstance(m, port.SubsampledBatchNorm):
+                        m.sums_fn = BN.bn_backward_sums_reference
+                        m.dx_fn = BN.bn_backward_dx_reference
+                plain_step = make(twin, twin_opt)
+            before = launch_counts(A, BN)
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts(A, BN)
+            steps.append({**{key: after[key] - before[key] for key in after},
+                          "ms": ms})
+            if plain_step is not None:
+                first_step["kernels"] = {key: float(v)
+                                         for key, v in out.items()}
+                first_step["plain"] = {key: float(v) for key, v in
+                                       plain_step(batch).items()}
+            kept.update(step=step, batch=batch)
+            return out
+        return wrapped
+
+    cli.make_train_step = factory
+    try:
+        result, last = run_cli(cli, args,
+                               os.path.join(WORK, f"clf_{name}.log"))
+    finally:
+        cli.make_train_step = make
+    return result, last, steps, kept
+
+
+def check_clf_linear(torch, port, device, run, flagship_step_ms):
+    """Phase 16. Returns the fine-tune's launches."""
+    plane = port.DataPlane(port.decoder_for(device))
+    t0 = time.perf_counter()
+    imagenet, inat = write_transfer_sets(torch, plane, device)
+    say("16 clf_linear", f"wrote {DOWN_TRAIN} train and {DOWN_VAL} val JPEGs "
+        f"({DOWN_SIZES[0][1]}x{DOWN_SIZES[0][0]} and "
+        f"{DOWN_SIZES[1][1]}x{DOWN_SIZES[1][0]}) into an ImageNet tree "
+        f"({DOWN_WNIDS} wnids) and an iNaturalist json tree in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(run, f"checkpoint_{PRETRAIN_ITERS}.pth")
+    pretrained = port.read_checkpoint(ckpt)["model"]
+    # --weight-init random keeps a fresh backbone as it is (virtex runs in
+    # both CLI runs below).
+    fresh = port.VisualBackboneFactory.create("torchvision::resnet50").to(
+        device)
+    drawn = {k: v.clone() for k, v in fresh.state_dict().items()}
+    port.apply_backbone_weight_init(fresh, "random", None)
+    if any(not torch.equal(v, drawn[k]) for k, v in
+           fresh.state_dict().items()):
+        fail("apply_backbone_weight_init(random) changed the backbone")
+    del fresh, drawn
+    out = {}
+    for name, root in (("probe", imagenet), ("finetune", inat)):
+        serial = os.path.join(WORK, f"clf_{name}")
+        args = ["--down-config", os.path.join(REPO, DOWN_CONFIGS[name]),
+                "--weight-init", "virtex", "--checkpoint-path", ckpt,
+                "--serialization-dir", serial, "--device", str(device),
+                "--checkpoint-every", str(CLF_CKPT_EVERY), "--log-every",
+                "1", "--down-config-override", "DATA.ROOT", root,
+                "OPTIM.NUM_ITERATIONS", str(CLF_ITERS)]
+        first = {} if name == "finetune" else None
+        reset_counts(port.A, port.BN)   # a main path starts here
+        result, last, steps, kept = run_clf(torch, port, name, args, first)
+        torch.cuda.synchronize()
+        launches = launch_counts(port.A, port.BN)  # ... and ends here
+        want = CLF_LAUNCHES[name]
+        if len(steps) != CLF_ITERS or any(
+                {k: c[k] for k in want} != want for c in steps):
+            fail(f"clf_linear {name}: train steps launched {steps}, "
+                 f"expected {want} in each of {CLF_ITERS}")
+        if launches != {k: CLF_ITERS * v for k, v in want.items()}:
+            fail(f"clf_linear {name}: the run launched {launches}")
+        losses = [result["losses"][i] for i in range(1, CLF_ITERS + 1)]
+        metric = json.loads(last)
+        dataset = "imagenet" if name == "probe" else "inaturalist"
+        if not all(np.isfinite(losses)) or set(metric) != {
+                "metric", "value"} or metric["metric"] != \
+                f"{dataset}_top1" or not 0.0 <= metric["value"] <= 100.0:
+            fail(f"clf_linear {name}: losses {losses}, last line {last!r}")
+        for f in (f"checkpoint_{CLF_CKPT_EVERY}.pth",
+                  f"checkpoint_{CLF_ITERS}.pth", "checkpoint_best.pth",
+                  "best.json"):
+            if not os.path.isfile(os.path.join(serial, f)):
+                fail(f"clf_linear {name}: {f} is missing")
+        saved = port.read_checkpoint(os.path.join(
+            serial, f"checkpoint_{CLF_ITERS}.pth"))["model"]
+        visual = {k: v for k, v in saved.items() if k.startswith("visual.")}
+        unchanged = sum(torch.equal(v, pretrained[k])
+                        for k, v in visual.items())
+        if name == "probe" and unchanged != len(visual):
+            fail(f"linear probe: {len(visual) - unchanged} of {len(visual)} "
+                 "backbone tensors changed")
+        if name == "finetune":
+            ref = first["plain"]
+            gaps = {k: abs(first["kernels"][k] - ref[k]) / abs(ref[k])
+                    for k in ("loss", "grad_norm")}
+            if not all(g <= LOSS_RTOL for g in gaps.values()):
+                fail(f"fine-tune first step: kernels {first['kernels']}, "
+                     f"plain BatchNorm {ref} (rtol {LOSS_RTOL})")
+        # The step alone on the last batch, then one step profiled.
+        step_ms = host_ms(torch, lambda: kept["step"](kept["batch"]),
+                          CLF_TIMED_STEPS, warmup=1)
+        profile = (profile_step(torch, lambda: kept["step"](kept["batch"]))
+                   if name == "finetune" else None)
+        cli_ms = [1e3 * result["seconds"][i] for i in range(2, CLF_ITERS + 1)]
+        out[name] = dict(losses=losses, metric=metric, steps=steps,
+                         launches=launches, step_ms=step_ms, cli_ms=cli_ms,
+                         unchanged=(unchanged, len(visual)), first=first,
+                         profile=profile)
+        del kept
+        torch.cuda.empty_cache()
+
+    card = card_line()
+    batch = FINETUNE_BATCH
+    probe, ft = out["probe"], out["finetune"]
+    say("16 clf_linear", f"linear probe ({DOWN_CONFIGS['probe']}, "
+        f"--weight-init virtex from phase 13's checkpoint_{PRETRAIN_ITERS}, "
+        f"{CLF_ITERS} iterations of {batch}): losses "
+        f"{json.dumps(probe['losses'])}; {json.dumps(probe['metric'])}; "
+        f"launches per step {probe['steps'][0]['K4']} K4 "
+        f"{probe['steps'][0]['K4dx']} K4 dx; backbone "
+        f"{probe['unchanged'][0]}/{probe['unchanged'][1]} tensors "
+        f"bit-unchanged")
+    gaps = {k: abs(ft["first"]["kernels"][k] - ft["first"]["plain"][k])
+            / abs(ft["first"]["plain"][k]) for k in ("loss", "grad_norm")}
+    say("16 clf_linear", f"fine-tune ({DOWN_CONFIGS['finetune']}, ResNet-50 "
+        f"bf16 at 224, batch {batch} in one micro-step, {CLF_ITERS} "
+        f"iterations): losses {json.dumps(ft['losses'])}; "
+        f"{json.dumps(ft['metric'])}; launches per step "
+        f"{json.dumps({k: ft['steps'][0][k] for k in NO_LAUNCHES})} (all "
+        f"{CLF_ITERS}, vector variants); first step kernels "
+        f"{json.dumps(ft['first']['kernels'])} vs plain BatchNorm "
+        f"{json.dumps(ft['first']['plain'])} (relative "
+        f"{json.dumps({k: float(f'{v:.2e}') for k, v in gaps.items()})} <= "
+        f"{LOSS_RTOL}); checkpoints {CLF_CKPT_EVERY} and {CLF_ITERS} and "
+        f"best.json written")
+    for name, label in (("finetune", "fine-tune"), ("probe", "probe")):
+        r = out[name]
+        in_cli = ", ".join(f"{c['ms']:.1f}" for c in r["steps"])
+        with_data = ", ".join(f"{t:.1f}" for t in r["cli_ms"])
+        say("16 clf_linear", f"{card} | {label} B{batch}: train step alone "
+            f"(the last batch, {CLF_TIMED_STEPS} steps each ending in a "
+            f"sync) {r['step_ms']:.1f} ms = "
+            f"{batch / r['step_ms'] * 1e3:.1f} images/s; in the CLI, ms per "
+            f"step {in_cli} and per iteration with its batch's loading "
+            f"(iterations 2-{CLF_ITERS}) {with_data}")
+    say("16 clf_linear", f"{card} | fine-tune step {ft['step_ms']:.1f} ms for "
+        f"{batch} images vs the flagship's train step (phase 9, 128 x "
+        f"accum 2) {flagship_step_ms:.1f} ms | one fine-tune step under "
+        f"torch.profiler: {ft['profile']}")
+    # The fine-tune's train split through the loader alone (the CLI's
+    # loader prefetches while the first step autotunes cuDNN, so its
+    # iterations 2-4 do not show the loader's pace).
+    cfg = port.Config(os.path.join(REPO, DOWN_CONFIGS["finetune"]),
+                      ["DATA.ROOT", inat])
+    loader = port.DataLoader(port.DownstreamDatasetFactory.from_config(
+        cfg, port.DataPlane(plane.decoder, threads=LOADER_THREADS), "train"),
+        batch, background=False)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIMED_BATCHES):
+        next(it)
+    loader_ips = LOADER_TIMED_BATCHES * batch / (time.perf_counter() - t0)
+    say("16 clf_linear", f"{card} | fine-tune train split through the "
+        f"loader alone ({plane.decoder} decode, an OpenMP team of "
+        f"{LOADER_THREADS}): {loader_ips:.1f} images/s over "
+        f"{LOADER_TIMED_BATCHES} batches of {batch}, against the step "
+        f"alone's {batch / ft['step_ms'] * 1e3:.1f}")
+    k4 = time_bn(torch, port.BN, device, FINETUNE_BATCH, FINETUNE_K4_SHAPES)
+    say("16 clf_linear", f"{card} | K4 at B{FINETUNE_BATCH}, bf16, device ms "
+        "per call (library: torch.batch_norm_backward_reduce / _elemt): "
+        + "; ".join(f"{hw}x{hw}x{C} sums {timing_text(t['sums'])}, dx "
+                    f"{timing_text(t['dx'])}"
+                    for (hw, C), t in k4.items()))
+    return ft["launches"]
 
 
 def import_port():
@@ -1919,7 +2410,19 @@ def import_port():
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
     from virtex_tpu_torch.optim.optimizer import build_optimizer
+    from virtex_tpu_torch.scripts import clf_linear, eval_captioning
     from virtex_tpu_torch.scripts import pretrain_virtex as pretrain
+    from virtex_tpu_torch.engine.captioner import decode_predictions
+    from virtex_tpu_torch.engine.checkpointing import load_model_variables
+    from virtex_tpu_torch.data.tokenizers import SentencePieceBPETokenizer
+    from virtex_tpu_torch.factories import (
+        DownstreamDatasetFactory,
+        TokenizerFactory,
+        VisualBackboneFactory,
+    )
+    from virtex_tpu_torch.engine.checkpointing import (
+        apply_backbone_weight_init,
+    )
     from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
     from virtex_tpu_torch.utils.common import common_parser
     from virtex_tpu_torch.utils.nucleus_sampling import topp_drop
@@ -2156,7 +2659,21 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 13. pretraining through the CLI, and its resume
-    pretrain_counts = check_pretraining(torch, port, device)
+    pretrain_counts, run, root, tokenizer = check_pretraining(torch, port,
+                                                              device)
+    torch.cuda.empty_cache()
+
+    # 14. eval_captioning on phase 13's checkpoint
+    check_eval_captioning(torch, port, device, run, root, tokenizer)
+    torch.cuda.empty_cache()
+
+    # 15. the binary SentencePiece reader
+    check_sp_model(port)
+
+    # 16. clf_linear: the linear probe and the fine-tune
+    finetune_counts = check_clf_linear(torch, port, device, run,
+                                       kernel_step_ms)
+    shutil.rmtree(WORK)
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -2194,7 +2711,8 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:128",
         "launches": train_launches["K4"] + task_launches["K4"]
-        + nucleus_counts["K4"] + pretrain_counts["K4"],
+        + nucleus_counts["K4"] + pretrain_counts["K4"]
+        + finetune_counts["K4"],
         "max_abs_err": k4_err,
         **row([tuple(t / bn_calls for t in bn_step["sums"])
                + (next(iter(bn_times.values()))["sums"][4],)]),
@@ -2204,7 +2722,8 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/bn_backward_sums.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:278",
         "launches": train_launches["K4dx"] + task_launches["K4dx"]
-        + nucleus_counts["K4dx"] + pretrain_counts["K4dx"],
+        + nucleus_counts["K4dx"] + pretrain_counts["K4dx"]
+        + finetune_counts["K4dx"],
         "max_abs_err": dx_err,
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),

@@ -11,8 +11,10 @@ parameters, and with the libjpeg decoder the same pixels.
 
 - train: random resized crop → horizontal flip (swapping "left" and
   "right" in the caption) → color jitter → normalize;
-- eval: the centred ``min(h, w)·crop/256`` square, resized to the crop
-  (smallest_resize(256) then center_crop in one step) → normalize.
+- eval: the centred ``min(h, w)·crop/resize`` square, resized to the crop
+  (smallest_resize then center_crop in one step) → normalize. ``resize``
+  is 256 for the pretraining val split and an image directory, the crop
+  size for the downstream datasets, as in the JAX package.
 
 With ``emit_uint8`` the output is the pixels as uint8 and the backbone
 normalizes on the device (``DATA.DEVICE_NORMALIZE``).
@@ -125,30 +127,32 @@ class CaptionTrainPipeline(_Pipeline):
 
 
 class EvalPipeline(_Pipeline):
-    """smallest_resize(256) + center_crop + normalize; draws nothing."""
+    """smallest_resize + center_crop + normalize; draws nothing."""
 
     def __init__(self, plane: DataPlane, crop_size: int = 224,
                  transforms: EvalTransforms = EvalTransforms(),
                  emit_uint8: bool = False):
         super().__init__(plane, crop_size, transforms.mean, transforms.std,
                          emit_uint8)
+        self.resize_size = transforms.resize_size
 
     def batch(self, jpegs, captions, rngs=None):
         rects = np.empty((len(jpegs), 4), np.int32)
         for i, jpeg in enumerate(jpegs):
             h, w = self.plane.jpeg_dims(jpeg)
-            s = int(round(min(h, w) * self.crop_size / EVAL_RESIZE))
+            s = int(round(min(h, w) * self.crop_size / self.resize_size))
             rects[i] = ((h - s) // 2, (w - s) // 2, s, s)
         return (self._run(jpegs, rects, np.zeros(len(jpegs), np.int32)),
                 list(captions))
 
 
 def make_pipeline(names, crop_size: int, plane: DataPlane,
-                  device_normalize: bool):
+                  device_normalize: bool, resize_size: int = EVAL_RESIZE):
     """The pipeline of a ``DATA.IMAGE_TRANSFORM_*`` list (see
-    :func:`virtex_tpu_torch.data.transforms.parse_transforms`). Pixels stay
-    uint8 when the device normalizes or the list does not."""
-    t = parse_transforms(names)
+    :func:`virtex_tpu_torch.data.transforms.parse_transforms`; an eval
+    list resizes to ``resize_size``). Pixels stay uint8 when the device
+    normalizes or the list does not."""
+    t = parse_transforms(names, resize_size)
     uint8 = device_normalize or not t.normalize
     if isinstance(t, TrainTransforms):
         return CaptionTrainPipeline(plane, crop_size, t, uint8)

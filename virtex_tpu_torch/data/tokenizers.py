@@ -19,12 +19,22 @@ It reads the file's BPE model and runs it as that package does:
 - :meth:`decode` drops ids ≤ 3, turns ``▁`` into spaces (none in the first
   token) and strips the result.
 
-Binary SentencePiece ``.model`` files (the reference's ``coco_10k.model``)
-are not read yet; loading one raises.
+A binary SentencePiece BPE ``.model`` (the reference's ``coco_10k.model``)
+is read too, without the sentencepiece or protobuf packages: the
+``ModelProto`` is parsed from the protobuf wire format here
+(:func:`read_sentencepiece_model`), and the merges are rebuilt from the
+piece table as the JAX package rebuilds them: every split of a NORMAL or
+USER_DEFINED piece whose halves are both pieces is a merge, ranked by
+−score (SentencePiece's BPE trainer scores each merged piece with its
+negated merge rank), then by (piece id, left id, right id); by piece id
+alone when every score is equal. Such a model has no added tokens; it
+runs the BPE above with ``fuse_unk`` and the ``▁`` Metaspace. A Unigram
+model, or a BPE model with ``byte_fallback``, raises.
 """
 from __future__ import annotations
 
 import json
+import struct
 import unicodedata
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -46,23 +56,28 @@ def preprocess_caption(text: str, lower: bool = True,
 
 class SentencePieceBPETokenizer:
     """``get_vocab_size`` / ``token_to_id`` / ``id_to_token`` / ``encode``
-    / ``decode`` over a BPE vocabulary JSON (see the module docstring).
+    / ``decode`` over a BPE vocabulary (see the module docstring).
 
     Args:
-        model_path: the tokenizer JSON that ``train_tokenizer`` writes.
+        model_path: the tokenizer JSON that ``train_tokenizer`` writes, or
+            a binary SentencePiece BPE ``.model``; the first byte tells
+            them apart.
     """
 
     def __init__(self, model_path: str):
         self.model_path = model_path
         with open(model_path, "rb") as f:
-            head = f.read(64)
-        if head.lstrip()[:1] != b"{":
-            raise ValueError(
-                f"{model_path}: not a tokenizer JSON. Binary SentencePiece "
-                ".model files are not read by the port yet; convert the "
-                "vocabulary with the JAX package's tools")
-        with open(model_path, encoding="utf-8") as f:
-            blob = json.load(f)
+            data = f.read()
+        # A proto's first byte is a field tag (pieces: 0x0a), never "{".
+        if data[:64].lstrip()[:1] == b"{":
+            self._load_json(json.loads(data.decode("utf-8")))
+        else:
+            self._load_sentencepiece(data)
+        self._id_to_token = {i: t for t, i in self._token_to_id.items()}
+        self._cache: Dict[str, List[int]] = {}
+
+    def _load_json(self, blob) -> None:
+        model_path = self.model_path
         model = blob["model"]
         if model.get("type") != "BPE":
             raise ValueError(f"{model_path}: model type "
@@ -90,8 +105,25 @@ class SentencePieceBPETokenizer:
                          if t.get("special")}
         self._added = sorted(added, key=len, reverse=True)
         self._token_to_id = {**self._vocab, **added}
-        self._id_to_token = {i: t for t, i in self._token_to_id.items()}
-        self._cache: Dict[str, List[int]] = {}
+
+    def _load_sentencepiece(self, data: bytes) -> None:
+        proto = read_sentencepiece_model(
+            data, f"{self.model_path} (a binary SentencePiece model)")
+        if proto["model_type"] == SP_UNIGRAM:
+            raise ValueError(
+                f"{self.model_path}: a Unigram SentencePiece model; the "
+                "port reads BPE models only (a Unigram reader is queued in "
+                "ROADMAP.md §1, item 4)")
+        if proto["byte_fallback"]:
+            raise ValueError(f"{self.model_path}: byte_fallback is not "
+                             "supported")
+        pieces = proto["pieces"]
+        self._vocab = {piece: i for i, (piece, _, _) in enumerate(pieces)}
+        self._ranks = sentencepiece_merges(pieces, self._vocab)
+        self._unk, self._fuse_unk, self._ignore_merges = "<unk>", True, False
+        self._replacement, self._prepend = "\u2581", True
+        self._special, self._added = set(), []
+        self._token_to_id = dict(self._vocab)
 
     # -- vocabulary ------------------------------------------------------------
     def get_vocab_size(self) -> int:
@@ -205,3 +237,121 @@ def _metaspace(pre_tokenizer, path: str) -> Tuple[str, bool]:
         raise ValueError(f"{path}: prepend_scheme {scheme!r} is not "
                          "supported")
     return pre_tokenizer.get("replacement", "▁"), scheme == "always"
+
+
+# -- binary SentencePiece models ----------------------------------------------
+# sentencepiece_model.proto: ModelProto.pieces = 1, .trainer_spec = 2;
+# SentencePiece.piece = 1, .score = 2, .type = 3 (default NORMAL);
+# TrainerSpec.model_type = 3 (default UNIGRAM), .byte_fallback = 35.
+SP_UNIGRAM = 1
+SP_NORMAL, SP_USER_DEFINED = 1, 4
+_VARINT, _FIXED64, _BYTES, _FIXED32 = 0, 1, 2, 5
+
+
+def _varint(buf: bytes, i: int, where: str) -> Tuple[int, int]:
+    value = shift = 0
+    while True:
+        if i >= len(buf) or shift > 63:
+            raise ValueError(f"{where}: truncated or malformed protobuf "
+                             "varint")
+        byte = buf[i]
+        i += 1
+        value |= (byte & 0x7F) << shift
+        shift += 7
+        if byte < 0x80:
+            return value, i
+
+
+def _fields(buf: bytes, where: str):
+    """(field number, wire type, value) of each field of one message: an
+    int for a varint, the raw bytes otherwise. Raises on a field that runs
+    past the end, and on the deprecated group wire types."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i, where)
+        number, wire = key >> 3, key & 7
+        if wire == _VARINT:
+            value, i = _varint(buf, i, where)
+        elif wire in (_BYTES, _FIXED32, _FIXED64):
+            if wire == _BYTES:
+                size, i = _varint(buf, i, where)
+            else:
+                size = 4 if wire == _FIXED32 else 8
+            if i + size > len(buf):
+                raise ValueError(f"{where}: truncated protobuf (field "
+                                 f"{number} runs past the end)")
+            value, i = buf[i:i + size], i + size
+        else:
+            raise ValueError(f"{where}: protobuf wire type {wire} (field "
+                             f"{number}) is not read")
+        if number == 0:
+            raise ValueError(f"{where}: protobuf field number 0")
+        yield number, wire, value
+
+
+def _expect(wire: int, want: int, what: str, where: str) -> None:
+    if wire != want:
+        raise ValueError(f"{where}: {what} has wire type {wire}, expected "
+                         f"{want}")
+
+
+def read_sentencepiece_model(data: bytes, where: str = "model"
+                             ) -> Dict[str, object]:
+    """The parts of a serialized SentencePiece ``ModelProto`` the tokenizer
+    uses: ``pieces`` as (piece, score, type) in id order, ``model_type``
+    and ``byte_fallback``, with the proto's defaults where a field is
+    absent. Other fields are skipped; a later occurrence of a scalar field
+    wins, as protobuf merges."""
+    pieces: List[Tuple[str, float, int]] = []
+    model_type, byte_fallback = SP_UNIGRAM, False
+    for number, wire, value in _fields(data, where):
+        if number == 1:
+            _expect(wire, _BYTES, "ModelProto.pieces", where)
+            piece, score, kind = "", 0.0, SP_NORMAL
+            for n, w, v in _fields(value, where):
+                if n == 1:
+                    _expect(w, _BYTES, "SentencePiece.piece", where)
+                    piece = v.decode("utf-8")
+                elif n == 2:
+                    _expect(w, _FIXED32, "SentencePiece.score", where)
+                    score = struct.unpack("<f", v)[0]
+                elif n == 3:
+                    _expect(w, _VARINT, "SentencePiece.type", where)
+                    kind = v
+            pieces.append((piece, score, kind))
+        elif number == 2:
+            _expect(wire, _BYTES, "ModelProto.trainer_spec", where)
+            for n, w, v in _fields(value, where):
+                if n == 3:
+                    _expect(w, _VARINT, "TrainerSpec.model_type", where)
+                    model_type = v
+                elif n == 35:
+                    _expect(w, _VARINT, "TrainerSpec.byte_fallback", where)
+                    byte_fallback = bool(v)
+    return {"pieces": pieces, "model_type": model_type,
+            "byte_fallback": byte_fallback}
+
+
+def sentencepiece_merges(pieces: List[Tuple[str, float, int]],
+                         vocab: Dict[str, int]) -> Dict[Tuple[str, str], int]:
+    """The BPE merge ranks of a SentencePiece piece table, as
+    ``virtex_tpu/data/tokenizers.py`` rebuilds them: each split of a NORMAL
+    or USER_DEFINED piece of two or more characters whose halves are both
+    pieces, ordered by (−score, piece id, left id, right id), or by
+    (piece id, left id, right id) when the candidates' scores are all
+    equal (a proto whose scores carry no order)."""
+    candidates = []
+    for pid, (piece, score, kind) in enumerate(pieces):
+        if len(piece) < 2 or kind not in (SP_NORMAL, SP_USER_DEFINED):
+            continue
+        for split in range(1, len(piece)):
+            left, right = piece[:split], piece[split:]
+            if left in vocab and right in vocab:
+                candidates.append((-score, pid, vocab[left], vocab[right],
+                                   left, right))
+    ordered = len({c[0] for c in candidates}) > 1
+    candidates.sort(key=(lambda c: c[:4]) if ordered else (lambda c: c[1:4]))
+    ranks: Dict[Tuple[str, str], int] = {}
+    for rank, c in enumerate(candidates):
+        ranks.setdefault((c[4], c[5]), rank)
+    return ranks

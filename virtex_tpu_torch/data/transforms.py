@@ -18,8 +18,10 @@ from typing import Iterable, Optional, Tuple, Union
 
 IMAGENET_COLOR_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_COLOR_STD = (0.229, 0.224, 0.225)
-# The eval path's resize before its centre crop, as the JAX package's native
-# eval pipeline fixes it.
+# The eval path's resize before its centre crop where the caller names none:
+# the JAX package's native eval pipeline (the pretraining val split) and its
+# default image transform (an image directory). Its downstream datasets
+# resize to the crop size instead.
 EVAL_RESIZE = 256
 
 
@@ -70,8 +72,9 @@ class TrainTransforms:
 
 @dataclasses.dataclass(frozen=True)
 class EvalTransforms:
-    """smallest_resize(256) → center_crop → normalize, as one crop of the
-    centred ``min(h, w)·crop/256`` square."""
+    """smallest_resize(resize_size) → center_crop → normalize, as one crop
+    of the centred ``min(h, w)·crop/resize_size`` square."""
+    resize_size: int = EVAL_RESIZE
     mean: Tuple[float, ...] = IMAGENET_COLOR_MEAN
     std: Tuple[float, ...] = IMAGENET_COLOR_STD
     normalize: bool = True
@@ -104,12 +107,13 @@ def _parse_name(name: str):
     return base, kwargs
 
 
-def parse_transforms(names: Iterable[str]
+def parse_transforms(names: Iterable[str], resize_size: int = EVAL_RESIZE
                      ) -> Union[TrainTransforms, EvalTransforms]:
     """A ``DATA.IMAGE_TRANSFORM_*`` list → the data plane's parameters.
     Takes the two lists the JAX package's native pipelines run (and the
     optional stages of the train list, with ``"name::{kwargs}"``
-    arguments); raises on any other list."""
+    arguments); raises on any other list. ``resize_size`` is the eval
+    list's smallest_resize."""
     parsed = [_parse_name(n) for n in names]
     bases = [b for b, _ in parsed]
     kw = dict(parsed)
@@ -132,7 +136,8 @@ def parse_transforms(names: Iterable[str]
             normalize="normalize" in kw)
     if bases in (list(_EVAL_ORDER), list(_EVAL_ORDER[:2])):
         norm = kw.get("normalize", {})
-        return EvalTransforms(mean=tuple(norm.get("mean", IMAGENET_COLOR_MEAN)),
+        return EvalTransforms(resize_size=resize_size,
+                              mean=tuple(norm.get("mean", IMAGENET_COLOR_MEAN)),
                               std=tuple(norm.get("std", IMAGENET_COLOR_STD)),
                               normalize="normalize" in kw)
     raise ValueError(f"image transforms {list(names)}: the data plane runs "

@@ -2,8 +2,8 @@ r"""
 End-to-end caption generation: visual encode → KV-cache init → beam search
 or nucleus sampling.
 
-Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`.
-The visual grid is encoded once and the cross-attention K/V are projected
+Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`
+and :func:`decode_predictions`. The visual grid is encoded once and the cross-attention K/V are projected
 once per image. Beam search holds them outside the search state (they do
 not differ between an image's beams, so the per-step beam reorder never
 gathers them) and reorders the self-attention caches with the beams.
@@ -110,3 +110,20 @@ def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
         return preds
 
     return caption_fn
+
+
+def decode_predictions(tokens, tokenizer, eos_index: int = 2) -> list:
+    """(B, T) token ids (a tensor or an array) → B captions: each row cut
+    before its first ``eos_index``, then ``tokenizer.decode``, which drops
+    the special ids."""
+    if torch.is_tensor(tokens):
+        tokens = tokens.cpu()
+    out = []
+    for row in tokens.tolist():
+        ids = []
+        for t in row:
+            if t == eos_index:
+                break
+            ids.append(int(t))
+        out.append(tokenizer.decode(ids))
+    return out

@@ -8,8 +8,9 @@ with its textual head (the transformer head masks future positions only for
 the captioning names; ``TEXTUAL.NAME: "none"`` is the linear head), its
 padding index and its ignored labels; the two ``MODEL.DECODER.NAME``s; the
 tokenizer of ``DATA.TOKENIZER_MODEL``; each ``MODEL.NAME``'s pretraining
-dataset over the data plane; and the optimizer chain and LR schedule of
-``OPTIM.*``.
+dataset over the data plane; the transfer datasets (by ``DATA.ROOT``) and
+the visual backbone by its ``torchvision::<arch>`` name; and the optimizer
+chain and LR schedule of ``OPTIM.*``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,10 @@ from virtex_tpu_torch.data.datasets.captioning import CaptioningDataset
 from virtex_tpu_torch.data.datasets.classification import (
     MultiLabelClassificationDataset,
     TokenClassificationDataset,
+)
+from virtex_tpu_torch.data.datasets.downstream import (
+    ImageNetDataset,
+    INaturalist2018Dataset,
 )
 from virtex_tpu_torch.data.datasets.masked_lm import MaskedLmDataset
 from virtex_tpu_torch.data.native_pipeline import make_pipeline
@@ -179,6 +184,60 @@ class PretrainingDatasetFactory:
         if name not in cls.PRODUCTS:
             raise KeyError(f"Unknown model {name!r}")
         return cls.PRODUCTS[name](**kwargs)
+
+
+class DownstreamDatasetFactory:
+    """The transfer dataset whose directory name ends ``DATA.ROOT``, its
+    images through ``plane`` with ``DATA.IMAGE_TRANSFORM_TRAIN`` (a split
+    whose name holds "train") or ``_VAL``. The eval list's smallest_resize
+    takes ``IMAGE_CROP_SIZE``, as the JAX package composes it for these
+    datasets: the whole short side, centre-cropped."""
+
+    PRODUCTS = {
+        "datasets/imagenet": ImageNetDataset,
+        "datasets/inaturalist": INaturalist2018Dataset,
+    }
+
+    @classmethod
+    def from_config(cls, config: Config, plane: DataPlane,
+                    split: str = "train"):
+        _C = config
+        root = _C.DATA.ROOT
+        key = next((p for p in cls.PRODUCTS
+                    if root.rstrip("/").endswith(p.split("/")[-1])), None)
+        if key is None:  # VOC2007's is clf_voc07's, not ported yet
+            raise KeyError(f"No downstream dataset for root {root!r}")
+        names = (_C.DATA.IMAGE_TRANSFORM_TRAIN if "train" in split
+                 else _C.DATA.IMAGE_TRANSFORM_VAL)
+        crop = _C.DATA.IMAGE_CROP_SIZE
+        pipeline = make_pipeline(names, crop, plane, _C.DATA.DEVICE_NORMALIZE,
+                                 resize_size=crop)
+        return cls.PRODUCTS[key](root, split, pipeline)
+
+
+class VisualBackboneFactory:
+    """``torchvision::<arch>`` (or a bare ``<arch>``) → the port's ResNet
+    trunk; the keyword arguments go to :class:`ResNetVisualBackbone`, whose
+    dtype is bf16 unless given."""
+
+    PRODUCTS = {"torchvision": ResNetVisualBackbone}
+
+    @classmethod
+    def create(cls, name: str, **kwargs) -> ResNetVisualBackbone:
+        zoo, sep, arch = name.partition("::")
+        if not sep:
+            zoo, arch = "torchvision", name
+        if zoo not in cls.PRODUCTS:
+            raise KeyError(f"Unknown visual backbone family {zoo!r}")
+        return cls.PRODUCTS[zoo](arch, **kwargs)
+
+    @classmethod
+    def from_config(cls, config: Config) -> ResNetVisualBackbone:
+        V = config.MODEL.VISUAL
+        return cls.create(V.NAME, frozen=bool(V.FROZEN),
+                          dtype=ModelSpec.from_config(config).torch_dtype,
+                          bn_stat_stride=V.BN_STAT_STRIDE,
+                          stem_s2d=V.STEM_S2D, remat=V.REMAT)
 
 
 class OptimizerFactory:

@@ -125,6 +125,7 @@ class ResNet(nn.Module):
                 in_planes = planes * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
+        self.out_channels = in_planes  # C_out of the grid
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC memory, NCHW view

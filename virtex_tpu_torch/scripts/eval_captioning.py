@@ -1,0 +1,129 @@
+r"""
+Caption COCO val (or a directory of images) with a pretrained VirTex model
+in the PyTorch port, and score the captions with CIDEr and SPICE.
+
+Counterpart of ``scripts/eval_captioning.py``: the same flags, beam search
+or nucleus sampling by ``MODEL.DECODER.NAME``, nucleus draws seeded from
+``(RANDOM_SEED, batch index)``, predictions written as
+``[{"image_id", "caption"}]`` in dataset order, and with ``--calc-metrics``
+a last line ``{"CIDEr": …, "SPICE": …}`` (SPICE 0.0 without Java and the
+SPICE jar). It runs on the card unless ``--device cpu`` is passed. The
+short last batch runs at its own size, so the JAX script's padding of it
+has no counterpart.
+
+    python -m virtex_tpu_torch.scripts.eval_captioning \
+        --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
+        --checkpoint-path /tmp/virtex_run/checkpoint_best.pth \
+        --calc-metrics --output /tmp/predictions.json
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Any, Dict, List
+
+import torch
+
+from virtex_tpu_torch.config import Config, ModelSpec
+from virtex_tpu_torch.data.datasets.downstream import ImageDirectoryDataset
+from virtex_tpu_torch.data.loader import DataLoader
+from virtex_tpu_torch.data.native_pipeline import EvalPipeline
+from virtex_tpu_torch.engine.captioner import (
+    decode_predictions,
+    make_caption_fn,
+)
+from virtex_tpu_torch.engine.checkpointing import load_model_variables
+from virtex_tpu_torch.engine.train_state import step_seed
+from virtex_tpu_torch.factories import (
+    CaptionDecoderFactory,
+    PretrainingDatasetFactory,
+    PretrainingModelFactory,
+    TokenizerFactory,
+)
+from virtex_tpu_torch.native import DataPlane, decoder_for
+from virtex_tpu_torch.utils.common import common_parser, common_setup
+from virtex_tpu_torch.utils.metrics import CocoCaptionsEvaluator
+
+logger = logging.getLogger("virtex_tpu_torch")
+
+
+def build_parser():
+    parser = common_parser(description="Caption images with a VirTex "
+                           "model (PyTorch port).")
+    # "--images" is the reference's spelling, "--data-root" its alias.
+    parser.add_argument("--images", "--data-root", dest="data_root",
+                        default=None,
+                        help="Image directory; defaults to COCO val2017.")
+    parser.add_argument("--checkpoint-path", default=None)
+    parser.add_argument("--batch-size", type=int, default=32)
+    parser.add_argument("--output", default=None,
+                        help="Path to save predictions JSON.")
+    parser.add_argument("--calc-metrics", action="store_true")
+    return parser
+
+
+def main(_A) -> Dict[str, Any]:
+    """Caption as the flags say. Returns the predictions, the seconds of
+    each batch (from its copy to the device to its decoded captions, which
+    wait for the device), and the metrics with ``--calc-metrics``."""
+    _C = Config(_A.config, _A.config_override)
+    device = common_setup(_C, _A, job_type="eval_captioning")
+    spec = ModelSpec.from_config(_C)
+
+    tokenizer = TokenizerFactory.from_config(_C)
+    plane = DataPlane(decoder_for(device), threads=_A.cpu_workers)
+    if _A.data_root:
+        # The JAX package's default image transform: 256, then crop 224.
+        dataset = ImageDirectoryDataset(_A.data_root, EvalPipeline(plane))
+    else:
+        dataset = PretrainingDatasetFactory.from_config(_C, plane, "val")
+    loader = DataLoader(dataset, _A.batch_size, shuffle=False,
+                        infinite=False, drop_last=False)
+
+    model = PretrainingModelFactory.from_spec(spec, device)
+    if _A.checkpoint_path:
+        load_model_variables(_A.checkpoint_path, model)
+    caption_fn = make_caption_fn(model, CaptionDecoderFactory.from_spec(spec),
+                                 sos_index=spec.sos_index,
+                                 prefix_mode=spec.prefix_mode)
+    generator = torch.Generator(device=device)
+
+    predictions: List[Dict[str, Any]] = []
+    seconds: List[float] = []
+    for batch_idx, batch in enumerate(loader):
+        start = time.perf_counter()
+        images = torch.as_tensor(batch["image"]).to(device)
+        generator.manual_seed(step_seed(_C.RANDOM_SEED, batch_idx))
+        tokens = caption_fn(images, generator)
+        captions = decode_predictions(tokens, tokenizer, spec.eos_index)
+        seconds.append(time.perf_counter() - start)
+        ids = batch["image_id"]
+        ids = ids.tolist() if hasattr(ids, "tolist") else list(ids)
+        predictions += [{"image_id": i, "caption": c}
+                        for i, c in zip(ids, captions)]
+
+    logger.info("Sample predictions:")
+    for p in predictions[:10]:
+        logger.info(f"  {p['image_id']}: {p['caption']}")
+    if _A.output:
+        os.makedirs(os.path.dirname(os.path.abspath(_A.output)),
+                    exist_ok=True)
+        with open(_A.output, "w") as f:
+            json.dump(predictions, f)
+
+    result: Dict[str, Any] = {"predictions": predictions,
+                              "seconds": seconds}
+    if _A.calc_metrics:
+        gt_path = os.path.join(_C.DATA.ROOT, "annotations",
+                               "captions_val2017.json")
+        metrics = CocoCaptionsEvaluator(gt_path).evaluate(predictions)
+        logger.info(f"Metrics: {metrics}")
+        print(json.dumps(metrics), flush=True)
+        result["metrics"] = metrics
+    return result
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

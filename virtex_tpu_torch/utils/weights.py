@@ -10,7 +10,9 @@ reference's torch names (torchvision ResNet keys with
 the shared projection, embedding and output, and ``textual.output.*`` for
 the classification tasks' linear head), the same mapping as
 ``virtex_tpu.utils.checkpoint_convert.export_virtex_checkpoint``. So the
-port loads either with ``load_state_dict(strict=True)``.
+port loads either with ``load_state_dict(strict=True)``. The transfer
+model's ``{"params": {"visual", "fc"}}`` gives ``visual.cnn.*`` and
+``fc.weight``/``fc.bias`` (``virtex_tpu_torch.models.downstream``).
 
 :func:`flax_names` reads the bridge backwards, giving a port parameter's
 dotted name in the JAX package, which the optimizer's NO_DECAY regex and
@@ -174,6 +176,9 @@ def state_dict_from_flax(variables: Tree) -> Dict[str, torch.Tensor]:
     if "visual" in params:
         _resnet(out, "visual.cnn.", params["visual"]["cnn"],
                 stats["visual"]["cnn"])
+    if "fc" in params:  # LinearClassifierModel's classifier
+        out["fc.weight"] = _lin(params["fc"]["kernel"])
+        out["fc.bias"] = _t(params["fc"]["bias"])
     if "textual" not in params:
         return out
     t = params["textual"]
