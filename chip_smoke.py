@@ -117,6 +117,31 @@ prints no result, when there is no card or when any phase fails:
     finite losses, top-1 in [0, 100] on the last line, checkpoints and
     ``best.json``. Host ms per step alone and per CLI iteration, one
     fine-tune step under ``torch.profiler``, K4 timed at batch 256.
+17. clf_voc07 (``python -m virtex_tpu_torch.scripts.clf_voc07``) with
+    ``--weight-init virtex`` from phase 13 on a synthetic VOC2007 tree (20
+    classes, 512 trainval and 512 test JPEGs at 500x375 and 375x500 written
+    with PIL, positives in every class, some "difficult" entries), ResNet-50
+    bf16 at 224, batch 128: no kernel launched, L2-normalised features of
+    the right shape, 260 SVM fits each stopped at a gradient norm <= 1e-6
+    of its start, per-class APs and the mAP line. Then the solver alone at
+    VOC2007's size (5011 x 2048 trainval, 4952 test features drawn from a
+    seed with a class signal; 260 fits in fp64 on the card) under the same
+    gate, and two classes at C 1 equal to the same solver on the host CPU
+    within 1e-8 of w's scale. Features and loader images/s, seconds for the
+    fits, peak memory.
+18. remat: the flagship train step (128 x 2, bf16, dropout 0.1) with
+    ``visual_remat`` and ``textual_remat`` against the plain step, from one
+    generator seed and one batch, cuDNN deterministic: 16 K1, 8 K2 and 106
+    + 106 K4 launches (the plain step's 8 K1 and the recomputation's 8 on
+    the same seeds), loss within 1e-5 and ``grad_norm`` within 1e-3
+    (relative), BatchNorm buffers equal, the generator's state equal; whether
+    the parameters are bit-equal; host ms per step in turns and peak memory
+    of both.
+19. BatchNorm's "batch" sampler: the flagship step at ``bn_stat_stride`` 4:
+    no K4 launch (plain autograd, the JAX package's own path), the first
+    step's loss (dropout 0) within LOSS_RTOL of fp32 plain math on the card,
+    running statistics finite and ``num_batches_tracked`` one per micro-step
+    in all 53 layers; then steps with dropout 0.1 and their ms.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2386,6 +2411,387 @@ def check_clf_linear(torch, port, device, run, flagship_step_ms):
     return ft["launches"]
 
 
+# -- phase 17 ----------------------------------------------------------------
+VOC_CONFIG = os.path.join("configs", "downstream", "voc07_clf.yaml")
+# The synthetic VOC2007 tree: 20 classes, VOC's image sizes (DOWN_SIZES),
+# each class present in ~15% of the images and "difficult" in ~3%.
+VOC_CLASSES, VOC_TRAIN, VOC_TEST = 20, 512, 512
+VOC_BATCH = 128   # configs/downstream/voc07_clf.yaml OPTIM.BATCH_SIZE
+VOC_POSITIVE, VOC_DIFFICULT = 0.15, 0.03
+# The solver alone at VOC2007's own size: 5011 trainval and 4952 test
+# images, ResNet-50's 2048 features; a class shifts its positives' features
+# by SVM_SIGNAL along a direction of its own before the L2 normalisation:
+# 2.5 times the noise's 1/sqrt(SVM_DIM) along any one direction, so that no
+# line splits a class and the test mAP lands in VOC2007's range for real
+# backbones (75.1 on an H100). The run fails outside SVM_MAP_RANGE.
+SVM_TRAIN, SVM_TEST, SVM_DIM = 5011, 4952, 2048
+SVM_SIGNAL = 2.5 / SVM_DIM ** 0.5
+SVM_MAP_RANGE = (60.0, 90.0)
+SVM_COSTS_N, SVM_FOLDS = 4, 3
+SVM_FITS = VOC_CLASSES * (SVM_COSTS_N * SVM_FOLDS + 1)  # CV, then the fit
+# Every fit stops at a gradient norm <= SVM_GRAD_GATE of its start; two
+# classes' fits at C 1 on the card against the same solver on the card's
+# host CPU, both fp64: w within SVM_CPU_RTOL of its scale.
+SVM_GRAD_GATE, SVM_CPU_CLASSES, SVM_CPU_RTOL = 1e-6, 2, 1e-8
+FEATURE_DIM = 2048   # ResNet-50's pooled features
+
+
+def write_voc_tree(torch, root: str, device) -> None:
+    """A VOC2007 tree (``JPEGImages``, ``ImageSets/Main/<class>_<split>.txt``)
+    of VOC_TRAIN trainval and VOC_TEST test JPEGs written with PIL, every
+    class with positives in both splits and some "difficult" entries."""
+    from PIL import Image
+    rng = np.random.RandomState(SEED + 17)
+    os.makedirs(os.path.join(root, "JPEGImages"))
+    os.makedirs(os.path.join(root, "ImageSets", "Main"))
+    for split, n in (("trainval", VOC_TRAIN), ("test", VOC_TEST)):
+        raw = rng.choice([1, 0, -1], (n, VOC_CLASSES), p=[
+            VOC_POSITIVE, VOC_DIFFICULT, 1 - VOC_POSITIVE - VOC_DIFFICULT])
+        for c in range(VOC_CLASSES):
+            if (raw[:, c] == 1).sum() < 3:
+                raw[rng.choice(n, 3, replace=False), c] = 1
+        for i in range(n):
+            h, w = DOWN_SIZES[i % 2]
+            Image.fromarray(synth_image(torch, rng, h, w, device)).save(
+                os.path.join(root, "JPEGImages", f"{split}_{i:05d}.jpg"),
+                quality=JPEG_QUALITY)
+        for c in range(VOC_CLASSES):
+            with open(os.path.join(root, "ImageSets", "Main",
+                                   f"class{c:02d}_{split}.txt"), "w") as f:
+                f.writelines(f"{split}_{i:05d} {raw[i, c]:2d}\n"
+                             for i in range(n))
+
+
+def svm_problem(torch, device, n: int, directions, rng):
+    """``n`` L2-normalised (n, SVM_DIM) features on ``device`` and their
+    VOC-style targets (n, VOC_CLASSES) in {1, 0, −1}: N(0, 1) rows shifted
+    by SVM_SIGNAL along each present class's direction."""
+    targets = rng.choice([1, 0, -1], (n, VOC_CLASSES), p=[
+        VOC_POSITIVE, 1 - VOC_POSITIVE - VOC_DIFFICULT, VOC_DIFFICULT])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.randint(2**31)))
+    x = torch.randn(n, SVM_DIM, generator=gen, device=device)
+    present = torch.from_numpy((targets == 1).astype(np.float32)).to(device)
+    x = x / SVM_DIM ** 0.5 + SVM_SIGNAL * present @ directions
+    return x / x.norm(dim=1, keepdim=True), targets
+
+
+def check_svm_fits(stats, where: str) -> float:
+    """The gradient gate over every fit of one ``train_test_svms``; returns
+    the largest ratio."""
+    ratio = stats["grad_norm"] / stats["grad_norm0"]
+    if ratio.numel() != SVM_FITS or not bool((ratio <= SVM_GRAD_GATE).all()):
+        fail(f"{where}: {ratio.numel()} fits (expected {SVM_FITS}), gradient "
+             f"norms up to {float(ratio.max()):.2e} of their start (gate "
+             f"{SVM_GRAD_GATE:.0e})")
+    return float(ratio.max())
+
+
+def check_clf_voc07(torch, port, device, run):
+    """Phase 17. Returns the CLI's launches (none: BatchNorm runs on its
+    running statistics)."""
+    svm = port.svm
+    root = os.path.join(WORK, "VOC2007")
+    t0 = time.perf_counter()
+    write_voc_tree(torch, root, device)
+    say("17 clf_voc07", f"wrote a VOC2007 tree of {VOC_TRAIN} trainval and "
+        f"{VOC_TEST} test JPEGs ({DOWN_SIZES[0][1]}x{DOWN_SIZES[0][0]} and "
+        f"{DOWN_SIZES[1][1]}x{DOWN_SIZES[1][0]}, PIL, quality "
+        f"{JPEG_QUALITY}) with {VOC_CLASSES} classes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(run, f"checkpoint_{PRETRAIN_ITERS}.pth")
+    args = ["--config", os.path.join(REPO, PRETRAIN_CONFIG),
+            "--down-config", os.path.join(REPO, VOC_CONFIG),
+            "--weight-init", "virtex", "--checkpoint-path", ckpt,
+            "--serialization-dir", os.path.join(WORK, "voc07"),
+            "--device", str(device), "--down-config-override", "DATA.ROOT",
+            root]
+    reset_counts(port.A, port.BN)       # a main path starts here
+    result, last = run_cli(port.clf_voc07, args,
+                           os.path.join(WORK, "clf_voc07.log"))
+    torch.cuda.synchronize()
+    launches = launch_counts(port.A, port.BN)  # ... and ends here
+    if launches != NO_LAUNCHES:
+        fail(f"clf_voc07 launched {launches}; its backbone runs BatchNorm on "
+             "running statistics")
+    metric = json.loads(last)
+    if set(metric) != {"metric", "value"} or metric["metric"] != \
+            "voc07_mAP" or not 0.0 <= metric["value"] <= 100.0:
+        fail(f"clf_voc07: last line {last!r}")
+    for split, n in (("trainval", VOC_TRAIN), ("test", VOC_TEST)):
+        x, labels = result["features"][split]
+        norms = x.double().norm(dim=1)
+        if tuple(x.shape) != (n, FEATURE_DIM) or not bool(
+                torch.isfinite(x).all()) \
+                or float((norms - 1).abs().max()) > 1e-5 or \
+                labels.shape != (n, VOC_CLASSES):
+            fail(f"clf_voc07 {split}: features {tuple(x.shape)}, norms "
+                 f"{float(norms.min())}..{float(norms.max())}, labels "
+                 f"{labels.shape}")
+    cli_ratio = check_svm_fits(result["solver"], "clf_voc07's SVMs")
+    aps = [r.ap for r in result["results"]]
+    if len(aps) != VOC_CLASSES or not all(0.0 <= a <= 1.0 for a in aps):
+        fail(f"clf_voc07: per-class APs {aps}")
+    sec = result["seconds"]
+    card = card_line()
+    say("17 clf_voc07", f"{card} | CLI (--weight-init virtex from phase 13's "
+        f"checkpoint_{PRETRAIN_ITERS}, ResNet-50 bf16 at 224, batch "
+        f"{VOC_BATCH}): "
+        f"{json.dumps(metric)}; costs chosen "
+        f"{[r.cost for r in result['results']]}; no kernel launched; "
+        f"features {VOC_TRAIN / sec['trainval']:.1f} images/s (trainval, "
+        f"with its loading), {VOC_TEST / sec['test']:.1f} (test); the "
+        f"{SVM_FITS} SVM fits {sec['svm']:.2f} s, gradient norms <= "
+        f"{cli_ratio:.1e} of their start")
+
+    # The loader alone on the trainval split (the CLI's extraction waits on
+    # it): LOADER_TIMED_BATCHES batches after the first.
+    cfg = port.Config(os.path.join(REPO, VOC_CONFIG), ["DATA.ROOT", root])
+    plane = port.DataPlane(port.decoder_for(device), threads=LOADER_THREADS)
+    loader = port.DataLoader(port.DownstreamDatasetFactory.from_config(
+        cfg, plane, "trainval"), VOC_BATCH, shuffle=False, infinite=True,
+        background=False)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_TIMED_BATCHES):
+        next(it)
+    loader_ips = LOADER_TIMED_BATCHES * VOC_BATCH / (time.perf_counter()
+                                                     - t0)
+
+    # The solver alone at VOC2007's size.
+    rng = np.random.RandomState(SEED + 170)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 170)
+    directions = torch.randn(VOC_CLASSES, SVM_DIM, generator=gen,
+                             device=device) / SVM_DIM ** 0.5
+    x_train, t_train = svm_problem(torch, device, SVM_TRAIN, directions, rng)
+    x_test, t_test = svm_problem(torch, device, SVM_TEST, directions, rng)
+    names = [f"class{c:02d}" for c in range(VOC_CLASSES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, stats = svm.train_test_svms(x_train, t_train, x_test, t_test,
+                                         names)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ratio = check_svm_fits(stats, f"the SVMs at {SVM_TRAIN} x {SVM_DIM}")
+    steps = stats["steps"]
+    # The CV fits come class by class, cost by cost, fold by fold.
+    cost_steps = steps[:VOC_CLASSES * SVM_COSTS_N * SVM_FOLDS].reshape(
+        VOC_CLASSES, SVM_COSTS_N, SVM_FOLDS).transpose(0, 1).reshape(
+        SVM_COSTS_N, -1)
+    mAP = 100.0 * float(np.mean([r.ap for r in results]))
+    if not SVM_MAP_RANGE[0] <= mAP <= SVM_MAP_RANGE[1]:
+        fail(f"SVMs at VOC2007's size: mAP {mAP} outside {SVM_MAP_RANGE}: "
+             "the synthetic features are easier or harder than VOC2007's")
+
+    # Two classes at C 1 on the card and on the host CPU.
+    labels = np.stack([svm.binary_labels(t_train[:, c])
+                       for c in range(SVM_CPU_CLASSES)])
+    costs = np.stack([svm.row_costs(y, 1.0, np.arange(SVM_TRAIN))
+                      for y in labels])
+    card_sol = svm.solve(x_train, torch.from_numpy(labels),
+                         torch.from_numpy(costs))
+    t0 = time.perf_counter()
+    cpu_sol = svm.solve(x_train.cpu(), torch.from_numpy(labels),
+                        torch.from_numpy(costs))
+    cpu_s = time.perf_counter() - t0
+    w_card = torch.cat([card_sol.w, card_sol.b[:, None]], 1).cpu()
+    w_cpu = torch.cat([cpu_sol.w, cpu_sol.b[:, None]], 1)
+    gap = float(((w_card - w_cpu).abs().amax(1)
+                 / w_cpu.abs().amax(1)).max())
+    if not gap <= SVM_CPU_RTOL:
+        fail(f"SVM at C 1: the card's w is {gap:.2e} of its scale from the "
+             f"host CPU's (tol {SVM_CPU_RTOL:.0e})")
+    say("17 clf_voc07", f"{card} | solver alone at VOC2007's size "
+        f"({SVM_TRAIN} x {SVM_DIM} trainval, {SVM_TEST} test, {VOC_CLASSES} "
+        f"classes, fp64 on the card): {SVM_FITS} fits in {fit_s:.2f} s "
+        f"(Newton steps per fit {int(steps.min())}..{int(steps.max())}, "
+        f"{int(steps.sum())} in all; CV fits' steps by cost "
+        + ", ".join(f"C {c}: {int(n.min())}..{int(n.max())}" for c, n in
+                    zip(svm.SVM_COSTS, cost_steps))
+        + f"), gradient norms <= {ratio:.1e} of their "
+        f"start (gate {SVM_GRAD_GATE:.0e}), peak {peak:.2f} GiB; mAP "
+        f"{mAP:.3f} (gate {SVM_MAP_RANGE[0]}..{SVM_MAP_RANGE[1]}; signal "
+        f"{SVM_SIGNAL:.4f}, 2.5 sigma); costs chosen "
+        f"{[r.cost for r in results]}; {SVM_CPU_CLASSES} classes at C 1 equal the host CPU's "
+        f"fp64 solve within {gap:.1e} of w's scale (tol "
+        f"{SVM_CPU_RTOL:.0e}; the CPU took {cpu_s:.1f} s) | loader alone on "
+        f"the trainval JPEGs ({plane.decoder} decode, an OpenMP team of "
+        f"{LOADER_THREADS}): {loader_ips:.1f} images/s")
+    return launches
+
+
+# -- phase 18 ----------------------------------------------------------------
+REMAT_LAUNCHES = {"K1": 16, "K2": 8, "K4": 106, "K4dx": 106}
+REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-5, 1e-3
+
+
+def drawn_state(torch, port, spec, seed: int) -> dict:
+    """The state dict of a ``spec`` model on the card, drawn from ``seed``."""
+    torch.manual_seed(SEED)
+    model = port.PretrainingModelFactory.from_spec(spec, DEVICE)
+    randomize_(torch, model, seed)
+    return model.state_dict()
+
+
+def seeded_step(torch, port, spec, state: dict, seed: int):
+    """A ``spec`` model on the card loaded from ``state``, its generator
+    seeded with ``seed``, and its train step (micro-batch TRAIN_BATCH x
+    ACCUM, the flagship's optimizer)."""
+    model = port.PretrainingModelFactory.from_spec(spec, DEVICE)
+    model.load_state_dict(state, strict=True)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    opt = port.build_optimizer(model.named_parameters(),
+                               port.OptimSpec.flagship())
+    return model, gen, port.make_train_step(model, opt, ACCUM, generator=gen)
+
+
+def counted_step(torch, port, step, batch):
+    """One train step between ``reset_counts`` and ``launch_counts``, with
+    its metrics, host ms and peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port.A, port.BN)   # a main path starts here
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts(port.A, port.BN)  # ... and ends here
+    return metrics, counts, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_remat(torch, port, device):
+    """Phase 18. Returns the launches of its two counted steps."""
+    spec = port.ModelSpec.flagship()   # dropout 0.1
+    remat_spec = dataclasses.replace(spec, visual_remat=True,
+                                     textual_remat=True)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        state = drawn_state(torch, port, spec, SEED + 18)
+        plain, gen_p, step_p = seeded_step(torch, port, spec, state,
+                                           SEED + 18)
+        remat, gen_r, step_r = seeded_step(torch, port, remat_spec, state,
+                                           SEED + 18)
+        del state
+        if not (remat.visual.cnn.remat and remat.textual.transformer.remat
+                and remat.backward_textual.transformer.remat):
+            fail("ModelSpec visual_remat/textual_remat did not reach the "
+                 "ResNet and both transformers")
+        batch = train_batch(torch, spec, device, SEED + 18)
+        m_p, c_p, ms_p, gib_p = counted_step(torch, port, step_p, batch)
+        m_r, c_r, ms_r, gib_r = counted_step(torch, port, step_r, batch)
+        if c_p != LAUNCHES_PER_STEP or c_r != REMAT_LAUNCHES:
+            fail(f"remat: the plain step launched {c_p} (expected "
+                 f"{LAUNCHES_PER_STEP}), the remat step {c_r} (expected "
+                 f"{REMAT_LAUNCHES})")
+        if not abs(m_r["loss"] - m_p["loss"]) <= REMAT_LOSS_RTOL * abs(
+                m_p["loss"]) or not abs(m_r["grad_norm"] - m_p["grad_norm"]) \
+                <= REMAT_GRAD_RTOL * m_p["grad_norm"]:
+            fail(f"remat step {m_r} against the plain step {m_p}")
+        if not torch.equal(gen_p.get_state(), gen_r.get_state()):
+            fail("remat: the generator ends the step elsewhere than the "
+                 "plain step leaves it")
+        # The recomputation replays the first forward on the same inputs,
+        # dropout bits and K1 seed, and cuDNN is deterministic: every
+        # parameter and buffer after the step equals the plain step's.
+        s_p, s_r = plain.state_dict(), remat.state_dict()
+        unequal = [k for k in s_p if not torch.equal(s_p[k], s_r[k])]
+        if unequal:
+            fail(f"remat: {len(unequal)} of {len(s_p)} parameters and buffers "
+                 f"differ from the plain step's after it, e.g. {unequal[:4]}")
+        steps_ms = [host_ms(torch, lambda f=f: f(batch), 2, warmup=1)
+                    for f in (step_p, step_r, step_r, step_p)]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    card = card_line()
+    say("18 remat", f"{card} | flagship, micro-batch {TRAIN_BATCH} x accum "
+        f"{ACCUM}, bf16, dropout 0.1, cuDNN deterministic, one generator "
+        f"seed: MODEL.VISUAL.REMAT + MODEL.TEXTUAL.REMAT {json.dumps(m_r)} "
+        f"vs plain {json.dumps(m_p)}; launches {c_r} vs {c_p}; all {len(s_p)} "
+        f"parameters and buffers (BatchNorm's running statistics and "
+        f"num_batches_tracked among them) bit-equal after the step; "
+        f"generator state equal | host ms per step (plain, remat, remat, "
+        f"plain): {', '.join(f'{t:.1f}' for t in steps_ms)}; first step "
+        f"{ms_p:.1f} / {ms_r:.1f} ms; peak {gib_p:.2f} GiB plain, "
+        f"{gib_r:.2f} GiB remat")
+    del plain, remat, step_p, step_r, batch
+    return {k: c_p[k] + c_r[k] for k in c_p}
+
+
+# -- phase 19 ----------------------------------------------------------------
+STAT_STRIDE, SAMPLER_STEPS = 4, 3
+R50_BN_LAYERS = 53
+SAMPLER_LAUNCHES = {"K1": 8, "K2": 8, "K4": 0, "K4dx": 0}
+
+
+def check_sampler(torch, port, device):
+    """Phase 19. Returns the launches of its counted steps."""
+    spec = dataclasses.replace(port.ModelSpec.flagship(),
+                               bn_stat_stride=STAT_STRIDE)
+    f32 = dataclasses.replace(spec, dtype="float32")
+    batch = train_batch(torch, spec, device, SEED + 19)
+    # First step, dropout 0: bf16 through the kernels against fp32 plain
+    # math (plain attention; the sampler's BatchNorm is plain torch).
+    state = drawn_state(torch, port, spec, SEED + 19)
+    model, _, step = seeded_step(torch, port, dataclasses.replace(
+        spec, textual_dropout=0.0), state, SEED + 19)
+    ref, _, _ = seeded_step(torch, port, dataclasses.replace(
+        f32, textual_dropout=0.0), state, SEED + 19)
+    ref = plain_copy(ref, port.A, port.BN, port.MultiHeadAttention,
+                     port.SubsampledBatchNorm)
+    ref_step = port.make_train_step(ref, port.build_optimizer(
+        ref.named_parameters(), port.OptimSpec.flagship()), ACCUM)
+    metrics, counts, _, _ = counted_step(torch, port, step, batch)
+    want = {k: float(v) for k, v in ref_step(batch).items()}
+    if counts != SAMPLER_LAUNCHES:
+        fail(f"BN_STAT_STRIDE {STAT_STRIDE}: the step launched {counts}, "
+             f"expected {SAMPLER_LAUNCHES}")
+    gap = abs(metrics["loss"] - want["loss"]) / abs(want["loss"])
+    if not gap <= LOSS_RTOL:
+        fail(f"BN_STAT_STRIDE {STAT_STRIDE}: loss {metrics['loss']} against "
+             f"fp32 plain math {want['loss']} (rtol {LOSS_RTOL})")
+    bns = [m for m in model.modules()
+           if isinstance(m, port.SubsampledBatchNorm)]
+    tracked = {int(m.num_batches_tracked) for m in bns}
+    if len(bns) != R50_BN_LAYERS or tracked != {ACCUM} or not all(
+            bool(torch.isfinite(m.running_var).all()
+                 and torch.isfinite(m.running_mean).all()) for m in bns):
+        fail(f"BN_STAT_STRIDE {STAT_STRIDE}: {len(bns)} BatchNorm layers, "
+             f"num_batches_tracked {tracked}, or non-finite statistics")
+    del ref, ref_step, model, step
+    torch.cuda.empty_cache()
+    # Steps with dropout 0.1.
+    model, _, step = seeded_step(torch, port, spec, state, SEED + 190)
+    del state
+    losses, total = [], dict(counts)
+    for _ in range(SAMPLER_STEPS):
+        m, c, _, _ = counted_step(torch, port, step, batch)
+        if c != SAMPLER_LAUNCHES or not np.isfinite(m["loss"]):
+            fail(f"BN_STAT_STRIDE {STAT_STRIDE}, dropout 0.1: launched {c}, "
+                 f"loss {m['loss']}")
+        losses.append(m["loss"])
+        total = {k: total[k] + c[k] for k in total}
+    step_ms = host_ms(torch, lambda: step(batch), 3, warmup=1)
+    say("19 sampler", f"{card_line()} | flagship, micro-batch {TRAIN_BATCH} "
+        f"x accum {ACCUM}, bf16, BN_STAT_STRIDE {STAT_STRIDE} (statistics "
+        f"from {TRAIN_BATCH // max(1, min(STAT_STRIDE, TRAIN_BATCH // 8))} "
+        f"of {TRAIN_BATCH} images): first "
+        f"step, dropout 0, loss {metrics['loss']} vs fp32 plain math "
+        f"{want['loss']} (relative {gap:.2e} <= {LOSS_RTOL}); launches "
+        f"{counts}; running statistics finite, num_batches_tracked {ACCUM} "
+        f"(one per micro-step) in all {R50_BN_LAYERS} layers; "
+        f"{SAMPLER_STEPS} steps with "
+        f"dropout 0.1: losses {losses} | {step_ms:.1f} ms per step")
+    del model, step
+    return total
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -2410,7 +2816,12 @@ def import_port():
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
     from virtex_tpu_torch.optim.optimizer import build_optimizer
-    from virtex_tpu_torch.scripts import clf_linear, eval_captioning
+    from virtex_tpu_torch.scripts import (
+        clf_linear,
+        clf_voc07,
+        eval_captioning,
+    )
+    from virtex_tpu_torch.utils import svm
     from virtex_tpu_torch.scripts import pretrain_virtex as pretrain
     from virtex_tpu_torch.engine.captioner import decode_predictions
     from virtex_tpu_torch.engine.checkpointing import load_model_variables
@@ -2673,7 +3084,21 @@ def main() -> None:
     # 16. clf_linear: the linear probe and the fine-tune
     finetune_counts = check_clf_linear(torch, port, device, run,
                                        kernel_step_ms)
+    torch.cuda.empty_cache()
+
+    # 17. clf_voc07 on phase 13's checkpoint, and the SVMs at VOC's size
+    voc_counts = check_clf_voc07(torch, port, device, run)
     shutil.rmtree(WORK)
+    torch.cuda.empty_cache()
+
+    # 18. remat, against the plain step
+    remat_counts = check_remat(torch, port, device)
+    torch.cuda.empty_cache()
+
+    # 19. BatchNorm's "batch" sampler at BN_STAT_STRIDE 4
+    sampler_counts = check_sampler(torch, port, device)
+    later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
+             for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -2693,7 +3118,7 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/attention.py:87",
         "launches": serve_counts["K1"] + train_launches["K1"]
         + task_launches["K1"] + nucleus_counts["K1"]
-        + pretrain_counts["K1"],
+        + pretrain_counts["K1"] + later["K1"],
         "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err),
         **row(list(k1_eval.values())),
     }, {
@@ -2702,7 +3127,7 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "virtex_tpu/ops/attention.py:103",
         "launches": train_launches["K2"] + task_launches["K2"]
-        + nucleus_counts["K2"] + pretrain_counts["K2"],
+        + nucleus_counts["K2"] + pretrain_counts["K2"] + later["K2"],
         "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err),
         **row([t["K2"] for t in train_times.values()]),
     }, {
@@ -2712,7 +3137,7 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/batchnorm.py:128",
         "launches": train_launches["K4"] + task_launches["K4"]
         + nucleus_counts["K4"] + pretrain_counts["K4"]
-        + finetune_counts["K4"],
+        + finetune_counts["K4"] + later["K4"],
         "max_abs_err": k4_err,
         **row([tuple(t / bn_calls for t in bn_step["sums"])
                + (next(iter(bn_times.values()))["sums"][4],)]),
@@ -2723,7 +3148,7 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/batchnorm.py:278",
         "launches": train_launches["K4dx"] + task_launches["K4dx"]
         + nucleus_counts["K4dx"] + pretrain_counts["K4dx"]
-        + finetune_counts["K4dx"],
+        + finetune_counts["K4dx"] + later["K4dx"],
         "max_abs_err": dx_err,
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),

@@ -51,7 +51,10 @@ from virtex_tpu.modules.visual_backbones import (
 )
 from virtex_tpu.optim import build_optimizer as jax_build_optimizer
 from virtex_tpu_torch.config import Config
-from virtex_tpu_torch.data.datasets.downstream import ImageDirectoryDataset
+from virtex_tpu_torch.data.datasets.downstream import (
+    ImageDirectoryDataset,
+    VOC07ClassificationDataset,
+)
 from virtex_tpu_torch.data.loader import DataLoader, item_rng
 from virtex_tpu_torch.data.native_pipeline import EvalPipeline, make_pipeline
 from virtex_tpu_torch.data.transforms import EvalTransforms
@@ -414,4 +417,6 @@ def test_visual_backbone_factory_follows_the_jax_grammar():
         VisualBackboneFactory.create("detectron2::resnet18")
     with pytest.raises(KeyError, match="No downstream dataset"):
         DownstreamDatasetFactory.from_config(
-            _down_config("imagenet_clf", "datasets/VOC2007")[1], None)
+            _down_config("imagenet_clf", "datasets/places365")[1], None)
+    assert DownstreamDatasetFactory.PRODUCTS["datasets/VOC2007"] is \
+        VOC07ClassificationDataset   # tests/test_torch_voc07.py

@@ -115,8 +115,12 @@ def _last_json(text: str) -> dict:
                        if ln.startswith("{")][-1])
 
 
-def test_beam_captions_and_cider_equal_the_jax_cli(setup, capsys):
+def test_beam_captions_and_cider_equal_the_jax_cli(setup, capsys,
+                                                  monkeypatch):
     tmp, _, _, overrides, jax_ckpt, port_ckpt = setup
+    # The JAX script's common_setup would switch the process's JAX PRNG to
+    # "rbg" for every later test; keep threefry.
+    monkeypatch.setenv("VIRTEX_TPU_THREEFRY", "1")
     _jax_script("eval_captioning").main(_eval_args(
         _jax_eval_parser(), tmp / "jax_eval", jax_ckpt, overrides,
         workers="0", batch="8"))
@@ -213,6 +217,7 @@ def test_linear_probe_equals_the_jax_cli(setup, capsys, monkeypatch):
     import flax.linen as fnn
     tmp, _, _, _, jax_ckpt, port_ckpt = setup
     root = _colour_imagenet(str(tmp / "colours" / "imagenet"))
+    monkeypatch.setenv("VIRTEX_TPU_THREEFRY", "1")   # as above
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     monkeypatch.setattr(fnn.initializers, "normal",
                         lambda stddev=0.01: fnn.initializers.zeros)

@@ -94,9 +94,22 @@ def test_batchnorm_matches_jax(dtype, train):
                        1e-3) <= 1e-5
 
 
-def test_batchnorm_refuses_subsampled_statistics():
-    with pytest.raises(NotImplementedError, match="stat_stride"):
-        SubsampledBatchNorm(8, stat_stride=2)
+def test_batchnorm_samples_statistics_at_stride():
+    """``stat_stride`` 2 at B 16 runs the "batch" sampler (held against the
+    JAX package in tests/test_torch_remat.py): the statistics of the first
+    8 images, plain autograd, no K4 stage."""
+    def no_k4(*_):
+        raise AssertionError("the sampler's backward launched a K4 stage")
+
+    bn = SubsampledBatchNorm(8, stat_stride=2).train()
+    bn.sums_fn = bn.dx_fn = no_k4
+    x = torch.randn(16, 8, 2, 2, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    bn(x).square().sum().backward()
+    assert int(bn.num_batches_tracked) == 1
+    assert torch.allclose(bn.running_mean,
+                          0.1 * x[:8].detach().mean((0, 2, 3)), atol=1e-7)
+    assert torch.isfinite(x.grad).all()
 
 
 # -- ResNet-50 trunk through the visual backbone ---------------------------
@@ -152,10 +165,10 @@ def test_uint8_images_are_normalised_as_in_jax(resnet50):
 
 
 def test_resnet_refuses_tpu_layout_and_remat():
+    """STEM_S2D is a TPU layout and raises; remat is ported
+    (tests/test_torch_remat.py)."""
     with pytest.raises(NotImplementedError, match="STEM_S2D"):
         ResNetVisualBackbone("resnet18", stem_s2d=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        ResNetVisualBackbone("resnet18", remat=True)
 
 
 # -- embedding, decoder layers, textual head --------------------------------

@@ -145,6 +145,9 @@ SLICE_MODULES = [
     "virtex_tpu_torch.utils.metrics",
     "virtex_tpu_torch.models.downstream",
     "virtex_tpu_torch.data.datasets.downstream",
+    "virtex_tpu_torch.scripts.clf_voc07",
+    "virtex_tpu_torch.utils.remat",
+    "virtex_tpu_torch.utils.svm",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",

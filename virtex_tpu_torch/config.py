@@ -562,7 +562,8 @@ class ModelSpec:
     stem_s2d: bool = False
     textual_name: str = "transdec_postnorm::L1_H2048_A32_F8192"
     textual_dropout: float = 0.1
-    remat: bool = False
+    visual_remat: bool = False
+    textual_remat: bool = False
     dtype: str = "bfloat16"
     vocab_size: int = 10000
     max_caption_length: int = 30
@@ -614,7 +615,8 @@ class ModelSpec:
             stem_s2d=bool(M.VISUAL.STEM_S2D),
             textual_name=M.TEXTUAL.NAME,
             textual_dropout=float(M.TEXTUAL.DROPOUT),
-            remat=bool(M.VISUAL.REMAT or M.TEXTUAL.REMAT),
+            visual_remat=bool(M.VISUAL.REMAT),
+            textual_remat=bool(M.TEXTUAL.REMAT),
             dtype=cfg.DTYPE,
             vocab_size=int(D.VOCAB_SIZE),
             max_caption_length=int(D.MAX_CAPTION_LENGTH),

@@ -1,14 +1,13 @@
 r"""
-The transfer datasets: ImageNet, iNaturalist 2018, and a directory of
-images to caption.
+The transfer datasets: ImageNet, iNaturalist 2018, PASCAL VOC 2007, and a
+directory of images to caption.
 
 Counterpart of ``virtex_tpu/data/datasets/downstream.py``. Each dataset
 reads an item's raw bytes and hands a batch to the data plane's one image
 path (an image pipeline of
 :mod:`virtex_tpu_torch.data.native_pipeline`), as the caption datasets do.
 A file the data plane cannot decode (a PNG, a CMYK JPEG) raises, naming the
-file; nothing is skipped. ``VOC07ClassificationDataset`` is not ported
-yet.
+file; nothing is skipped.
 """
 from __future__ import annotations
 
@@ -96,6 +95,40 @@ class INaturalist2018Dataset(_LabelledImages):
                  for im in annotations["images"]}
         self.instances = [(paths[a["image_id"]], a["category_id"])
                           for a in annotations["annotations"]]
+
+
+class VOC07ClassificationDataset(_LabelledImages):
+    r"""PASCAL VOC 2007 one-vs-all labels from
+    ``{data_root}/ImageSets/Main/<class>_{split}.txt``, images from
+    ``JPEGImages/<stem>.jpg``. An item's label is one int per class, the
+    classes in name order, with the raw listing values mapped as
+    1 (present) → +1, −1 (absent) → 0, 0 (difficult) → −1 (ignored); an
+    image missing from a class's listing gets −1. Images come in the order
+    they first appear while reading the listings in class-name order.
+    """
+
+    _REMAP = {1: 1, -1: 0, 0: -1}
+
+    def __init__(self, data_root: str, split: str, pipeline):
+        super().__init__(pipeline)
+        listings = sorted(glob.glob(os.path.join(
+            data_root, "ImageSets", "Main", f"*_{split}.txt")))
+        flags: Dict[str, Dict[str, int]] = {}
+        for listing in listings:
+            table = flags[os.path.basename(listing).split("_")[0]] = {}
+            with open(listing) as f:
+                for line in f:
+                    fields = line.split()
+                    if len(fields) == 2:
+                        table[fields[0]] = self._REMAP[int(fields[1])]
+        self.class_names = list(flags)
+        stems = dict.fromkeys(stem for table in flags.values()
+                              for stem in table)
+        self.instances = [
+            (os.path.join(data_root, "JPEGImages", f"{stem}.jpg"),
+             np.asarray([flags[c].get(stem, -1) for c in self.class_names],
+                        np.int32))
+            for stem in stems]
 
 
 class ImageDirectoryDataset:

@@ -33,6 +33,7 @@ from virtex_tpu_torch.data.datasets.classification import (
 from virtex_tpu_torch.data.datasets.downstream import (
     ImageNetDataset,
     INaturalist2018Dataset,
+    VOC07ClassificationDataset,
 )
 from virtex_tpu_torch.data.datasets.masked_lm import MaskedLmDataset
 from virtex_tpu_torch.data.native_pipeline import make_pipeline
@@ -64,7 +65,7 @@ def visual_from_spec(spec: ModelSpec) -> ResNetVisualBackbone:
     return ResNetVisualBackbone(
         spec.visual_arch, frozen=spec.visual_frozen, dtype=spec.torch_dtype,
         bn_stat_stride=spec.bn_stat_stride, stem_s2d=spec.stem_s2d,
-        remat=spec.remat)
+        remat=spec.visual_remat)
 
 
 def textual_from_spec(spec: ModelSpec) -> nn.Module:
@@ -75,7 +76,8 @@ def textual_from_spec(spec: ModelSpec) -> nn.Module:
         vocab_size=spec.vocab_size, dropout=spec.textual_dropout,
         mask_future_positions=spec.model_name in CAPTIONING_MODELS,
         max_caption_length=spec.max_caption_length,
-        padding_idx=spec.unk_index, dtype=spec.torch_dtype, remat=spec.remat,
+        padding_idx=spec.unk_index, dtype=spec.torch_dtype,
+        remat=spec.textual_remat,
         **spec.textual)
 
 
@@ -194,6 +196,7 @@ class DownstreamDatasetFactory:
     datasets: the whole short side, centre-cropped."""
 
     PRODUCTS = {
+        "datasets/VOC2007": VOC07ClassificationDataset,
         "datasets/imagenet": ImageNetDataset,
         "datasets/inaturalist": INaturalist2018Dataset,
     }
@@ -205,7 +208,7 @@ class DownstreamDatasetFactory:
         root = _C.DATA.ROOT
         key = next((p for p in cls.PRODUCTS
                     if root.rstrip("/").endswith(p.split("/")[-1])), None)
-        if key is None:  # VOC2007's is clf_voc07's, not ported yet
+        if key is None:
             raise KeyError(f"No downstream dataset for root {root!r}")
         names = (_C.DATA.IMAGE_TRANSFORM_TRAIN if "train" in split
                  else _C.DATA.IMAGE_TRANSFORM_VAL)

@@ -2,19 +2,27 @@ r"""
 BatchNorm with the JAX package's dtype staging and running-stat update.
 
 Counterpart of ``virtex_tpu/modules/normalization.py``
-:class:`SubsampledBatchNorm` at ``stat_stride = 1`` (exact BatchNorm):
+:class:`SubsampledBatchNorm`:
 
 - statistics in fp32, variance as E[x²] − E[x]² clamped at 0;
-- the running variance tracks the UNBIASED variance (Bessel ×n/(n−1)),
-  as torch's ``BatchNorm2d`` does, and normalization uses the biased one;
+- the running variance tracks the UNBIASED variance (Bessel ×n/(n−1), n
+  the statistics' elements per channel), as torch's ``BatchNorm2d`` does,
+  and normalization uses the biased one;
 - ``momentum`` keeps the flax convention: 0.9 here is torch's 0.1;
 - the output is computed in ``dtype``: ``(x − mean) · (γ·rsqrt(var+ε))``
   with the fp32 factor cast to ``dtype``, then ``+ β``;
-- in training the forward and backward are
-  :func:`virtex_tpu_torch.ops.batchnorm.bn_train`, whose backward takes its
-  channel sums from ``sums_fn`` and dx from ``dx_fn`` (kernel K4's two
-  stages on CUDA; a comparison against the plain versions swaps them by
-  name).
+- in training at ``stat_stride`` 1 (exact BatchNorm) the forward and
+  backward are :func:`virtex_tpu_torch.ops.batchnorm.bn_train`, whose
+  backward takes its channel sums from ``sums_fn`` and dx from ``dx_fn``
+  (kernel K4's two stages on CUDA; a comparison against the plain versions
+  swaps them by name);
+- at ``stat_stride`` > 1 the statistics come from the "batch" sample: the
+  first ``B // div`` images, ``div = max(1, min(stat_stride, B // 8))``, so
+  a batch under 16 stays exact. The whole batch is normalised with them,
+  and plain autograd differentiates it, so the statistics' gradient flows
+  through the sample alone. As in the JAX package, whose kernel gate
+  needs ``stat_stride`` 1, this path launches no K4. The JAX package's
+  other sampler, "rows", is reached by no config key and is not ported.
 
 Channels sit on dim 1 (NCHW, usually a ``channels_last`` view of NHWC
 memory). Parameter and buffer names are torch's (``weight``, ``bias``,
@@ -38,12 +46,8 @@ class SubsampledBatchNorm(nn.Module):
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32,
                  stat_stride: int = 1, zero_init: bool = False):
         super().__init__()
-        if stat_stride != 1:
-            # The subsampled ("batch") statistics come with training.
-            raise NotImplementedError(
-                f"stat_stride={stat_stride}: only exact BatchNorm "
-                "(stat_stride=1) is ported")
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.stat_stride = stat_stride
         init = torch.zeros if zero_init else torch.ones
         self.weight = nn.Parameter(init(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -62,8 +66,24 @@ class SubsampledBatchNorm(nn.Module):
                                    + (1.0 - m) * var * (n / max(n - 1, 1)))
             self.num_batches_tracked.add_(1)
 
+    def _sampled(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode forward on the "batch" sample's statistics."""
+        B, C = x.shape[0], x.shape[1]
+        div = max(1, min(self.stat_stride, B // 8))
+        sample = (x[: B // div] if div > 1 else x).float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = sample.mean(dims)
+        var = torch.clamp(sample.square().mean(dims) - mean.square(),
+                          min=0.0)
+        self._update_running(mean.detach(), var.detach(),
+                             sample.numel() // C)
+        return bn_apply(x, mean, 1.0 / torch.sqrt(var + self.eps),
+                        self.weight, self.bias, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         C = x.shape[1]
+        if self.training and self.stat_stride > 1:
+            return self._sampled(x)
         if self.training:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
                                     self.dtype, self.sums_fn, self.dx_fn)

@@ -11,6 +11,9 @@ Input and output are NHWC, as in the JAX package. Inside, the trunk runs
 on ``x.permute(0, 3, 1, 2)``: an NCHW view of NHWC memory, i.e. a
 ``channels_last`` tensor, which ``F.conv2d`` hands to cuDNN as it is.
 Parameters and BN statistics are fp32; convs and BN outputs are ``dtype``.
+With ``remat`` each residual block runs through
+:func:`virtex_tpu_torch.utils.remat.remat` in training: its activations are
+recomputed in the backward (``nn.remat`` of the block in the JAX package).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+from virtex_tpu_torch.utils.remat import remat as remat_call
 
 
 class Conv2d(nn.Conv2d):
@@ -104,9 +108,9 @@ class ResNet(nn.Module):
                  num_filters: int = 64, base_width: int = 64,
                  groups: int = 1, dtype: torch.dtype = torch.bfloat16,
                  bn_momentum: float = 0.9, bn_eps: float = 1e-5,
-                 bn_stat_stride: int = 1):
+                 bn_stat_stride: int = 1, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
 
         def norm(features, zero_init=False):
             return SubsampledBatchNorm(features, bn_momentum, bn_eps, dtype,
@@ -132,7 +136,8 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = remat_call(block, x) if self.remat else block(x)
         return x.permute(0, 2, 3, 1)
 
 
@@ -161,7 +166,5 @@ def make_resnet(name: str, dtype: torch.dtype = torch.bfloat16,
         # A TPU layout trick (space-to-depth stem for the MXU); cuDNN
         # takes the stride-2 stem conv as it is.
         raise NotImplementedError("STEM_S2D is a TPU layout; not ported")
-    if remat:
-        raise NotImplementedError("remat is for training; not ported yet")
-    return ResNet(dtype=dtype, bn_stat_stride=bn_stat_stride,
+    return ResNet(dtype=dtype, bn_stat_stride=bn_stat_stride, remat=remat,
                   **_RESNET_DEFS[name])

@@ -18,6 +18,12 @@ Dropout in training draws every bit from the :class:`torch.Generator` the
 caller passes down (``generator=``): the sublayer and FFN masks, and the
 seed of the attention kernel's in-kernel dropout. Training with dropout
 and no generator raises, so a step is reproducible from its seed.
+
+With ``remat`` each decoder layer runs through
+:func:`virtex_tpu_torch.utils.remat.remat` in training (``nn.remat`` of the
+layer in the JAX package): the backward recomputes it from the generator's
+state before the layer, so the attention kernel runs twice on one seed.
+The decode path is never rematerialised.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from virtex_tpu_torch.ops.attention import NEG_INF, fused_attention
+from virtex_tpu_torch.utils.remat import remat as remat_call
 
 Cache = Dict[str, torch.Tensor]
 
@@ -251,9 +258,7 @@ class TransformerDecoder(nn.Module):
                  norm_type: str = "post", dtype: torch.dtype = torch.bfloat16,
                  remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is for training; not ported yet")
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.layers = nn.ModuleList([
             DecoderLayer(hidden_size, num_heads, feedforward_size, dropout,
                          norm_type, dtype) for _ in range(num_layers)])
@@ -267,7 +272,8 @@ class TransformerDecoder(nn.Module):
     def forward(self, x, visual, self_mask=None,
                 generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x, visual, self_mask, generator)
+            x = (remat_call(layer, x, visual, self_mask, generator=generator)
+                 if self.remat else layer(x, visual, self_mask, generator))
         return self._final(x)
 
     def init_cache(self, visual, batch: int, max_length: int) -> List[Cache]:

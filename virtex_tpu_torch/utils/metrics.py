@@ -1,11 +1,14 @@
 r"""
-Evaluation metrics: running top-k accuracy, and the COCO caption metrics
-(CIDEr-D, SPICE).
+Evaluation metrics: running top-k accuracy, average precision, and the
+COCO caption metrics (CIDEr-D, SPICE).
 
 Counterpart of ``virtex_tpu/utils/metrics.py``, in numpy and plain Python:
 
 - :class:`TopkAccuracy` accumulates over batches of (B, C) or (B, T, C)
   logits and reports a percentage;
+- :func:`average_precision` is the binary average precision that VOC07's
+  SVMs are scored by, with sklearn's ``average_precision_score``
+  semantics;
 - :func:`ptb_tokenize` is the JAX package's pure-Python Penn-Treebank
   tokenizer (lowercased, punctuation dropped), rule for rule;
 - :func:`cider` is CIDEr-D: tf-idf weighted 1- to 4-gram cosines against
@@ -62,6 +65,23 @@ class TopkAccuracy:
         if reset:
             self.reset()
         return accuracy
+
+
+def average_precision(y_true, y_score) -> float:
+    """AP = Σₙ (Rₙ − Rₙ₋₁)·Pₙ over the distinct scores from the highest
+    down, with R₋₁ = 0: tied scores form one step. Label 1 is positive,
+    anything else negative. With no positive the recall is taken as 1 at
+    every threshold, as sklearn takes it, so AP is the precision at the
+    highest score: 0."""
+    positive = np.asarray(y_true).ravel() == 1
+    score = np.asarray(y_score, np.float64).ravel()
+    order = np.argsort(score, kind="mergesort")[::-1]
+    score, positive = score[order], positive[order]
+    last = np.r_[np.flatnonzero(np.diff(score)), score.size - 1]
+    tps = np.cumsum(positive)[last].astype(np.float64)
+    precision = tps / (last + 1)
+    recall = tps / tps[-1] if tps[-1] else np.ones_like(tps)
+    return float(np.sum(np.diff(recall, prepend=0.0) * precision))
 
 
 # -- PTB tokenization ----------------------------------------------------------
