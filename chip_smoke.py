@@ -32,7 +32,8 @@ prints no result, when there is no card or when any phase fails:
    scalar variants), and the fp32 and both mixed-dtype instantiations; two
    launches of each give equal bits. Both stages also at batch 256 (the
    fine-tune's one micro-step) at its largest and smallest shapes,
-   112×112×64 and 7×7×2048.
+   112×112×64 and 7×7×2048; and stage 2 with ``m_total`` = 2·M (sums
+   reduced over two ranks) at 112×112×64 and 7×7×2048.
 6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
    bf16 (built by ``PretrainingModelFactory.from_spec`` on the card, its
    default; weights from a numpy seed), batch 32 of captions of varied
@@ -142,6 +143,29 @@ prints no result, when there is no card or when any phase fails:
     step's loss (dropout 0) within LOSS_RTOL of fp32 plain math on the card,
     running statistics finite and ``num_batches_tracked`` one per micro-step
     in all 53 layers; then steps with dropout 0.1 and their ms.
+20. data parallelism: (a) phase 13's CLI run again as rank 0 of a process
+    group of one over NCCL, joined through torchrun's environment: losses,
+    validation and every tensor of its last checkpoint bit-equal to phase
+    13's, the launches of every step as there, and the all-reduces counted
+    (53 + 53 BatchNorm ones per micro-step, one of the gradients per
+    iteration, the losses' denominators and the metrics). (b) two ranks
+    over gloo on the one card, each a process of its own (``python3
+    chip_smoke.py --dp-rank R ...``), the flagship at full width from rank
+    0's weights by broadcast, one step on global batch 2 x 128 as two ranks
+    of 64 x accum 2, dropout 0, against one process on the same global
+    micro-batches: fp32 with TF32 off, the losses, the BatchNorm running
+    buffers and the gradients outside the ResNet within DP_FP32_TOL of each
+    tensor's scale; then the fp32 step again with the ResNet's ReLU masks
+    and max-pool choices pinned to the one process's (``ResNetBranches``),
+    every gradient, buffer and loss within DP_FP32_TOL; and ``bn_train``
+    synced over the ranks against one process at 112×112×64 and 7×7×2048
+    within DP_FP32_TOL;
+    bf16, the losses within LOSS_RTOL; 8 K1, 8 K2 and 106 + 106 K4 launches per rank; the ranks'
+    dropout seeds and K1/K2 keep masks differ, each equal to
+    ``philox_keep_reference`` on its seed. Host ms of the world-2 step
+    (gloo stages the all-reduces through the host) and the host ms inside
+    its all-reduces by kind. Every phase's seconds are printed before the
+    kernels line.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -156,6 +180,7 @@ import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -257,7 +282,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Seconds per phase: the time since the previous line goes to this line's
+# phase number.
+PHASE_SECONDS: dict = {}
+_LAST_LINE = [time.perf_counter()]
+
+
 def say(phase: str, msg: str) -> None:
+    now = time.perf_counter()
+    key = phase.split()[0]
+    PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -700,6 +735,34 @@ def check_k4(torch, BN, device):
             sums_err = max(sums_err, float((out - ref).abs().max()))
             dx_err = max(dx_err, float((dx.float() - dx_ref.float()).abs()
                                        .max()))
+    # Stage 2 under data parallelism: sums reduced over DP_WORLD ranks and
+    # m_total their count (here the local sums doubled, as two ranks
+    # holding the same shard would give). dy has a mean and a part along
+    # x̂, so that dβ/M and dγ/M are O(1) and a wrong count shows.
+    for hw, C in FINETUNE_K4_SHAPES:
+        dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device, gen)
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        dy = (dy.float() + 1.0 + 0.5 * xhat).to(torch.bfloat16)
+        weight = torch.rand(C, generator=gen, device=device) + 0.5
+        total = 2.0 * BN.bn_backward_sums_reference(dy, x, mean, rstd)
+        M = TRAIN_BATCH * hw * hw
+        before = bn_counts(BN)
+        dx = BN.bn_backward_dx(dy, x, mean, rstd, weight, total,
+                               m_total=DP_WORLD * M)
+        dx_ref = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight,
+                                             total, m_total=DP_WORLD * M)
+        local = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight, total)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(bn_counts(BN), before))
+        err_dx = rel_err(dx, dx_ref, 1.0)
+        name = f"m_total 2M {hw}x{hw}x{C}"
+        worst[name] = (0.0, err_dx)
+        if launched != (0, 0, 1, 1) or not err_dx <= DX_TOL["bfloat16"]:
+            fail(f"K4 dx {name}: launches {launched}, error {err_dx:.3e} > "
+                 f"{DX_TOL['bfloat16']:.1e}")
+        if rel_err(dx, local, 1.0) <= DX_TOL["bfloat16"]:
+            fail(f"K4 dx {name}: m_total changed nothing")
+        dx_err = max(dx_err, float((dx.float() - dx_ref.float()).abs().max()))
     summary = ", ".join(f"{k} {v[0]:.2e}/{v[1]:.2e}"
                         for k, v in worst.items())
     return sums_err, dx_err, summary
@@ -1823,8 +1886,8 @@ def check_evals(run: str, evals: list) -> None:
 
 def check_pretraining(torch, port, device):
     """Phase 13. Returns its launches, and the run directory, the COCO root
-    and the tokenizer JSON that phases 14 and 16 read (under WORK, which
-    main removes)."""
+    and the tokenizer JSON that phases 14, 16 and 20 read (under WORK,
+    which main removes), the CLI's arguments and its result."""
     probe = probe_decoders()
     plane = port.DataPlane(port.decoder_for(device))
     decode_err = check_decoder(torch, plane, device)
@@ -1956,7 +2019,7 @@ def check_pretraining(torch, port, device):
         f"{PRETRAIN_ITERS}, each ending in a sync): "
         f"{', '.join(f'{1e3 * s:.1f}' for s in seconds)}; median "
         f"{step_ms:.1f} ms = {images / step_ms * 1e3:.1f} images/s")
-    return launches, run, root, tokenizer
+    return launches, run, root, tokenizer, base, result
 
 
 # -- phases 14-16 ------------------------------------------------------------
@@ -2792,6 +2855,631 @@ def check_sampler(torch, port, device):
     return total
 
 
+# -- phase 20 ----------------------------------------------------------------
+# (a) The pretraining CLI of phase 13 again, as rank 0 of a process group of
+# one over NCCL (torchrun's environment): per train step, in each of the 53
+# BatchNorm layers of both micro-steps the forward statistics and K4's sums,
+# the two caption losses' denominators of both micro-steps, one gradient and
+# one metrics all-reduce; per validation (one batch of 64) the metrics and
+# the two denominators.
+VALIDATIONS = PRETRAIN_ITERS // PRETRAIN_CKPT_EVERY
+DP1_COLLECTIVES = {
+    "bn_stats": R50_BN_LAYERS * ACCUM * PRETRAIN_ITERS,
+    "bn_sums": R50_BN_LAYERS * ACCUM * PRETRAIN_ITERS,
+    "loss_count": 2 * ACCUM * PRETRAIN_ITERS + 2 * VALIDATIONS,
+    "grads": PRETRAIN_ITERS, "metrics": PRETRAIN_ITERS + VALIDATIONS}
+# (b) Two ranks over gloo on the one card, each a process with its own CUDA
+# context: global batch ACCUM x TRAIN_BATCH, DP_LOCAL images of each
+# micro-batch per rank, against one process on the same global batch, in
+# fp32 with TF32 off and in bf16. The ranks' convolutions over 64 images do
+# not give the bits of one over 128, and a last-bit difference in a
+# pre-activation that lies within it of zero flips that ReLU (or a max-pool
+# window's choice): the flipped element's whole term leaves or joins the
+# weight gradient upstream, a sum over M positions that at random weights
+# has no coherent part, so one flip moves it by ~1/sqrt(M) of its scale
+# (~1e-2 in layer4, M = 6272). The main-path fp32 step is held where flips
+# do not reach: the losses, the BatchNorm running buffers and the
+# gradients outside the ResNet within DP_FP32_TOL of each tensor's scale.
+# A second fp32 step replays the one process's ReLU masks and max-pool
+# indices on each rank's rows (ResNetBranches): the same function on both
+# sides, piecewise-linear branch for branch, so the losses, the buffers
+# and every gradient tensor's relative L2 error are held within
+# DP_FP32_TOL, and each gradient element within DP_SUM_TOL of its tensor's
+# scale. cuDNN is deterministic in both fp32 steps. bf16: the losses
+# within LOSS_RTOL.
+DP_WORLD = 2
+DP_LOCAL = TRAIN_BATCH // DP_WORLD
+DP_FP32_TOL = 1e-4
+# A pinned gradient per element at its tensor's scale: layer1's dβ sums
+# M = 2 x 128 x 56² = 802816 terms of random sign, which the ranks add in
+# halves and one process whole; fp32 adds ~2^-24·sqrt(M) = 5.3e-5 of the
+# sum's scale by the order alone (measured on the H100: 1.22e-4, with
+# every tensor's relative L2 error under 7.2e-5).
+DP_SUM_TOL = 4e-4
+DP_ERRORS = ("loss_err", "buffer_err", "other_grad_err", "grad_l2")
+DP_STEP_COLLECTIVES = {"bn_stats": R50_BN_LAYERS * ACCUM,
+                       "bn_sums": R50_BN_LAYERS * ACCUM,
+                       "loss_count": 2 * ACCUM, "grads": 1, "metrics": 1}
+DP_TIMEOUT_S = 600
+
+
+def raw_counts(A, BN) -> dict:
+    """The launches since ``reset_counts``, whatever their variants."""
+    return {"K1": A.launch_count, "K2": A.bwd_launch_count,
+            "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
+
+
+def check_dp_world_1(torch, port, device, base, run13, result13):
+    """Phase 20(a). Returns its launches."""
+    from virtex_tpu_torch.utils import distributed
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        free = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free)}
+    os.environ.update(env)
+    run = os.path.join(WORK, "run_nccl1")
+    steps, evals = [], []
+    t0 = time.perf_counter()
+    try:
+        distributed.reset_all_reduce_counts()
+        reset_counts(port.A, port.BN)     # a main path starts here
+        result = run_pretrain(torch, port, base + ["--serialization-dir",
+                                                   run], steps, evals)
+        torch.cuda.synchronize()
+        launches = launch_counts(port.A, port.BN)  # ... and ends here
+        backend = torch.distributed.get_backend()
+        world = distributed.get_world_size()
+        collectives = dict(distributed.all_reduce_counts)
+    finally:
+        distributed.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    if (backend, world) != ("nccl", 1):
+        fail(f"NCCL at world 1: the run's group was {backend} of {world}")
+    if steps != [LAUNCHES_PER_STEP] * PRETRAIN_ITERS:
+        fail(f"NCCL at world 1: train steps launched {steps}")
+    check_evals("NCCL at world 1", evals)
+    if collectives != DP1_COLLECTIVES:
+        fail(f"NCCL at world 1: all-reduces {collectives}, expected "
+             f"{DP1_COLLECTIVES}")
+    if result["losses"] != result13["losses"] \
+            or result["val"] != result13["val"]:
+        fail(f"NCCL at world 1: losses {result['losses']}, validation "
+             f"{result['val']} against phase 13's {result13['losses']}, "
+             f"{result13['val']}")
+    a = flat_state(port, os.path.join(run13, f"checkpoint_{PRETRAIN_ITERS}"
+                                      ".pth"))
+    b = flat_state(port, os.path.join(run, f"checkpoint_{PRETRAIN_ITERS}"
+                                      ".pth"))
+    unequal = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or unequal:
+        fail(f"NCCL at world 1: {len(unequal)} of {len(a)} tensors of "
+             f"checkpoint_{PRETRAIN_ITERS} differ from phase 13's, e.g. "
+             f"{unequal[:4]}")
+    say("20 data parallel", f"(a) in {time.perf_counter() - t0:.1f} s: "
+        f"python -m virtex_tpu_torch.scripts."
+        f"pretrain_virtex as rank 0 of a process group of 1 over NCCL "
+        f"(torchrun's environment), phase 13's data and flags: losses and "
+        f"validation equal to phase 13's, all {len(a)} model and optimizer "
+        f"tensors of checkpoint_{PRETRAIN_ITERS} bit-equal; all-reduces "
+        f"{json.dumps(collectives)}; launches per train step {steps[0]} "
+        f"(all {PRETRAIN_ITERS})")
+    return launches
+
+
+class ResNetBranches:
+    """The ResNet's piecewise choices, each ReLU's mask and the stem's
+    max-pool indices, in call order: recorded from one run (``saved`` None)
+    or replayed into another (``saved``: what a recording gave, for this
+    run's rows). A replayed ReLU keeps the recorded mask's elements and a
+    replayed max pool takes the recorded indices, so the run computes the
+    recorded run's branch of the network; ``flips`` counts where its own
+    choices differ. Use as a context manager around the step: it swaps
+    ``modules/resnet.py``'s ``F`` for this object."""
+
+    def __init__(self, torch, saved=None):
+        self.torch, self.saved = torch, saved
+        self.record = saved is None
+        self.entries, self.at = [], 0
+        self.flips = {"relu": 0, "max_pool": 0}
+
+    def __getattr__(self, name):   # every other F.<fn>
+        return getattr(self.torch.nn.functional, name)
+
+    def __enter__(self):
+        from virtex_tpu_torch.modules import resnet
+        self.module, self.plain = resnet, resnet.F
+        resnet.F = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.F = self.plain
+
+    def _next(self, kind, like):
+        want = self.saved[self.at]
+        self.at += 1
+        if want.shape != like.shape:
+            fail(f"replayed {kind} {self.at}: {tuple(want.shape)} against "
+                 f"{tuple(like.shape)}")
+        return self.torch.empty_like(like, dtype=want.dtype).copy_(want)
+
+    def relu(self, x):
+        torch = self.torch
+        mask = x > 0
+        if self.record:
+            self.entries.append(mask)
+            return torch.relu(x)
+        want = self._next("ReLU mask", mask)
+        self.flips["relu"] += int((mask != want).sum())
+        return torch.where(want, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    def max_pool2d(self, x, kernel, stride, padding):
+        torch = self.torch
+        y, idx = torch.nn.functional.max_pool2d(x, kernel, stride, padding,
+                                                return_indices=True)
+        if self.record:
+            self.entries.append(idx)
+            return y
+        want = self._next("max-pool indices", idx)
+        self.flips["max_pool"] += int((idx != want).sum())
+        picked = torch.gather(x.flatten(2), 2, want.flatten(2))
+        return torch.empty_like(y).copy_(picked.view(y.shape))
+
+
+BIT_SHIFTS = tuple(range(8))
+
+
+def pack_rows(torch, entries, rows) -> list:
+    """A recording's entries cut to ``rows`` of the batch dim, for a rank:
+    masks packed 8 to a byte, indices as int16 (< 112², the stem's
+    plane)."""
+    out = []
+    for t in entries:
+        t = t[rows].contiguous()
+        if t.dtype == torch.bool:
+            shifts = torch.tensor(BIT_SHIFTS, dtype=torch.uint8,
+                                  device=t.device)
+            data = (t.view(-1, 8).to(torch.uint8) << shifts).sum(
+                1, dtype=torch.uint8)
+        else:
+            data = t.to(torch.int16)
+        out.append((tuple(t.shape), str(t.dtype), data.cpu()))
+    return out
+
+
+def unpack_rows(torch, packed, device) -> list:
+    out = []
+    for shape, dtype, data in packed:
+        data = data.to(device)
+        if dtype == "torch.bool":
+            shifts = torch.tensor(BIT_SHIFTS, dtype=torch.uint8,
+                                  device=device)
+            t = ((data.unsqueeze(1) >> shifts) & 1).bool().view(shape)
+        else:
+            t = data.long().view(shape)
+        out.append(t)
+    return out
+
+
+def conditioning(torch, model, SubsampledBatchNorm):
+    """Hooks on every BatchNorm of ``model`` that record, once, the
+    smallest var/mean² over its input's channels (fp64 statistics):
+    where E[x²] − E[x]² cancels most. Returns the {name: (ratio, channel)}
+    dict they fill and a function that removes them."""
+    found = {}
+
+    def hook(name):
+        def record(module, inputs):
+            if name in found:
+                return
+            x = inputs[0].detach().double()
+            dims = [d for d in range(x.dim()) if d != 1]
+            var, mean = torch.var_mean(x, dims, correction=0)
+            ratio = var / mean.square().clamp(min=1e-300)
+            c = int(ratio.argmin())
+            found[name] = (float(ratio[c]), c)
+        return record
+
+    handles = [m.register_forward_pre_hook(hook(n))
+               for n, m in model.named_modules()
+               if isinstance(m, SubsampledBatchNorm)]
+    return found, lambda: [h.remove() for h in handles]
+
+
+def grad_errors(torch, grads, ref, device) -> dict:
+    """Per tensor: max |a − b| / (|b| + max |b|), the per-element error at
+    the tensor's scale."""
+    return {n: rel_err(g.to(device), ref[n].to(device),
+                       float(ref[n].abs().max()) + 1e-30)
+            for n, g in grads.items()}
+
+
+def dp_reference(torch, port, device, work) -> dict:
+    """One process's steps on the global batch, written for the ranks with
+    the weights and the batch: fp32, recording the ResNet's branches (each
+    rank's rows written to ``branches<r>.pt``), and bf16. Returns the
+    smallest var/mean² of each BatchNorm's input channels in the fp32
+    step's first micro-step."""
+    spec = dataclasses.replace(port.ModelSpec.flagship(),
+                               textual_dropout=0.0)
+    state = drawn_state(torch, port, spec, SEED + 20)
+    batch = train_batch(torch, spec, device, SEED + 20)
+    ref = {"state": {k: v.cpu() for k, v in state.items()},
+           "batch": {k: v.cpu() for k, v in batch.items()}}
+    deterministic = torch.backends.cudnn.deterministic
+    for dtype in ("float32", "bfloat16"):
+        # fp32 with no atomics in cuDNN's backward, on both sides
+        torch.backends.cudnn.deterministic = dtype == "float32" \
+            or deterministic
+        model, _, step = seeded_step(torch, port, dataclasses.replace(
+            spec, dtype=dtype), state, SEED + 20)
+        if dtype == "float32":
+            ratios, unhook = conditioning(torch, model,
+                                          port.SubsampledBatchNorm)
+            with ResNetBranches(torch) as branches:
+                metrics = step(batch)
+            unhook()
+            for r in range(DP_WORLD):
+                rows = slice(r * DP_LOCAL, (r + 1) * DP_LOCAL)
+                torch.save(pack_rows(torch, branches.entries, rows),
+                           os.path.join(work, f"branches{r}.pt"))
+            del branches
+            ref[dtype] = {
+                "grads": {n: p.grad.cpu()
+                          for n, p in model.named_parameters()},
+                "buffers": {n: b.cpu() for n, b in model.named_buffers()
+                            if n.endswith(("running_mean",
+                                           "running_var"))}}
+        else:
+            metrics = step(batch)
+            ref[dtype] = {}
+        ref[dtype]["metrics"] = {k: float(v) for k, v in metrics.items()}
+        del model, step
+    torch.backends.cudnn.deterministic = deterministic
+    torch.save(ref, os.path.join(work, "reference.pt"))
+    del state, batch, ref
+    torch.cuda.empty_cache()
+    return ratios
+
+
+def dp_bn_check(torch, port, mesh, device) -> float:
+    """``bn_train`` synced over the ranks, each on its rows of one batch of
+    TRAIN_BATCH, against ``bn_train`` on the whole batch in this process,
+    fp32 at FINETUNE_K4_SHAPES (K4's vector variants): this rank's dx rows,
+    the ranks' dγ and dβ summed, the mean and the variance. The cotangent
+    has a mean and a part along x, so that the sums' terms of dx are O(1)
+    and a wrong count shows. Returns the largest error at each tensor's
+    scale."""
+    from virtex_tpu_torch.ops._mesh import kernel_group
+    from virtex_tpu_torch.utils import distributed
+    rows = slice(mesh.rank * DP_LOCAL, (mesh.rank + 1) * DP_LOCAL)
+    worst = 0.0
+    for hw, C in FINETUNE_K4_SHAPES:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 20 + C)
+
+        def draw():
+            return torch.randn(TRAIN_BATCH, hw, hw, C, generator=gen,
+                               device=device).permute(0, 3, 1, 2)
+        x = draw().mul_(2.0).add_(0.5)
+        g = draw().add_(1.0).add_(0.5 * x)
+        weight = torch.rand(C, generator=gen, device=device) + 0.5
+        bias = 0.1 * torch.randn(C, generator=gen, device=device)
+
+        def run(x, g, group):
+            x = x.detach().requires_grad_()
+            w, b = (t.clone().requires_grad_() for t in (weight, bias))
+            with kernel_group(group):
+                y, mean, var = port.BN.bn_train(x, w, b, 1e-5,
+                                                torch.float32)
+                y.backward(g)
+            return x.grad, w.grad, b.grad, mean, var
+
+        dx, dw, db, mean, var = run(x, g, None)
+        got = run(x[rows], g[rows], mesh.group)
+        sums = distributed.all_reduce_sum(torch.stack(got[1:3]), "check")
+        for a, b in ((got[0], dx[rows]), (sums[0], dw), (sums[1], db),
+                     (got[3], mean), (got[4], var)):
+            worst = max(worst, rel_err(a, b, float(b.abs().max())))
+        del x, g, dx, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def fp32_errors(torch, model, metrics, want, device) -> dict:
+    """A rank's fp32 step against one process's: the largest error of each
+    kind at each tensor's scale, and the tensor with the largest gradient
+    error."""
+    errs = grad_errors(torch, {n: p.grad for n, p in
+                               model.named_parameters()},
+                       want["grads"], device)
+    buffers = dict(model.named_buffers())
+    worst = max(errs, key=errs.get)
+    l2 = {n: float((p.grad.double() - want["grads"][n].to(device).double())
+                   .norm() / want["grads"][n].double().norm().clamp(
+                       min=1e-300).to(device))
+          for n, p in model.named_parameters()}
+    return {"grad_err": errs[worst], "worst": worst,
+            "top": sorted(((v, n) for n, v in errs.items()),
+                          reverse=True)[:5],
+            "grad_l2": max(l2.values()),
+            "other_grad_err": max(v for n, v in errs.items()
+                                  if not n.startswith("visual.")),
+            "buffer_err": max(rel_err(buffers[n], r.to(device),
+                                      float(r.abs().max()))
+                              for n, r in want["buffers"].items()),
+            "loss_err": max(abs(metrics[k] - v) / abs(v)
+                            for k, v in want["metrics"].items()
+                            if k != "grad_norm"),
+            "grads": len(errs), "buffers": len(want["buffers"])}
+
+
+@contextlib.contextmanager
+def timed_all_reduces(torch, totals: dict):
+    """Add the host ms spent inside ``torch.distributed.all_reduce`` to
+    ``totals`` by what is reduced (the flat gradient buffer, a (2, C)
+    BatchNorm tensor, or a scalar or metrics vector), each call after a
+    synchronize, so that the wait for the card's queued work is not
+    counted."""
+    dist = torch.distributed
+    plain = dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(tensor, *args, **kwargs)
+        kind = ("grads" if tensor.numel() > 2**20 else
+                "bn (2, C)" if tensor.dim() == 2 else "scalars")
+        totals[kind] = totals.get(kind, 0.0) \
+            + (time.perf_counter() - t0) * 1e3
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield
+    finally:
+        dist.all_reduce = plain
+
+
+def dp_worker(rank: int, work: str, url: str) -> None:
+    """Phase 20(b), one rank: the fp32 and bf16 steps on its shard of the
+    global batch from rank 0's weights (fp32 twice: on its own ReLU and
+    max-pool choices, then on the one process's), and its dropout stream;
+    writes ``rank<r>.json``."""
+    import torch
+    sys.path.insert(0, REPO)
+    port = import_port()
+    from virtex_tpu_torch.engine.train_state import step_seed
+    from virtex_tpu_torch.parallel import create_mesh, replicate_
+    from virtex_tpu_torch.utils import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(DEVICE)
+    torch.cuda.set_device(device)
+    distributed.initialize(url, DP_WORLD, rank, backend="gloo")
+    mesh = create_mesh()
+    ref = torch.load(os.path.join(work, "reference.pt"), weights_only=True)
+    rows = slice(rank * DP_LOCAL, (rank + 1) * DP_LOCAL)
+    batch = {k: v[:, rows].to(device) for k, v in ref["batch"].items()}
+    out = {"rank": rank, "local_batch": int(batch["image"].shape[1])}
+    spec = dataclasses.replace(port.ModelSpec.flagship(),
+                               textual_dropout=0.0)
+
+    def fresh_step(model):
+        opt = port.build_optimizer(model.named_parameters(),
+                                   port.OptimSpec.flagship())
+        gen = torch.Generator(device=device)
+        gen.manual_seed(step_seed(SEED, 0, rank))
+        return port.make_train_step(model, opt, ACCUM, generator=gen,
+                                    mesh=mesh)
+
+    for name in ("float32", "bfloat16"):
+        torch.backends.cudnn.deterministic = name == "float32"
+        model = port.PretrainingModelFactory.from_spec(
+            dataclasses.replace(spec, dtype=name), DEVICE)
+        model.load_state_dict(ref["state"], strict=True)
+        if rank:  # other weights, which the broadcast must replace
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(0.5)
+        replicate_(model, mesh)
+        step = fresh_step(model)
+        distributed.reset_all_reduce_counts()
+        torch.cuda.synchronize()
+        reset_counts(port.A, port.BN)   # a main path starts here
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = (raw_counts if name == "float32" else launch_counts)(
+            port.A, port.BN)             # ... and ends here
+        res = {"metrics": metrics, "launches": counts,
+               "collectives": dict(distributed.all_reduce_counts),
+               "first_ms": first_ms}
+        if name == "float32":
+            res.update(fp32_errors(torch, model, metrics, ref[name], device))
+            # Again from the same state, on the one process's branches.
+            model.load_state_dict(ref["state"], strict=True)
+            step = fresh_step(model)
+            saved = unpack_rows(torch, torch.load(
+                os.path.join(work, f"branches{rank}.pt"),
+                weights_only=True), device)
+            with ResNetBranches(torch, saved) as branches:
+                pinned = {k: float(v) for k, v in step(batch).items()}
+            if branches.at != len(saved):
+                fail(f"rank {rank}: the pinned step replayed {branches.at} "
+                     f"of {len(saved)} recorded branches")
+            res["pinned"] = fp32_errors(torch, model, pinned, ref[name],
+                                        device)
+            res["flips"], res["branches"] = branches.flips, len(saved)
+            del saved, branches
+        else:
+            res["step_ms"] = host_ms(torch, lambda: step(batch), 1,
+                                     warmup=0)
+            totals = {}
+            with timed_all_reduces(torch, totals):
+                res["synced_ms"] = host_ms(torch, lambda: step(batch), 1,
+                                           warmup=0)
+            res["all_reduce_ms"] = totals
+        out[name] = res
+        del model, step
+        torch.cuda.empty_cache()
+    out["bn"] = dp_bn_check(torch, port, mesh, device)
+    # The dropout stream: the first seed this rank's generator gives the
+    # attention kernels at iteration 1, and K1's and K2's masks at it.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(step_seed(SEED, 1, rank))
+    seed = torch.randint(2**31 - 1, (), generator=gen, device=device)
+    out["keep"] = check_keep_bits(torch, port.A, device, 16, 0.1, seed,
+                                  torch.bfloat16)
+    out["seed"] = int(seed)
+    distributed.synchronize()
+    distributed.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def bn_after(weight: str) -> str:
+    """The BatchNorm that normalises a ResNet conv's output:
+    ``...conv1.weight`` → ``...bn1``, ``...downsample.0.weight`` →
+    ``...downsample.1``."""
+    head = weight.rsplit(".", 1)[0]
+    if head.endswith("downsample.0"):
+        return head[:-1] + "1"
+    stem, _, last = head.rpartition(".")
+    return f"{stem}.{last.replace('conv', 'bn')}"
+
+
+def check_dp_world_2(torch, port, device, step_ms_1):
+    """Phase 20(b). Returns the ranks' launches, summed, and its seconds:
+    the one process's reference, and the ranks."""
+    work = os.path.join(WORK, "dp2")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    ratios = dp_reference(torch, port, device, work)
+    ref_b16 = torch.load(os.path.join(work, "reference.pt"),
+                         weights_only=True)["bfloat16"]["metrics"]
+    t1 = time.perf_counter()
+    url = f"file://{os.path.join(work, 'rendezvous')}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", str(r), work, url], cwd=REPO)
+             for r in range(DP_WORLD)]
+    try:
+        rcs = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = {"reference": t1 - t0, "ranks": time.perf_counter() - t1}
+    if rcs != [0] * DP_WORLD:
+        fail(f"two ranks over gloo: the ranks exited {rcs}")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    total = {k: 0 for k in NO_LAUNCHES}
+    for o in ranks:
+        f32, b16 = o["float32"], o["bfloat16"]
+        if f32["launches"] != LAUNCHES_PER_STEP \
+                or b16["launches"] != LAUNCHES_PER_STEP:
+            fail(f"rank {o['rank']}: a step launched {f32['launches']} in "
+                 f"fp32, {b16['launches']} in bf16; expected "
+                 f"{LAUNCHES_PER_STEP}")
+        if f32["collectives"] != DP_STEP_COLLECTIVES \
+                or b16["collectives"] != DP_STEP_COLLECTIVES:
+            fail(f"rank {o['rank']}: all-reduces {f32['collectives']}, "
+                 f"{b16['collectives']}; expected {DP_STEP_COLLECTIVES}")
+        free = {k: f32[k] for k in DP_ERRORS if k != "grad_l2"}
+        pinned = {k: f32["pinned"][k] for k in DP_ERRORS}
+        if max(free.values()) > DP_FP32_TOL \
+                or max(pinned.values()) > DP_FP32_TOL \
+                or f32["pinned"]["grad_err"] > DP_SUM_TOL:
+            fail(f"rank {o['rank']}, fp32, against one process (tol "
+                 f"{DP_FP32_TOL:.0e}): on its own branches {free}; on the "
+                 f"one process's {pinned}, per element (tol "
+                 f"{DP_SUM_TOL:.0e}) {f32['pinned']['top']}; flips "
+                 f"{f32['flips']}")
+        if not o["bn"] <= DP_FP32_TOL:
+            fail(f"rank {o['rank']}: bn_train synced over the ranks against "
+                 f"one process, fp32: {o['bn']:.3e} (tol {DP_FP32_TOL:.0e})")
+        gap = max(abs(b16["metrics"][k] - v) / abs(v)
+                  for k, v in ref_b16.items() if k != "grad_norm")
+        if not gap <= LOSS_RTOL:
+            fail(f"rank {o['rank']}, bf16: losses {b16['metrics']} against "
+                 f"one process's {ref_b16} (rtol {LOSS_RTOL})")
+        for name in ("float32", "bfloat16"):
+            total = {k: total[k] + o[name]["launches"][k] for k in total}
+    if ranks[0]["float32"]["metrics"] != ranks[1]["float32"]["metrics"]:
+        fail("two ranks over gloo: the ranks' metrics differ")
+    keep = [port.A.philox_keep_reference(o["seed"], TRAIN_BATCH, 16, 30, 49,
+                                         0.1, device=device) for o in ranks]
+    if ranks[0]["seed"] == ranks[1]["seed"] or torch.equal(*keep):
+        fail(f"the ranks drew one dropout stream: seeds "
+             f"{[o['seed'] for o in ranks]}")
+    f32, b16 = ranks[0]["float32"], ranks[0]["bfloat16"]
+
+    def worst(key, pinned=False):
+        return max((o["float32"]["pinned"] if pinned else o["float32"])[key]
+                   for o in ranks)
+
+    low = min(ratios, key=lambda n: ratios[n][0])
+    behind = bn_after(f32["worst"])
+    behind_text = (f"{behind} {ratios[behind][0]:.3e} (channel "
+                   f"{ratios[behind][1]})" if behind in ratios else
+                   f"{behind}: not found")
+    say("20 data parallel", f"(b) {DP_WORLD} ranks over gloo on one card "
+        f"(a CUDA context each), flagship at full width, global batch "
+        f"{ACCUM} x {TRAIN_BATCH} = {DP_WORLD} ranks x ({DP_LOCAL} x accum "
+        f"{ACCUM}), dropout 0, rank 0's weights broadcast. fp32 (TF32 off) "
+        f"against one process on the same global micro-batches, worst over "
+        f"the ranks, per element at each tensor's scale (tol "
+        f"{DP_FP32_TOL:.0e}): on the ranks' own ReLU and max-pool choices, "
+        f"losses {worst('loss_err'):.3e}, {f32['buffers']} BatchNorm "
+        f"running buffers {worst('buffer_err'):.3e}, the gradients outside "
+        f"the ResNet {worst('other_grad_err'):.3e}, (not held) all "
+        f"{f32['grads']} gradients {worst('grad_err'):.3e} at {f32['worst']}"
+        f" (relative L2 {worst('grad_l2'):.3e})"
+        f"; on the one process's {f32['branches']} recorded choices per "
+        f"rank, losses {worst('loss_err', True):.3e}, buffers "
+        f"{worst('buffer_err', True):.3e}, all gradients' relative L2 "
+        f"{worst('grad_l2', True):.3e}, per element "
+        f"{worst('grad_err', True):.3e} at {f32['pinned']['worst']} (tol "
+        f"{DP_SUM_TOL:.0e}); "
+        f"choices of the one process's that a rank's own values flip "
+        f"there: {[o['float32']['flips'] for o in ranks]}. Smallest "
+        f"var/mean² over a BatchNorm input's channels (fp64, first "
+        f"micro-step of the one process): {ratios[low][0]:.3e} at {low} "
+        f"(channel {ratios[low][1]}); at {behind_text}, the BatchNorm after "
+        f"the worst gradient. bn_train synced over the ranks against one "
+        f"process at {FINETUNE_K4_SHAPES} (fp32, B {TRAIN_BATCH}): "
+        f"{max(o['bn'] for o in ranks):.3e}; bf16 loss "
+        f"{b16['metrics']['loss']} vs {ref_b16['loss']} (rtol {LOSS_RTOL}); "
+        f"launches per rank per step {b16['launches']}; all-reduces per step "
+        f"{json.dumps(b16['collectives'])}; dropout 0.1: the ranks' first "
+        f"attention seeds {[o['seed'] for o in ranks]}, K1's and K2's keep "
+        f"masks equal philox_keep_reference on each rank's seed (keep "
+        f"{ranks[0]['keep']:.4f}, {ranks[1]['keep']:.4f}) and differ "
+        f"between the ranks")
+    say("20 data parallel", f"{card_line()} | bf16 world-2 step over gloo "
+        f"(the all-reduces staged through the host; not NCCL's time), host "
+        f"ms per step on ranks 0 and 1 (first step, a second): " + "; ".join(
+            f"{o['bfloat16']['first_ms']:.1f}, {o['bfloat16']['step_ms']:.1f}"
+            for o in ranks)
+        + f" | a third step with a synchronize before each all-reduce, its "
+        f"ms and the host ms inside the all-reduces by kind: " + "; ".join(
+            f"rank {o['rank']} {o['bfloat16']['synced_ms']:.1f} "
+            + json.dumps({k: round(v, 1) for k, v in
+                          o["bfloat16"]["all_reduce_ms"].items()})
+            for o in ranks)
+        + f" | phase 9's one-process step of 2 x 128: {step_ms_1:.1f} ms")
+    return total, seconds
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -2900,7 +3588,8 @@ def main() -> None:
 
     # 5. K4 against the plain version
     k4_err, dx_err, summary = check_k4(torch, BN, device)
-    say("5 K4", f"stage 1 and dx match their plain versions (sums tol "
+    say("5 K4", f"stage 1 and dx (with m_total 2M too) match their plain "
+        f"versions (sums tol "
         f"{K4_TOL:.0e} of sqrt(M); dx tol {DX_TOL['float32']:.0e} fp32, "
         f"{DX_TOL['bfloat16']:.1e} bf16, of |ref| + 1) and repeat their "
         f"bits, each in the variant k4_vector_width names (sums/dx errors):"
@@ -3070,8 +3759,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 13. pretraining through the CLI, and its resume
-    pretrain_counts, run, root, tokenizer = check_pretraining(torch, port,
-                                                              device)
+    pretrain_counts, run, root, tokenizer, pretrain_args, pretrain_result = \
+        check_pretraining(torch, port, device)
     torch.cuda.empty_cache()
 
     # 14. eval_captioning on phase 13's checkpoint
@@ -3088,7 +3777,6 @@ def main() -> None:
 
     # 17. clf_voc07 on phase 13's checkpoint, and the SVMs at VOC's size
     voc_counts = check_clf_voc07(torch, port, device, run)
-    shutil.rmtree(WORK)
     torch.cuda.empty_cache()
 
     # 18. remat, against the plain step
@@ -3097,8 +3785,24 @@ def main() -> None:
 
     # 19. BatchNorm's "batch" sampler at BN_STAT_STRIDE 4
     sampler_counts = check_sampler(torch, port, device)
+    torch.cuda.empty_cache()
+
+    # 20. data parallel: NCCL at world 1 against phase 13, and two ranks
+    # over gloo on the one card against one process
+    dp1_counts = check_dp_world_1(torch, port, device, pretrain_args, run,
+                                  pretrain_result)
+    torch.cuda.empty_cache()
+    dp2_counts, dp2_seconds = check_dp_world_2(torch, port, device,
+                                               kernel_step_ms)
+    shutil.rmtree(WORK)
+    say("seconds", "per phase (the time up to each phase's last line): "
+        + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
+        + f"; 20(b): the one process's reference "
+        f"{dp2_seconds['reference']:.1f}, the ranks "
+        f"{dp2_seconds['ranks']:.1f}; all "
+        f"{sum(PHASE_SECONDS.values()):.1f}")
     later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
-             for k in NO_LAUNCHES}
+             + dp1_counts[k] + dp2_counts[k] for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -3159,4 +3863,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:   # one rank of phase 20(b)
+        dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

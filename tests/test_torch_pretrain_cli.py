@@ -132,7 +132,8 @@ def test_no_card_raises_instead_of_falling_back(data, tmp_path, monkeypatch):
     args[args.index("--device") + 1] = "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(common_parser().parse_args(args))
-    with pytest.raises(NotImplementedError, match="one process"):
+    # Two processes need their rendezvous: none is guessed.
+    with pytest.raises(ValueError, match="coordinator address"):
         main(common_parser().parse_args(_args(tmp_path, ov,
                                               "--num-processes", "2")))
 

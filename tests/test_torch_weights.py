@@ -148,6 +148,10 @@ SLICE_MODULES = [
     "virtex_tpu_torch.scripts.clf_voc07",
     "virtex_tpu_torch.utils.remat",
     "virtex_tpu_torch.utils.svm",
+    "virtex_tpu_torch.utils.distributed",
+    "virtex_tpu_torch.ops._mesh",
+    "virtex_tpu_torch.parallel",
+    "virtex_tpu_torch.parallel.mesh",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",

@@ -530,12 +530,12 @@ int sums_typed(const void* dy, const void* x, const float* mean,
 template <typename TDY, typename TX>
 int dx_typed(const void* dy, const void* x, const float* mean,
              const float* rstd, const float* weight, const float* sums,
-             void* dx, long long M, int C, int chunks, int vec,
-             cudaStream_t s) {
+             void* dx, long long M, int C, long long m_total, int chunks,
+             int vec, cudaStream_t s) {
   const TDY* g = static_cast<const TDY*>(dy);
   const TX* xv = static_cast<const TX*>(x);
   TX* out = static_cast<TX*>(dx);
-  const float inv_m = 1.0f / static_cast<float>(M);
+  const float inv_m = 1.0f / static_cast<float>(m_total);
   if (vec == 1) {
     const long long n = M * C;
     const long long want = (n + kThreads - 1) / kThreads;
@@ -591,12 +591,15 @@ int virtex_bn_backward_sums(const void* dy, const void* x, const void* mean,
 
 // dy and x: row-major (M, C); mean, rstd, weight: (C,) fp32; sums: (2, C)
 // fp32 from virtex_bn_backward_sums; dx: row-major (M, C) of x's type.
-// vec and chunks as there (the scalar variant does not read chunks).
+// m_total: the count the sums and statistics run over, M itself on one
+// device, the global batch's count under data parallelism (sums reduced
+// over the ranks). vec and chunks as there (the scalar variant does not
+// read chunks).
 int virtex_bn_backward_dx(const void* dy, const void* x, const void* mean,
                           const void* rstd, const void* weight,
                           const void* sums, void* dx, long long M, int C,
-                          int chunks, int vec, int dy_is_bf16, int x_is_bf16,
-                          void* stream) {
+                          long long m_total, int chunks, int vec,
+                          int dy_is_bf16, int x_is_bf16, void* stream) {
   const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   const float* w = static_cast<const float*>(weight);
@@ -604,16 +607,16 @@ int virtex_bn_backward_dx(const void* dy, const void* x, const void* mean,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dy_is_bf16 && x_is_bf16)
-    return dx_typed<bf16, bf16>(dy, x, mu, rs, w, sm, dx, M, C, chunks, vec,
-                                s);
+    return dx_typed<bf16, bf16>(dy, x, mu, rs, w, sm, dx, M, C, m_total,
+                                chunks, vec, s);
   if (dy_is_bf16)
-    return dx_typed<bf16, float>(dy, x, mu, rs, w, sm, dx, M, C, chunks, vec,
-                                 s);
+    return dx_typed<bf16, float>(dy, x, mu, rs, w, sm, dx, M, C, m_total,
+                                 chunks, vec, s);
   if (x_is_bf16)
-    return dx_typed<float, bf16>(dy, x, mu, rs, w, sm, dx, M, C, chunks, vec,
-                                 s);
-  return dx_typed<float, float>(dy, x, mu, rs, w, sm, dx, M, C, chunks, vec,
-                                s);
+    return dx_typed<float, bf16>(dy, x, mu, rs, w, sm, dx, M, C, m_total,
+                                 chunks, vec, s);
+  return dx_typed<float, float>(dy, x, mu, rs, w, sm, dx, M, C, m_total,
+                                chunks, vec, s);
 }
 
 }  // extern "C"

@@ -16,7 +16,10 @@ temporary name and renamed into place. It holds
 :class:`CheckpointManager` keeps the ``keep_recent`` newest, and a rolling
 ``checkpoint_best.pth`` (higher metric is better) with a ``best.json``
 sidecar naming the iteration it holds; a load heals a best copy that a
-crash left stale. Every load goes through ``torch.load(weights_only=True)``,
+crash left stale. In a data-parallel run rank 0 writes, prunes and heals,
+every rank tracks the best (the metric is the same on all of them) and
+waits at one barrier after each save and each load, and every rank loads
+on resume. Which barrier a rank reaches never depends on the files. Every load goes through ``torch.load(weights_only=True)``,
 which refuses a pickle that would run code.
 """
 from __future__ import annotations
@@ -31,6 +34,10 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from virtex_tpu_torch.engine.train_state import TrainState
+from virtex_tpu_torch.utils.distributed import (
+    is_master_process,
+    synchronize,
+)
 
 logger = logging.getLogger("virtex_tpu_torch")
 
@@ -87,21 +94,25 @@ class CheckpointManager:
     def step(self, state: TrainState, metric: Optional[float] = None,
              loader_state: Optional[Dict[str, int]] = None) -> str:
         """Save ``state`` as ``checkpoint_<state.iteration>.pth``; if
-        ``metric`` beats the best so far, copy it to the best; prune."""
+        ``metric`` beats the best so far, copy it to the best; prune. Rank
+        0 writes; every rank returns after the same barrier."""
         iteration = int(state.iteration)
         if metric is not None and (self.best_metric is None
                                    or metric > self.best_metric):
             self.best_metric, self.best_iteration = float(metric), iteration
-        payload = _cpu(state.state_dict())
-        payload.update(
-            best_metric=self.best_metric, best_iteration=self.best_iteration,
-            loader={"items_consumed": int((loader_state or {}).get(
-                "items_consumed", 0))})
         path = self.path(iteration)
-        _atomic_save(payload, path)
-        if self.best_iteration == iteration:
-            self._copy_best(iteration)
-        self._prune()
+        if is_master_process():
+            payload = _cpu(state.state_dict())
+            payload.update(
+                best_metric=self.best_metric,
+                best_iteration=self.best_iteration,
+                loader={"items_consumed": int((loader_state or {}).get(
+                    "items_consumed", 0))})
+            _atomic_save(payload, path)
+            if self.best_iteration == iteration:
+                self._copy_best(iteration)
+            self._prune()
+        synchronize()
         return path
 
     def _copy_best(self, iteration: int) -> None:
@@ -132,7 +143,9 @@ class CheckpointManager:
             loader.load_state_dict(ckpt["loader"])
         self.best_metric = ckpt.get("best_metric")
         self.best_iteration = ckpt.get("best_iteration")
-        self._heal_best()
+        if is_master_process():
+            self._heal_best()
+        synchronize()
         return state.iteration
 
     def _heal_best(self) -> None:

@@ -8,7 +8,8 @@ dropout bits of step ``i`` are a function of the seed and ``i``. The port
 does the same: :func:`step_seed` derives each iteration's
 ``torch.Generator`` seed from ``(RANDOM_SEED, iteration)``, so the stream
 is restored from the iteration alone and a resumed run draws the same
-dropout bits as an unbroken one (no generator state is saved).
+dropout bits as an unbroken one (no generator state is saved). Under data
+parallelism the rank is part of the seed.
 """
 from __future__ import annotations
 
@@ -21,10 +22,15 @@ import torch
 from virtex_tpu_torch.optim.optimizer import Optimizer
 
 
-def step_seed(seed: int, iteration: int) -> int:
+def step_seed(seed: int, iteration: int, rank: int = 0) -> int:
     """The dropout generator's seed for ``iteration`` of a run seeded with
-    ``seed``."""
-    return int(np.random.SeedSequence((seed, iteration)).generate_state(
+    ``seed``, on process ``rank`` of a data-parallel run: each rank draws
+    its own masks and its own attention-kernel seeds (the counterpart of
+    the JAX package's per-shard seed offset,
+    ``virtex_tpu/ops/attention.py:259-262``). Rank 0's seed is the
+    single-process run's."""
+    key = (seed, iteration) if rank == 0 else (seed, iteration, rank)
+    return int(np.random.SeedSequence(key).generate_state(
         1, np.uint64)[0] >> 1)
 
 

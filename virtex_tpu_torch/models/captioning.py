@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from virtex_tpu_torch.modules.textual_heads import TransformerTextualHead
+from virtex_tpu_torch.ops._mesh import mean_denominator
 from virtex_tpu_torch.modules.transformer import Cache
 from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
 
@@ -31,7 +32,7 @@ class _TokenCE(torch.autograd.Function):
         lse = torch.logsumexp(logits.float(), dim=-1)
         tgt = logits.gather(-1, targets[..., None])[..., 0].float()
         mask = (targets != ignore_index).float()
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = mean_denominator(mask.sum())
         ctx.save_for_backward(logits, targets, lse, mask, denom)
         return ((lse - tgt) * mask).sum() / denom
 
@@ -48,7 +49,9 @@ class _TokenCE(torch.autograd.Function):
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                         ignore_index: int) -> torch.Tensor:
     """Mean CE over targets ≠ ``ignore_index``, reduced in fp32 as
-    logsumexp − target logit (no (B, T, V) log-prob tensor)."""
+    logsumexp − target logit (no (B, T, V) log-prob tensor). Under data
+    parallelism the mean is over the global batch's targets
+    (:func:`~virtex_tpu_torch.ops._mesh.mean_denominator`)."""
     return _TokenCE.apply(logits, targets.long(), int(ignore_index))
 
 

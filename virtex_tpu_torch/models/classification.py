@@ -17,13 +17,15 @@ from torch import nn
 
 from virtex_tpu_torch.modules.textual_heads import LinearTextualHead
 from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
+from virtex_tpu_torch.ops._mesh import mean_denominator
 from virtex_tpu_torch.utils.beam_search import topk
 
 
 def instance_label_set_loss(logits: torch.Tensor, labels: torch.Tensor,
                             ignore_indices: Sequence[int]) -> torch.Tensor:
     """−mean_i ( mean_{c ∈ unique(labels_i) \\ ignore} logp_i[c] ), over the
-    instances with at least one valid label.
+    instances with at least one valid label (the global batch's under data
+    parallelism).
 
     ``labels`` (B, L) is padded with entries of ``ignore_indices``. The
     labels are scattered into a (B, V) multi-hot (duplicates collapse),
@@ -39,7 +41,7 @@ def instance_label_set_loss(logits: torch.Tensor, labels: torch.Tensor,
     count = multihot.sum(dim=-1)
     per_instance = -(logp * multihot).sum(dim=-1) / count.clamp(min=1.0)
     has_any = (count > 0).float()
-    return (per_instance * has_any).sum() / has_any.sum().clamp(min=1.0)
+    return (per_instance * has_any).sum() / mean_denominator(has_any.sum())
 
 
 class ClassificationModel(nn.Module):

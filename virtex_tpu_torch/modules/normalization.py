@@ -22,7 +22,15 @@ Counterpart of ``virtex_tpu/modules/normalization.py``
   and plain autograd differentiates it, so the statistics' gradient flows
   through the sample alone. As in the JAX package, whose kernel gate
   needs ``stat_stride`` 1, this path launches no K4. The JAX package's
-  other sampler, "rows", is reached by no config key and is not ported.
+  other sampler, "rows", is reached by no config key and is not ported;
+- under data parallelism (a group published by the train step,
+  ``ops/_mesh.py``) the statistics are the global batch's, as the JAX
+  package's over its sharded batch: the exact path through
+  :func:`bn_train`, and the sampler from the global prefix, ``div`` taken
+  from the global ``B`` and rank ``r`` contributing ``clamp(P − r·B_local,
+  0, B_local)`` of the ``P`` prefix images (a rank with none still joins
+  the all-reduce, whose backward sums the cotangent over the ranks). The
+  running variance's Bessel factor takes the global count.
 
 Channels sit on dim 1 (NCHW, usually a ``channels_last`` view of NHWC
 memory). Parameter and buffer names are torch's (``weight``, ``bias``,
@@ -33,6 +41,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from virtex_tpu_torch.ops._mesh import (
+    active_group,
+    all_reduce_sum_with_grad,
+    rank_of,
+    world_of,
+)
 from virtex_tpu_torch.ops.batchnorm import (
     bn_apply,
     bn_backward_dx,
@@ -68,15 +82,29 @@ class SubsampledBatchNorm(nn.Module):
 
     def _sampled(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode forward on the "batch" sample's statistics."""
+        group = active_group()
+        world, rank = world_of(group), rank_of(group)
         B, C = x.shape[0], x.shape[1]
-        div = max(1, min(self.stat_stride, B // 8))
-        sample = (x[: B // div] if div > 1 else x).float()
+        div = max(1, min(self.stat_stride, B * world // 8))
+        prefix = B * world // div
+        take = min(max(prefix - rank * B, 0), B)
+        sample = x[:take].float()
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = sample.mean(dims)
-        var = torch.clamp(sample.square().mean(dims) - mean.square(),
-                          min=0.0)
+        if take:
+            stats = torch.stack([sample.mean(dims),
+                                 sample.square().mean(dims)])
+        else:  # zeros, on the graph: the backward's all-reduce runs here too
+            stats = torch.stack([sample.sum(dims), sample.sum(dims)])
+        if group is not None:
+            # Each rank's means weigh its share of the prefix (all of it
+            # at world 1, whose bits stay the single-process ones).
+            if world > 1:
+                stats = stats * (take / prefix)
+            stats = all_reduce_sum_with_grad(stats, group, "bn_stats")
+        mean, mean2 = stats
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         self._update_running(mean.detach(), var.detach(),
-                             sample.numel() // C)
+                             prefix * (x[0].numel() // C))
         return bn_apply(x, mean, 1.0 / torch.sqrt(var + self.eps),
                         self.weight, self.bias, self.dtype)
 
@@ -87,7 +115,8 @@ class SubsampledBatchNorm(nn.Module):
         if self.training:
             y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
                                     self.dtype, self.sums_fn, self.dx_fn)
-            self._update_running(mean, var, x.numel() // C)
+            self._update_running(mean, var,
+                                 x.numel() // C * world_of(active_group()))
             return y
         rstd = 1.0 / torch.sqrt(self.running_var + self.eps)
         return bn_apply(x, self.running_mean, rstd, self.weight, self.bias,

@@ -66,7 +66,7 @@ SIGNATURES = {
     "virtex_bn_backward_dx": (
         _I, [_P, _P, _P, _P, _P, _P,        # dy, x, mean, rstd, weight, sums
              _P,                            # dx
-             _LL, _I, _I, _I,               # M, C, chunks, vec
+             _LL, _I, _LL, _I, _I,          # M, C, m_total, chunks, vec
              _I, _I,                        # dy_is_bf16, x_is_bf16
              _P]),                          # stream
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -11,8 +11,18 @@ sums (dβ, dγ) = (Σ dy, Σ dy·x̂) from :func:`bn_backward_sums` (stage 1),
 then dx from :func:`bn_backward_dx` (stage 2), which on the TPU is the jnp
 stage that XLA fuses into one pass. The mean and variance it returns feed
 the running statistics, which are updated under ``no_grad``, so their
-cotangents are zero. A multi-GPU step would all-reduce the (2, C) sums
-between the two launches.
+cotangents are zero.
+
+Under data parallelism (a group published by the train step,
+``ops/_mesh.py``) the statistics and the sums are those of the global
+batch, as the JAX package's ``psum`` over ``data`` makes them: the forward
+all-reduces the fp32 (2, C) ``[E_local[x] ; E_local[x²]]``, each rank's
+weighed by its share of the global count, before it forms the mean and
+``E[x²] − E[x]²``; the backward all-reduces stage 1's (2, C) sums, into a
+copy, between the two launches, on the current stream, and stage 2 divides
+by the global count (``m_total``). dγ and dβ are returned as the local
+sums: the train step's gradient all-reduce sums them over the ranks (torch
+``SyncBatchNorm``'s rule). Every rank holds a shard of one shape.
 
 On a CPU tensor each stage computes its plain version
 (:func:`bn_backward_sums_reference`, :func:`bn_backward_dx_reference`). On
@@ -35,9 +45,12 @@ NCHW view of NHWC memory.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from virtex_tpu_torch.ops._mesh import active_group, world_of
+from virtex_tpu_torch.utils.distributed import all_reduce_sum
 
 # The vector variants' block: 256 threads over a tile of _TILE_COLS vectors
 # of channels (128 bytes of a row of the wider operand) by 256 // _TILE_COLS
@@ -91,20 +104,30 @@ def bn_backward_sums_reference(dy: torch.Tensor, x: torch.Tensor,
 
 def bn_backward_dx_reference(dy: torch.Tensor, x: torch.Tensor,
                              mean: torch.Tensor, rstd: torch.Tensor,
-                             weight: torch.Tensor, sums: torch.Tensor
-                             ) -> torch.Tensor:
+                             weight: torch.Tensor, sums: torch.Tensor,
+                             m_total: Optional[int] = None) -> torch.Tensor:
     """Plain version of K4's stage 2: ``dx = γ·rstd·((dy − x̂·dγ/M) −
-    dβ/M)`` in fp32 from the (2, C) ``sums`` = (dβ, dγ), in x's dtype. Each
-    torch.sub makes a new fp32 tensor, so the in-place steps touch no
-    input."""
+    dβ/M)`` in fp32 from the (2, C) ``sums`` = (dβ, dγ), in x's dtype. M is
+    ``m_total``, the count the sums run over (the global one under data
+    parallelism), or x's own count when None. Each torch.sub makes a new
+    fp32 tensor, so the in-place steps touch no input."""
     shape = _stat_shape(x)
-    m = x.numel() // x.shape[1]
+    m = _count(x, m_total)
     dbeta, dgamma = sums[0], sums[1]
     xhat_dg = torch.sub(x, mean.reshape(shape)).mul_(
         (rstd * dgamma / m).reshape(shape))
     dx = torch.sub(dy, xhat_dg).sub_((dbeta / m).reshape(shape)).mul_(
         (weight * rstd).reshape(shape))
     return dx.to(x.dtype)
+
+
+def _count(x: torch.Tensor, m_total: Optional[int]) -> int:
+    m = x.numel() // x.shape[1]
+    if m_total is None:
+        return m
+    if m_total < m:
+        raise ValueError(f"m_total {m_total} is below the local count {m}")
+    return int(m_total)
 
 
 def k4_vector_width(dtype: torch.dtype, C: int, aligned: bool) -> int:
@@ -223,7 +246,7 @@ def _launch(dy, x, mean, rstd) -> torch.Tensor:
     return out
 
 
-def _launch_dx(dy, x, mean, rstd, weight, sums) -> torch.Tensor:
+def _launch_dx(dy, x, mean, rstd, weight, sums, m_total) -> torch.Tensor:
     global dx_launch_count, dx_vector_launch_count
     from virtex_tpu_torch.ops import _build
 
@@ -237,7 +260,8 @@ def _launch_dx(dy, x, mean, rstd, weight, sums) -> torch.Tensor:
         err = lib.virtex_bn_backward_dx(
             dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             weight.data_ptr(), sums.data_ptr(), dx.data_ptr(), M, C,
-            plan.chunks, plan.vec, int(dy2.dtype == torch.bfloat16),
+            _count(x, m_total), plan.chunks, plan.vec,
+            int(dy2.dtype == torch.bfloat16),
             int(x2.dtype == torch.bfloat16), stream)
     _build.check(err, "K4 bn_backward_dx launch")
     dx_launch_count += 1
@@ -272,17 +296,20 @@ def bn_backward_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
 
 def bn_backward_dx(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
                    rstd: torch.Tensor, weight: torch.Tensor,
-                   sums: torch.Tensor) -> torch.Tensor:
+                   sums: torch.Tensor, m_total: Optional[int] = None
+                   ) -> torch.Tensor:
     """dx of train-mode BatchNorm from the (2, C) ``sums`` of
-    :func:`bn_backward_sums`, in x's dtype. K4's stage 2 on CUDA; the plain
+    :func:`bn_backward_sums`, in x's dtype; ``m_total`` as in
+    :func:`bn_backward_dx_reference`. K4's stage 2 on CUDA; the plain
     version on the CPU."""
     _check_operands("bn_backward_dx", dy, x, mean, rstd, weight)
     if sums.shape != (2, x.shape[1]) or sums.device != x.device:
         raise ValueError(f"bn_backward_dx: sums must be (2, {x.shape[1]}) "
                          f"on {x.device}")
     if x.device.type == "cpu":
-        return bn_backward_dx_reference(dy, x, mean, rstd, weight, sums)
-    return _launch_dx(dy, x, mean, rstd, weight, sums)
+        return bn_backward_dx_reference(dy, x, mean, rstd, weight, sums,
+                                        m_total)
+    return _launch_dx(dy, x, mean, rstd, weight, sums, m_total)
 
 
 def bn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
@@ -298,14 +325,22 @@ def bn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
 
 def bn_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float, dtype: torch.dtype):
+               eps: float, dtype: torch.dtype, group=None):
     """The exact train-mode forward: fp32 statistics (variance E[x²] −
-    E[x]² clamped at 0), then :func:`bn_apply`. Returns y, mean, var,
-    rstd."""
+    E[x]² clamped at 0), over the global batch of ``group`` when one is
+    given, then :func:`bn_apply`. Returns y, mean, var, rstd."""
     dims = [d for d in range(x.dim()) if d != 1]
     xf = x.float()
-    mean = xf.mean(dims)
-    var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
+    mean, mean2 = xf.mean(dims), xf.square().mean(dims)
+    if group is not None:
+        # Equal shards: each rank's means weigh 1/world (none at world 1,
+        # whose bits stay the single-process ones).
+        stats = torch.stack([mean, mean2])
+        world = world_of(group)
+        if world > 1:
+            stats.mul_(1.0 / world)
+        mean, mean2 = all_reduce_sum(stats, "bn_stats", group)
+    var = torch.clamp(mean2 - mean.square(), min=0.0)
     rstd = 1.0 / torch.sqrt(var + eps)
     return bn_apply(x, mean, rstd, weight, bias, dtype), mean, var, rstd
 
@@ -314,9 +349,10 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, dtype, sums_fn, dx_fn):
-        y, mean, var, rstd = bn_forward(x, weight, bias, eps, dtype)
+        group = active_group()
+        y, mean, var, rstd = bn_forward(x, weight, bias, eps, dtype, group)
         ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.sums_fn, ctx.dx_fn = sums_fn, dx_fn
+        ctx.sums_fn, ctx.dx_fn, ctx.group = sums_fn, dx_fn, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -324,9 +360,16 @@ class _BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
         sums = ctx.sums_fn(dy, x, mean, rstd)
-        # Two launches, so that a multi-GPU step can all-reduce the sums
-        # between them (the JAX package's psum).
-        dx = ctx.dx_fn(dy, x, mean, rstd, weight, sums)
+        if ctx.group is None:
+            dx = ctx.dx_fn(dy, x, mean, rstd, weight, sums)
+        else:
+            # The JAX package's psum between the two stages, on the
+            # current stream, so that stage 1's ticket buffer is never
+            # shared with another stream's launch.
+            total = all_reduce_sum(sums.clone(), "bn_sums", ctx.group)
+            m = x.numel() // x.shape[1]
+            dx = ctx.dx_fn(dy, x, mean, rstd, weight, total,
+                           m_total=m * world_of(ctx.group))
         return (dx, sums[1].to(weight.dtype), sums[0].to(weight.dtype),
                 None, None, None, None)
 
@@ -338,5 +381,5 @@ def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Train-mode BatchNorm over every dim but 1 → ``(y, mean, var)``.
     ``mean`` and ``var`` (fp32, not differentiable) are for the running
     statistics; the backward takes its channel sums from ``sums_fn`` and
-    dx from ``dx_fn``."""
+    dx from ``dx_fn`` (given ``m_total`` under data parallelism)."""
     return _BNTrain.apply(x, weight, bias, eps, dtype, sums_fn, dx_fn)

@@ -15,6 +15,12 @@ and a checkpoint saved, keeping the five newest and the best. The last
 line is ``{"metric": "<dataset>_top1", "value": …}``. Runs on the card
 unless ``--device cpu`` is passed.
 
+Data parallel as ``pretrain_virtex`` is: each of the processes trains on
+``OPTIM.BATCH_SIZE // world`` images of its loader shard, the fine-tune's
+BatchNorm synced over the global batch, and scores its shard of the val
+split (the last ``len % world`` images are not scored); the top-1 is the
+mean over the ranks.
+
     python -m virtex_tpu_torch.scripts.clf_linear \
         --down-config configs/downstream/imagenet_clf.yaml \
         --weight-init virtex --checkpoint-path /tmp/virtex_run/checkpoint_best.pth \
@@ -43,8 +49,14 @@ from virtex_tpu_torch.factories import (
 from virtex_tpu_torch.models.downstream import LinearClassifierModel
 from virtex_tpu_torch.native import DataPlane, decoder_for
 from virtex_tpu_torch.optim.optimizer import Optimizer
-from virtex_tpu_torch.scripts.pretrain_virtex import to_device
+from virtex_tpu_torch.parallel import (
+    Mesh,
+    create_mesh,
+    replicate_,
+    shard_batch,
+)
 from virtex_tpu_torch.utils.common import common_parser, common_setup
+from virtex_tpu_torch.utils.distributed import average_across_processes
 from virtex_tpu_torch.utils.metrics import TopkAccuracy
 from virtex_tpu_torch.utils.timer import Timer
 
@@ -87,17 +99,19 @@ def build_optimizer(model, _DOWNC) -> Optimizer:
         frozen_pattern="visual" if _DOWNC.MODEL.VISUAL.FROZEN else None)
 
 
-def evaluate(model, dataset, batch_size: int, device) -> float:
-    """Top-1 (%) over the whole split, BatchNorm on running statistics."""
+def evaluate(model, dataset, batch_size: int, device, mesh: Mesh) -> float:
+    """Top-1 (%) over the split, BatchNorm on running statistics: each
+    rank scores its shard, and the top-1 is the mean over the ranks."""
     top1 = TopkAccuracy(top_k=1)
     loader = DataLoader(dataset, batch_size, shuffle=False, infinite=False,
+                        num_shards=mesh.data, shard_index=mesh.rank,
                         drop_last=False)
     with torch.inference_mode():
         model.eval()
         for batch in loader:
-            logits = model(to_device(batch, device, 1))["logits"]
+            logits = model(shard_batch(batch, device))["logits"]
             top1(logits.float().cpu().numpy(), batch["label"])
-    return top1.get_metric(reset=True)
+    return average_across_processes(top1.get_metric(reset=True))
 
 
 def main(_A) -> Dict[str, Any]:
@@ -111,12 +125,18 @@ def main(_A) -> Dict[str, Any]:
                     else "inaturalist")
     num_classes = NUM_CLASSES[dataset_name]
     batch_size = _DOWNC.OPTIM.BATCH_SIZE
+    mesh = create_mesh()
+    if batch_size % mesh.data:
+        raise ValueError(f"OPTIM.BATCH_SIZE {batch_size} not divisible by "
+                         f"the {mesh.data} processes")
+    per_host = batch_size // mesh.data
 
     plane = DataPlane(decoder_for(device), threads=_A.cpu_workers)
     train_ds = DownstreamDatasetFactory.from_config(_DOWNC, plane, "train")
     val_ds = DownstreamDatasetFactory.from_config(_DOWNC, plane, "val")
-    train_loader = DataLoader(train_ds, batch_size, shuffle=True,
-                              infinite=True,
+    train_loader = DataLoader(train_ds, per_host, shuffle=True,
+                              infinite=True, num_shards=mesh.data,
+                              shard_index=mesh.rank,
                               pin_memory=device.type == "cuda")
 
     # The backbone of the pretraining config (else the downstream one's),
@@ -129,10 +149,11 @@ def main(_A) -> Dict[str, Any]:
     model = LinearClassifierModel(visual, num_classes).to(device)
     apply_backbone_weight_init(model.visual, _A.weight_init,
                                _A.checkpoint_path)
+    replicate_(model, mesh)
 
     optimizer = build_optimizer(model, _DOWNC)
     state = TrainState(model, optimizer)
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, mesh=mesh)
     ckpt = CheckpointManager(_A.serialization_dir, keep_recent=5)
     num_iterations = _DOWNC.OPTIM.NUM_ITERATIONS
     timer = Timer(total_iterations=num_iterations)
@@ -141,7 +162,7 @@ def main(_A) -> Dict[str, Any]:
     train_iter = iter(train_loader)
     for iteration in range(1, num_iterations + 1):
         timer.tic()
-        metrics = train_step(to_device(next(train_iter), device, 1))
+        metrics = train_step(shard_batch(next(train_iter), device))
         state.iteration = iteration
         if iteration % _A.log_every == 0:
             loss = float(metrics["loss"])  # a sync
@@ -151,16 +172,17 @@ def main(_A) -> Dict[str, Any]:
             logger.info(f"{timer.stats} | loss {loss:.4f} | "
                         f"{timer.throughput(batch_size):.1f} img/s")
         if iteration % _A.checkpoint_every == 0:
-            acc = evaluate(model, val_ds, batch_size, device)
+            acc = evaluate(model, val_ds, per_host, device, mesh)
             logger.info(f"Val top-1 @ {iteration}: {acc:.2f}")
             result["top1"][iteration] = acc
             ckpt.step(state, metric=acc, loader_state={
-                "items_consumed": iteration * batch_size})
+                "items_consumed": iteration * per_host})
 
-    acc = evaluate(model, val_ds, batch_size, device)
+    acc = evaluate(model, val_ds, per_host, device, mesh)
     logger.info(f"Final {dataset_name} top-1: {acc:.2f}")
-    print(f'{{"metric": "{dataset_name}_top1", "value": {acc:.3f}}}',
-          flush=True)
+    if mesh.rank == 0:
+        print(f'{{"metric": "{dataset_name}_top1", "value": {acc:.3f}}}',
+              flush=True)
     result.update(metric=f"{dataset_name}_top1", value=acc)
     return result
 

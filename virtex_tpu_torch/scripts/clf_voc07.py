@@ -40,8 +40,9 @@ from virtex_tpu_torch.factories import (
 )
 from virtex_tpu_torch.models.downstream import LinearClassifierModel
 from virtex_tpu_torch.native import DataPlane, decoder_for
-from virtex_tpu_torch.scripts.pretrain_virtex import to_device
+from virtex_tpu_torch.parallel import shard_batch
 from virtex_tpu_torch.utils.common import common_parser, common_setup
+from virtex_tpu_torch.utils.distributed import get_world_size
 from virtex_tpu_torch.utils.svm import train_test_svms
 
 logger = logging.getLogger("virtex_tpu_torch")
@@ -75,7 +76,7 @@ def extract_features(model, dataset, batch_size: int, device
                         drop_last=False, pin_memory=device.type == "cuda")
     feats, labels = [], []
     for batch in loader:
-        feats.append(model.features(to_device(batch, device, 1)["image"]))
+        feats.append(model.features(shard_batch(batch, device)["image"]))
         labels.append(batch["label"])
     return torch.cat(feats), np.concatenate(labels)
 
@@ -90,6 +91,9 @@ def main(_A) -> Dict[str, Any]:
     _DOWNC = (Config(_A.down_config, _A.down_config_override)
               if _A.down_config else _C)
     device = common_setup(_DOWNC, _A, job_type="clf_voc07")
+    if get_world_size() > 1:
+        raise NotImplementedError("clf_voc07 runs in one process (its "
+                                  "features and SVMs fit on one card)")
 
     plane = DataPlane(decoder_for(device), threads=_A.cpu_workers)
     train_ds = DownstreamDatasetFactory.from_config(_DOWNC, plane,

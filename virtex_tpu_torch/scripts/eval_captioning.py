@@ -11,6 +11,12 @@ SPICE jar). It runs on the card unless ``--device cpu`` is passed. The
 short last batch runs at its own size, so the JAX script's padding of it
 has no counterpart.
 
+Data parallel (several processes, as ``pretrain_virtex`` runs them): rank
+``r`` of ``W`` captions the ``r``-th of ``W`` contiguous blocks of the
+images in batches of ``--batch-size // W`` (which must divide), and rank 0
+gathers the predictions back into dataset order before it writes them and
+scores them. Nucleus draws are seeded per rank too.
+
     python -m virtex_tpu_torch.scripts.eval_captioning \
         --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
         --checkpoint-path /tmp/virtex_run/checkpoint_best.pth \
@@ -22,7 +28,7 @@ import json
 import logging
 import os
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import torch
 
@@ -44,6 +50,11 @@ from virtex_tpu_torch.factories import (
 )
 from virtex_tpu_torch.native import DataPlane, decoder_for
 from virtex_tpu_torch.utils.common import common_parser, common_setup
+from virtex_tpu_torch.utils.distributed import (
+    gather_objects,
+    get_rank,
+    get_world_size,
+)
 from virtex_tpu_torch.utils.metrics import CocoCaptionsEvaluator
 
 logger = logging.getLogger("virtex_tpu_torch")
@@ -64,13 +75,33 @@ def build_parser():
     return parser
 
 
+class Block:
+    """Items ``[lo, hi)`` of a dataset, as a dataset."""
+
+    def __init__(self, dataset, lo: int, hi: int):
+        self.dataset, self.lo, self.hi = dataset, lo, hi
+        self.collate_fn = dataset.collate_fn
+
+    def __len__(self) -> int:
+        return self.hi - self.lo
+
+    def get_batch(self, indices: Sequence[int], rngs):
+        return self.dataset.get_batch([self.lo + i for i in indices], rngs)
+
+
 def main(_A) -> Dict[str, Any]:
-    """Caption as the flags say. Returns the predictions, the seconds of
-    each batch (from its copy to the device to its decoded captions, which
-    wait for the device), and the metrics with ``--calc-metrics``."""
+    """Caption as the flags say. Returns the predictions (on rank 0 all of
+    them, elsewhere the rank's block), the seconds of each batch (from its
+    copy to the device to its decoded captions, which wait for the
+    device), and the metrics with ``--calc-metrics`` (on rank 0)."""
     _C = Config(_A.config, _A.config_override)
     device = common_setup(_C, _A, job_type="eval_captioning")
     spec = ModelSpec.from_config(_C)
+    world, rank = get_world_size(), get_rank()
+    if _A.batch_size % world:
+        raise SystemExit(f"--batch-size {_A.batch_size} must be divisible "
+                         f"by the {world} processes (each batch is split "
+                         "evenly across them)")
 
     tokenizer = TokenizerFactory.from_config(_C)
     plane = DataPlane(decoder_for(device), threads=_A.cpu_workers)
@@ -79,7 +110,9 @@ def main(_A) -> Dict[str, Any]:
         dataset = ImageDirectoryDataset(_A.data_root, EvalPipeline(plane))
     else:
         dataset = PretrainingDatasetFactory.from_config(_C, plane, "val")
-    loader = DataLoader(dataset, _A.batch_size, shuffle=False,
+    n = len(dataset)
+    block = Block(dataset, rank * n // world, (rank + 1) * n // world)
+    loader = DataLoader(block, _A.batch_size // world, shuffle=False,
                         infinite=False, drop_last=False)
 
     model = PretrainingModelFactory.from_spec(spec, device)
@@ -95,7 +128,7 @@ def main(_A) -> Dict[str, Any]:
     for batch_idx, batch in enumerate(loader):
         start = time.perf_counter()
         images = torch.as_tensor(batch["image"]).to(device)
-        generator.manual_seed(step_seed(_C.RANDOM_SEED, batch_idx))
+        generator.manual_seed(step_seed(_C.RANDOM_SEED, batch_idx, rank))
         tokens = caption_fn(images, generator)
         captions = decode_predictions(tokens, tokenizer, spec.eos_index)
         seconds.append(time.perf_counter() - start)
@@ -104,6 +137,13 @@ def main(_A) -> Dict[str, Any]:
         predictions += [{"image_id": i, "caption": c}
                         for i, c in zip(ids, captions)]
 
+    gathered = gather_objects(predictions)
+    result: Dict[str, Any] = {"predictions": predictions,
+                              "seconds": seconds}
+    if rank != 0:
+        return result
+    predictions = [p for part in gathered for p in part]
+    result["predictions"] = predictions
     logger.info("Sample predictions:")
     for p in predictions[:10]:
         logger.info(f"  {p['image_id']}: {p['caption']}")
@@ -113,8 +153,6 @@ def main(_A) -> Dict[str, Any]:
         with open(_A.output, "w") as f:
             json.dump(predictions, f)
 
-    result: Dict[str, Any] = {"predictions": predictions,
-                              "seconds": seconds}
     if _A.calc_metrics:
         gt_path = os.path.join(_C.DATA.ROOT, "annotations",
                                "captions_val2017.json")

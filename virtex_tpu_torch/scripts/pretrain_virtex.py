@@ -14,6 +14,17 @@ It trains on the card unless ``--device cpu`` is passed, and does not fall
 back to the CPU when there is no card. Images are decoded by libjpeg where
 it is installed, else on the card by nvJPEG (``virtex_tpu_torch/native``).
 
+Data parallel: one process per card under torchrun (or the
+``--coordinator-address`` flags), NCCL between cards, gloo with
+``--device cpu``. Each rank trains on ``OPTIM.BATCH_SIZE // world``
+images of its loader shard, BatchNorm synced over the global batch; rank
+0 logs to stdout and writes the checkpoints, whose ``items_consumed`` is
+per host, and every rank resumes from them.
+
+    torchrun --nproc-per-node 4 -m virtex_tpu_torch.scripts.pretrain_virtex \
+        --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
+        --serialization-dir /tmp/virtex_run
+
     python -m virtex_tpu_torch.scripts.pretrain_virtex \
         --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
         --serialization-dir /tmp/virtex_run \
@@ -40,22 +51,16 @@ from virtex_tpu_torch.factories import (
     TokenizerFactory,
 )
 from virtex_tpu_torch.native import DataPlane, decoder_for
+from virtex_tpu_torch.parallel import create_mesh, replicate_, shard_batch
 from virtex_tpu_torch.utils.common import common_parser, common_setup
+from virtex_tpu_torch.utils.distributed import (
+    broadcast_object,
+    device_mem_usage_mb,
+    is_master_process,
+)
 from virtex_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger("virtex_tpu_torch")
-
-
-def to_device(batch: Dict[str, Any], device: torch.device, accum: int
-              ) -> Dict[str, torch.Tensor]:
-    """A loader batch on ``device`` (pinned batches copy ``non_blocking``),
-    with ``accum`` > 1 in the micro-step layout (accum, B/accum, ...)."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v).to(device, non_blocking=True)
-        out[k] = t if accum == 1 else t.reshape(
-            (accum, t.shape[0] // accum) + tuple(t.shape[1:]))
-    return out
 
 
 def log_val_predictions(model, batch, _C, k: int = 3) -> None:
@@ -76,16 +81,18 @@ def validate(model, eval_step, loader_factory, device, _C) -> Dict[str, float]:
     """Each eval metric over one pass of the validation split: the batches'
     values weighed by their images. With batches of one size this is the
     reference's mean over batches; a short last batch, which the reference
-    drops, counts for its images only."""
+    drops, counts for its images only. Under data parallelism each rank
+    scores its shard, whose batches have the sizes of every other rank's,
+    and ``eval_step`` gives each batch's means over the ranks."""
     sums: Dict[str, float] = {}
     n = 0
     for i, host_batch in enumerate(loader_factory()):
-        batch = to_device(host_batch, device, 1)
+        batch = shard_batch(host_batch, device)
         size = int(batch["image"].shape[0])
         for key, v in eval_step(batch).items():
             sums[key] = sums.get(key, 0.0) + float(v) * size
         n += size
-        if i == 0:
+        if i == 0 and is_master_process():
             log_val_predictions(model, batch, _C)
     return {k: v / n for k, v in sums.items()}
 
@@ -96,10 +103,15 @@ def main(_A) -> Dict[str, Any]:
     seconds of each iteration, and the final iteration."""
     _C = Config(_A.config, _A.config_override)
     device = common_setup(_C, _A, job_type="pretrain")
+    mesh = create_mesh(_C.PARALLEL.DATA, _C.PARALLEL.MODEL)
     batch_size, accum = _C.OPTIM.BATCH_SIZE, _C.OPTIM.GRAD_ACCUM_STEPS
-    if batch_size % accum != 0:
+    if batch_size % mesh.data != 0:
         raise ValueError(f"OPTIM.BATCH_SIZE {batch_size} not divisible by "
-                         f"OPTIM.GRAD_ACCUM_STEPS {accum}")
+                         f"the {mesh.data} processes")
+    per_host_batch = batch_size // mesh.data
+    if per_host_batch % accum != 0:
+        raise ValueError(f"per-process batch {per_host_batch} not divisible "
+                         f"by OPTIM.GRAD_ACCUM_STEPS {accum}")
 
     # ----------------------------------------------------------------- data
     plane = DataPlane(decoder_for(device), threads=_A.cpu_workers)
@@ -107,27 +119,31 @@ def main(_A) -> Dict[str, Any]:
     val_dataset = PretrainingDatasetFactory.from_config(_C, plane, "val")
     pin = device.type == "cuda"
     train_loader = DataLoader(
-        train_dataset, batch_size, shuffle=True, seed=_C.RANDOM_SEED,
-        prefetch=_C.DATA.PREFETCH, infinite=True, pin_memory=pin)
+        train_dataset, per_host_batch, shuffle=True, seed=_C.RANDOM_SEED,
+        prefetch=_C.DATA.PREFETCH, infinite=True, num_shards=mesh.data,
+        shard_index=mesh.rank, pin_memory=pin)
     # A short last batch is kept, so the whole split is validated (the
     # reference drops it); validate() weighs each batch by its images.
+    # Sharded, the split's last len % world images are not scored.
     val_loader_factory = lambda: DataLoader(  # noqa: E731
-        val_dataset, batch_size, shuffle=False, infinite=False,
-        drop_last=False, pin_memory=pin)
+        val_dataset, per_host_batch, shuffle=False, infinite=False,
+        num_shards=mesh.data, shard_index=mesh.rank, drop_last=False,
+        pin_memory=pin)
 
     # ---------------------------------------------------------------- model
     torch.manual_seed(_C.RANDOM_SEED)
-    model = PretrainingModelFactory.from_config(_C, device)
+    model = replicate_(PretrainingModelFactory.from_config(_C, device), mesh)
     optimizer = OptimizerFactory.from_config(_C, model.named_parameters())
     state = TrainState(model, optimizer)
     generator = torch.Generator(device=device)
-    train_step = make_train_step(model, optimizer, accum, generator=generator)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, optimizer, accum, generator=generator,
+                                 mesh=mesh)
+    eval_step = make_eval_step(model, mesh)
 
     ckpt_mgr = CheckpointManager(_A.serialization_dir, keep_recent=100)
     resume_path = _A.resume_from
-    if resume_path == "latest":
-        resume_path = ckpt_mgr.latest()
+    if resume_path == "latest":  # rank 0's view of the directory
+        resume_path = broadcast_object(ckpt_mgr.latest())
         if resume_path is None:
             logger.info("--resume-from latest: no checkpoint yet, starting "
                         "fresh")
@@ -155,8 +171,9 @@ def main(_A) -> Dict[str, Any]:
             profiler.stop()
             profiler = None
         timer.tic()
-        batch = to_device(next(train_iter), device, accum)
-        generator.manual_seed(step_seed(_C.RANDOM_SEED, iteration))
+        batch = shard_batch(next(train_iter), device, accum)
+        generator.manual_seed(step_seed(_C.RANDOM_SEED, iteration,
+                                        mesh.rank))
         metrics = train_step(batch)
         state.iteration = iteration
         if iteration % _A.log_every == 0:
@@ -171,8 +188,8 @@ def main(_A) -> Dict[str, Any]:
                 f"{timer.throughput(batch_size):.1f} img/s | lr cnn "
                 f"{_C.OPTIM.CNN_LR * mult:.5f} textual "
                 f"{_C.OPTIM.LR * mult:.6f}"
-                + (f" | mem {torch.cuda.max_memory_allocated(device) / 2**20:.0f}"
-                   "MB" if device.type == "cuda" else ""))
+                + (f" | mem {device_mem_usage_mb():.0f}MB"
+                   if device.type == "cuda" else ""))
 
         if iteration % _A.checkpoint_every == 0:
             val = validate(model, eval_step, val_loader_factory, device, _C)
@@ -182,13 +199,13 @@ def main(_A) -> Dict[str, Any]:
             # highest metric); batches trained = iteration
             ckpt_mgr.step(state, metric=-val["loss"],
                           loader_state={"items_consumed":
-                                        iteration * batch_size})
+                                        iteration * per_host_batch})
 
     if profiler is not None:
         profiler.stop()
     if _C.OPTIM.NUM_ITERATIONS % _A.checkpoint_every != 0:
         ckpt_mgr.step(state, loader_state={
-            "items_consumed": _C.OPTIM.NUM_ITERATIONS * batch_size})
+            "items_consumed": _C.OPTIM.NUM_ITERATIONS * per_host_batch})
     result["iteration"] = state.iteration
     return result
 

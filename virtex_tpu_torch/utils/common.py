@@ -3,8 +3,12 @@ What the command-line scripts share: the argument parser, the run's set-up
 (device, seeds, cuDNN flags, logging, the config dump), and ``cycle``.
 
 Counterpart of ``virtex_tpu/utils/common.py``, without the JAX compile
-cache and platform override. The scripts run in one process on one device;
-the multi-host flags are kept so command lines carry over, and raise.
+cache and platform override. A script runs in one process on one device,
+or as one of several processes, one per card, in a process group
+(``utils/distributed.py``): started by torchrun, which sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``, or
+by the ``--coordinator-address``/``--num-processes``/``--process-id``
+flags.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from virtex_tpu_torch.config import Config
+from virtex_tpu_torch.utils import distributed
 
 logger = logging.getLogger("virtex_tpu_torch")
 
@@ -46,7 +51,9 @@ def common_parser(description: str = "") -> argparse.ArgumentParser:
                         help="Device to train on (default: the card); "
                              "'cpu' runs on the CPU.")
     parser.add_argument("--coordinator-address", default=None,
-                        help="Multi-host rendezvous (not supported yet).")
+                        help="The process group's rendezvous, host:port or "
+                             "an init-method URL (file://...); torchrun's "
+                             "environment is read without it.")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--profile-dir", default=None,
@@ -61,23 +68,32 @@ def common_parser(description: str = "") -> argparse.ArgumentParser:
 def common_setup(_C: Config, _A: argparse.Namespace,
                  job_type: str = "pretrain") -> torch.device:
     """Resolve the device (a CUDA device must exist: nothing falls back to
-    the CPU), seed python, numpy and torch with ``RANDOM_SEED``, set the
-    cuDNN flags, log to ``log-rank0.txt`` in the serialization dir and to
-    stdout, and dump the config there. Returns the device."""
-    if _A.coordinator_address or (_A.num_processes or 1) > 1:
-        raise NotImplementedError("multi-process training is not ported "
-                                  "yet; run one process")
+    the CPU), join the process group if the run has one (NCCL for a card,
+    gloo for the CPU; a card's device is ``cuda:LOCAL_RANK``), seed python, numpy and torch with
+    ``RANDOM_SEED`` on every rank (so the initial weights agree before the
+    broadcast), set the cuDNN flags, log to ``log-rank<r>.txt`` in the
+    serialization dir (and on rank 0 to stdout), and dump the config there
+    from rank 0. Returns the device."""
     device = torch.device(_A.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {_A.device}: no CUDA device; pass "
                            "--device cpu to run on the CPU")
+    distributed.initialize(
+        _A.coordinator_address, _A.num_processes, _A.process_id,
+        backend=distributed.default_backend(device))
+    rank = distributed.get_rank()
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", distributed.get_local_rank())
+        torch.cuda.set_device(device)
     os.makedirs(_A.serialization_dir, exist_ok=True)
+    handlers = [logging.FileHandler(os.path.join(_A.serialization_dir,
+                                                 f"log-rank{rank}.txt"))]
+    if rank == 0:
+        handlers.append(logging.StreamHandler(sys.stdout))
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s",
-        handlers=[logging.FileHandler(os.path.join(_A.serialization_dir,
-                                                   "log-rank0.txt")),
-                  logging.StreamHandler(sys.stdout)],
-        force=True)
+        handlers=handlers, force=True)
     random.seed(_C.RANDOM_SEED)
     np.random.seed(_C.RANDOM_SEED)
     torch.manual_seed(_C.RANDOM_SEED)
@@ -87,9 +103,12 @@ def common_setup(_C: Config, _A: argparse.Namespace,
         torch.autograd.set_detect_anomaly(True)
     logger.info(f"{job_type}: device {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+                   if device.type == "cuda" else "")
+                + f", process {rank} of {distributed.get_world_size()}")
     logger.info(str(_C))
-    _C.dump(os.path.join(_A.serialization_dir, f"{job_type}_config.yaml"))
+    if rank == 0:
+        _C.dump(os.path.join(_A.serialization_dir,
+                             f"{job_type}_config.yaml"))
     return device
 
 

@@ -20,7 +20,11 @@ reruns a module that draws from generators and writes buffers, so
 - **state written once**: the module's buffers (BatchNorm's running
   statistics and ``num_batches_tracked``) are copied before the
   recomputation and written back after it, so they keep what the first run
-  wrote.
+  wrote;
+- **the same group**: the recomputation runs in autograd's thread, where
+  the train step's published process group (``ops/_mesh.py``) is not set,
+  so it is published again there, and the recomputed BatchNorm takes the
+  global statistics the first run took.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from virtex_tpu_torch.ops._mesh import active_group, kernel_group
 
 
 def remat(module: torch.nn.Module, *args,
@@ -45,6 +51,7 @@ def remat(module: torch.nn.Module, *args,
     def first_run():
         if generator is not None:
             before["state"] = generator.get_state()
+        before["group"] = active_group()
         yield
 
     @contextlib.contextmanager
@@ -55,7 +62,8 @@ def remat(module: torch.nn.Module, *args,
             generator.set_state(before["state"])
         buffers = [(b, b.clone()) for b in module.buffers()]
         try:
-            yield
+            with kernel_group(before["group"]):
+                yield
         finally:
             with torch.no_grad():
                 for b, kept in buffers:
