@@ -164,8 +164,34 @@ prints no result, when there is no card or when any phase fails:
     dropout seeds and K1/K2 keep masks differ, each equal to
     ``philox_keep_reference`` on its seed. Host ms of the world-2 step
     (gloo stages the all-reduces through the host) and the host ms inside
-    its all-reduces by kind. Every phase's seconds are printed before the
-    kernels line.
+    its all-reduces by kind.
+21. the model zoo (``virtex_tpu_torch.model_zoo``): (a) each of its 16
+    entries at its published widths, weights drawn from a numpy seed
+    (``randomize_``), written as a reference-format ``.pth`` into a
+    ``$VIRTEX_TPU_ZOO_DIR`` and loaded by ``model_zoo.get(entry,
+    pretrained=True)`` on the card, every tensor bit-equal to the file; its
+    eval step at batch 32 in bf16 with 4·L K1 launches for a bicaptioning
+    head of L layers (2·L for one direction, none for the linear head);
+    beam captioning at batch 32 for ``L4_H1024``. (b) the seven
+    architectures no earlier phase trains (``R_101``, ``R_50W2X``, ``L2``,
+    ``L3``, ``L4``, ``H512``, ``H768``) each take a train step at 128 × 2
+    in bf16 with the flagship's optimizer: 8·L K1 and K2 launches and two
+    of each K4 stage per BatchNorm layer (104 in ResNet-101, 53 else), the
+    losses and ``grad_norm`` as phase 8 holds them to a plain-kernel copy;
+    ms per step, peak GiB and one step under ``torch.profiler``. (c) K1
+    and K2 at 8 and 12 heads (B 128 self and cross, K1 also at B 32; keep
+    masks bit for bit) and K4's two stages at the BatchNorm shapes of
+    ``R_50W2X`` and ``R_101`` beyond ResNet-50's, against their plain
+    versions at phases 3-5's tolerances, timed as phases 9 and 10 time
+    them. (d) ``resnet50_extractor(pretrained=True)``
+    through ``torch.hub.load(..., source="local")`` on NHWC and NCHW images,
+    (32, 7, 7, 2048) and bit-equal to ``model_zoo.get``'s ``model.visual``.
+    (e) ``eval_detectron2 --weight-init virtex`` on phase 13's checkpoint
+    and on (a)'s ``R_101`` file: with no detectron2 here each writes its
+    ``.pkl``, whose tensors renamed back equal the checkpoint's ResNet bit
+    for bit, in 16 and 33 blocks. (f) ``build_vocabulary`` on phase 13's
+    captions: the ``.model`` and the ``.sp.model`` encode them alike.
+    Every phase's seconds are printed before the kernels line.
 
 The line before the last is a JSON object on the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -678,16 +704,17 @@ def bn_counts(BN):
             BN.dx_vector_launch_count)
 
 
-def check_k4(torch, BN, device):
+def check_k4(torch, BN, device, cases=K4_CASES, m_total=True):
     """K4's stage 1 against ``bn_backward_sums_reference`` and its stage 2
     against ``bn_backward_dx_reference`` (both fed the plain sums) on the
-    card, at K4_CASES; each stage launched twice must give equal bits, in
-    the variant ``k4_vector_width`` names. Returns the largest absolute
-    errors of the sums and of dx at the 12 shapes, and a summary."""
+    card, at ``cases``; each stage launched twice must give equal bits, in
+    the variant ``k4_vector_width`` names; with ``m_total``, stage 2 with
+    the count of two ranks. Returns the largest absolute errors of the
+    sums and of dx at the model shapes, and a summary."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     worst, sums_err, dx_err = {}, 0.0, 0.0
-    for name, B, hw, C, layout, dy_name, x_name in K4_CASES:
+    for name, B, hw, C, layout, dy_name, x_name in cases:
         dy, x, mean, rstd = bn_inputs(torch, B, hw, C, device, gen, layout,
                                       getattr(torch, dy_name),
                                       getattr(torch, x_name))
@@ -739,7 +766,7 @@ def check_k4(torch, BN, device):
     # m_total their count (here the local sums doubled, as two ranks
     # holding the same shard would give). dy has a mean and a part along
     # x̂, so that dβ/M and dγ/M are O(1) and a wrong count shows.
-    for hw, C in FINETUNE_K4_SHAPES:
+    for hw, C in FINETUNE_K4_SHAPES if m_total else ():
         dy, x, mean, rstd = bn_inputs(torch, TRAIN_BATCH, hw, C, device, gen)
         xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
         dy = (dy.float() + 1.0 + 0.5 * xhat).to(torch.bfloat16)
@@ -1395,7 +1422,7 @@ def task_batch(torch, spec, B, seed, device):
     batch = caption_batch(torch, B, spec.image_size, spec.max_caption_length,
                           spec.vocab_size, seed, device)
     name = spec.model_name
-    if name == "captioning":
+    if name in ("virtex", "bicaptioning", "captioning"):
         return batch
     rng = np.random.RandomState(seed + 1)
     tokens = batch["caption_tokens"].cpu().numpy()
@@ -3480,6 +3507,456 @@ def check_dp_world_2(torch, port, device, step_ms_1):
     return total, seconds
 
 
+# -- phase 21 ----------------------------------------------------------------
+ZOO_FLAGSHIP = "width_ablations/bicaptioning_R_50_L1_H1024.yaml"
+ZOO_R101 = "backbone_ablations/bicaptioning_R_101_L1_H1024.yaml"
+# The zoo's architectures that no phase before this one trained on the card,
+# each with its ResNet's BatchNorm layers.
+ZOO_TRAINED = {"backbone_ablations/bicaptioning_R_101_L1_H1024.yaml": 104,
+               "backbone_ablations/bicaptioning_R_50W2X_L1_H1024.yaml": 53,
+               "depth_ablations/bicaptioning_R_50_L2_H1024.yaml": 53,
+               "depth_ablations/bicaptioning_R_50_L3_H1024.yaml": 53,
+               "depth_ablations/bicaptioning_R_50_L4_H1024.yaml": 53,
+               "width_ablations/bicaptioning_R_50_L1_H512.yaml": 53,
+               "width_ablations/bicaptioning_R_50_L1_H768.yaml": 53}
+# Beam captioning runs for the deepest head.
+ZOO_BEAM = "depth_ablations/bicaptioning_R_50_L4_H1024.yaml"
+# H512's and H768's attention: 8 and 12 heads of 64.
+ZOO_HEADS = (8, 12)
+# Detectron2's residual blocks (res2..res5) of a ResNet-50 and a ResNet-101.
+D2_BLOCKS = {50: 16, 101: 33}
+
+
+def zoo_eval_launches(spec) -> dict:
+    """K1 launches of one eval step: self- and cross-attention in each
+    layer, in both caption directions for bicaptioning; none for the
+    linear head."""
+    k1 = 0 if spec.linear_head else 2 * spec.textual["num_layers"] * (
+        2 if spec.caption_backward else 1)
+    return {"K1": k1, "K2": 0, "K4": 0, "K4dx": 0}
+
+
+def zoo_train_step(torch, port, device, rel, model, cfg, n_bn):
+    """Phase 21(b) for one architecture: the zoo's model (dropout 0) takes
+    one train step at 128 x 2 with the flagship's optimizer against a
+    plain-kernel copy, then two timed steps and one under torch.profiler.
+    Returns its launches, its BatchNorm input shapes, the host ms per step
+    and the peak GiB of the timed steps."""
+    A, BN = port.A, port.BN
+    t0 = time.perf_counter()
+    spec = port.ModelSpec.from_config(cfg)
+    layers = spec.textual["num_layers"]
+    found = sum(isinstance(m, port.SubsampledBatchNorm)
+                for m in model.modules())
+    if found != n_bn:
+        fail(f"zoo {rel}: {found} BatchNorm layers, expected {n_bn}")
+    want = {"K1": 8 * layers, "K2": 8 * layers, "K4": ACCUM * n_bn,
+            "K4dx": ACCUM * n_bn}
+    optim = port.OptimSpec.flagship()
+    plain = plain_copy(model, A, BN, port.MultiHeadAttention,
+                       port.SubsampledBatchNorm)
+    step = port.make_train_step(
+        model, port.build_optimizer(model.named_parameters(), optim), ACCUM)
+    plain_step = port.make_train_step(
+        plain, port.build_optimizer(plain.named_parameters(), optim), ACCUM)
+    batch = train_batch(torch, spec, device, SEED)
+    shapes, unhook = bn_shape_counts(model, port.SubsampledBatchNorm)
+    reset_counts(A, BN)             # a main path starts here
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    counts = launch_counts(A, BN)   # ... and ends here
+    unhook()
+    if counts != want:
+        fail(f"zoo {rel} train step launched {counts}, expected {want}")
+    ref = {k: float(v) for k, v in plain_step(batch).items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"zoo {rel} train step: non-finite metrics {metrics}")
+    for key in ref:
+        rtol = GRAD_NORM_RTOL if key == "grad_norm" else LOSS_RTOL
+        if not abs(metrics[key] - ref[key]) <= rtol * abs(ref[key]):
+            fail(f"zoo {rel} train step: {key} {metrics[key]} with the "
+                 f"kernels, {ref[key]} with the plain versions (rtol {rtol})")
+    gaps = {k: float(f"{abs(metrics[k] - ref[k]) / abs(ref[k]):.3e}")
+            for k in ref}
+    del plain, plain_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(A, BN)             # a main path starts here
+    ms = host_ms(torch, lambda: step(batch), 2, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = profile_step(torch, lambda: step(batch))
+    timed = launch_counts(A, BN)    # ... and ends here
+    if timed != {k: 3 * v for k, v in want.items()}:
+        fail(f"zoo {rel}: three more steps launched {timed}")
+    say("21 zoo train", f"{rel}: {spec.visual_name} {spec.textual_name} "
+        f"{spec.dtype}, micro-batch {TRAIN_BATCH} x accum {ACCUM}, dropout "
+        f"0: kernels {json.dumps(metrics)}; relative gaps to the plain "
+        f"versions {json.dumps(gaps)}; launches per step {want}; "
+        f"{time.perf_counter() - t0:.1f} s in all | {card_line()} | one "
+        f"step under torch.profiler: {profile}")
+    launches = {k: counts[k] + timed[k] for k in counts}
+    return launches, shapes, ms, peak
+
+
+def check_zoo(torch, port, device, zoo_dir):
+    """Phase 21(a) and (b): every zoo entry written as a reference-format
+    ``.pth`` (weights from a numpy seed), loaded by ``model_zoo.get(...,
+    pretrained=True)`` on the card, bit-equal, and run through the eval
+    step; beam captioning for ZOO_BEAM; the ZOO_TRAINED architectures
+    through a train step. Keeps the flagship's and R-101's files in
+    ``zoo_dir``. Returns the launches, the BatchNorm shapes of the trained
+    ResNets, and {entry: (ms, peak GiB)}."""
+    A, BN, zoo = port.A, port.BN, port.model_zoo
+    entries = sorted(zoo._MODEL_ZOO_CONFIGS.items(), key=lambda e: e[::-1])
+    names = sorted(set(zoo._MODEL_ZOO_CONFIGS.values()))
+    keep = {zoo._MODEL_ZOO_CONFIGS[r] for r in (ZOO_FLAGSHIP, ZOO_R101)}
+    last = {name: i for i, (_, name) in enumerate(entries)}
+    launches = dict(NO_LAUNCHES)
+    bn_shapes, train_times, written = {}, {}, {}
+    for i, (rel, name) in enumerate(entries):
+        # dropout 0 where the entry trains below (it holds no weights)
+        overrides = (["MODEL.TEXTUAL.DROPOUT", 0.0] if rel in ZOO_TRAINED
+                     else [])
+        path = os.path.join(zoo_dir, name + ".pth")
+        t0 = time.perf_counter()
+        if name not in written:
+            # initialised on the card, which is quicker than the factory's
+            # draws on the host: randomize_ redraws every tensor anyway
+            with torch.device(device):
+                model, _ = zoo.get(rel, overrides=overrides)
+            randomize_(torch, model, SEED + names.index(name))
+            written[name] = {k: v.detach().cpu() for k, v in
+                             model.state_dict().items()}
+            torch.save({"model": written[name]}, path)
+            del model
+        t1 = time.perf_counter()
+        model, cfg = zoo.get(rel, pretrained=True, overrides=overrides)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        if next(model.parameters()).device != device:
+            fail(f"model_zoo.get built {rel} on "
+                 f"{next(model.parameters()).device}")
+        loaded = model.state_dict()
+        unequal = [k for k, v in written[name].items()
+                   if k not in loaded or not torch.equal(loaded[k].cpu(), v)]
+        if sorted(loaded) != sorted(written[name]) or unequal:
+            fail(f"zoo {rel}: {len(unequal)} of {len(loaded)} tensors differ "
+                 f"from {name}.pth, e.g. {unequal[:3]}")
+        spec = port.ModelSpec.from_config(cfg)
+        if spec.dtype != "bfloat16":
+            fail(f"zoo {rel}: DTYPE {spec.dtype}")
+        batch = task_batch(torch, spec, EVAL_BATCH, SEED + i, device)
+        want = zoo_eval_launches(spec)
+        reset_counts(A, BN)         # a main path starts here
+        losses = {k: float(v)
+                  for k, v in port.make_eval_step(model)(batch).items()}
+        torch.cuda.synchronize()
+        eval_counts = launch_counts(A, BN)  # ... and ends here
+        if eval_counts != want:
+            fail(f"zoo {rel} eval step launched {eval_counts}, expected "
+                 f"{want}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"zoo {rel} eval step: non-finite losses {losses}")
+        launches = {k: launches[k] + eval_counts[k] for k in launches}
+        note = ""
+        if rel == ZOO_BEAM:
+            decoder = port.AutoRegressiveBeamSearch(
+                spec.eos_index, spec.max_decoding_steps, spec.beam_size)
+            caption_fn = port.make_caption_fn(model, decoder,
+                                              spec.sos_index,
+                                              spec.prefix_mode)
+            reset_counts(A, BN)     # a main path starts here
+            captions = caption_fn(batch["image"])
+            torch.cuda.synchronize()
+            counts = launch_counts(A, BN)  # ... and ends here
+            if any(counts.values()):
+                fail(f"zoo {rel}: beam search launched {counts}")
+            lo, hi = int(captions.min()), int(captions.max())
+            if tuple(captions.shape) != (EVAL_BATCH, spec.max_decoding_steps) \
+                    or lo < 0 or hi >= spec.vocab_size:
+                fail(f"zoo {rel}: captions {tuple(captions.shape)}, ids "
+                     f"{lo}..{hi}")
+            note = (f"; beam K={spec.beam_size} B{EVAL_BATCH}: tokens "
+                    f"{tuple(captions.shape)} in [{lo}, {hi}], no launch")
+        say("21 zoo", f"{rel}: {name}.pth (written in {t1 - t0:.1f} s) "
+            f"loaded by model_zoo.get(..., pretrained=True) on {device} in "
+            f"{load_s:.1f} s, all {len(loaded)} tensors "
+            f"bit-equal; eval B{EVAL_BATCH} {spec.dtype} "
+            f"{json.dumps(losses)}, launches {eval_counts}{note}")
+        if rel in ZOO_TRAINED:
+            counts, shapes, ms, peak = zoo_train_step(
+                torch, port, device, rel, model, cfg, ZOO_TRAINED[rel])
+            launches = {k: launches[k] + counts[k] for k in launches}
+            bn_shapes[rel] = shapes
+            train_times[rel] = (ms, peak)
+        del model
+        if last[name] == i:
+            written.pop(name)
+            if name not in keep:
+                os.remove(path)
+        torch.cuda.empty_cache()
+    return launches, bn_shapes, train_times
+
+
+def zoo_k4_shapes(bn_shapes) -> list:
+    """The (H, C) of the trained ResNets' BatchNorms at TRAIN_BATCH that
+    phases 5 and 16 do not hold K4 to: those outside ResNet-50's."""
+    found = {(s[2], s[1]) for shapes in bn_shapes.values() for s in shapes
+             if s[0] == TRAIN_BATCH}
+    return sorted(found - set(R50_BN_SHAPES))
+
+
+def check_zoo_kernels(torch, port, device, bn_shapes):
+    """Phase 21(c): K1 and K2 at 8 and 12 heads (B 128, the train step's
+    self 30×30 causal + pad and cross 30×49, fp32 and bf16; their keep
+    masks bit for bit; K1 also at B 32) and K4's two stages at the new
+    ResNet shapes, against their plain versions at phases 3-5's
+    tolerances, then timed. Returns the largest absolute bf16 errors of
+    K1, K2, K4's sums and dx, and the timings."""
+    A, BN = port.A, port.BN
+    worst, err = {}, {"K1": 0.0, "K2": 0.0}
+    for N in ZOO_HEADS:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            tol = TOL[dtype_name]
+            for B, kind in ((TRAIN_BATCH, "self"), (TRAIN_BATCH, "cross"),
+                            (EVAL_BATCH, "self"), (EVAL_BATCH, "cross")):
+                Tk = 30 if kind == "self" else 49
+                seed = SEED + 80 + N + B
+                q, k, v = attention_inputs(torch, B, 30, Tk, N, 64, dtype,
+                                           device, seed, packed=True)
+                mask = self_mask(torch, B, 30, device, seed) \
+                    if kind == "self" else None
+                name = f"{N} heads {kind} B{B} {dtype_name}"
+                pairs = [("K1", k1_out(torch, A, name, q, k, v, mask),
+                          A.attention_reference(q, k, v, mask))]
+                if B == TRAIN_BATCH:
+                    g = attention_inputs(torch, B, 30, 30, N, 64, dtype,
+                                         device, seed + 1)[0]
+                    pairs += [("K2", a, b) for a, b in zip(
+                        k2_grads(torch, A, q, k, v, mask, g),
+                        A.attention_backward_reference(q, k, v, mask, g))]
+                for kernel, got, ref in pairs:
+                    e = rel_err(got, ref, ATOL)
+                    worst[f"{kernel} {name}"] = max(
+                        e, worst.get(f"{kernel} {name}", 0.0))
+                    if got.shape != ref.shape or not e <= tol:
+                        fail(f"{kernel} {name}: {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}, error {e:.3e} > {tol:.0e}")
+                    if dtype_name == "bfloat16":
+                        err[kernel] = max(err[kernel], float(
+                            (got.float() - ref.float()).abs().max()))
+            check_keep_bits(torch, A, device, N, 0.1, 4321 + N, dtype)
+    shapes = zoo_k4_shapes(bn_shapes)
+    if not shapes:
+        fail("the trained ResNets have no BatchNorm shape beyond "
+             "ResNet-50's")
+    cases = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last",
+              "bfloat16", "bfloat16") for hw, C in shapes]
+    sums_err, dx_err, k4_summary = check_k4(torch, BN, device, cases,
+                                            m_total=False)
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    attention_times = {}
+    for N in ZOO_HEADS:
+        for B, kind in ((TRAIN_BATCH, "self"), (TRAIN_BATCH, "cross"),
+                        (EVAL_BATCH, "self"), (EVAL_BATCH, "cross")):
+            Tk = 30 if kind == "self" else 49
+            q, k, v = attention_inputs(torch, B, 30, Tk, N, 64,
+                                       torch.bfloat16, device, SEED,
+                                       packed=True)
+            g = attention_inputs(torch, B, 30, 30, N, 64, torch.bfloat16,
+                                 device, SEED + 1)[0] \
+                if B == TRAIN_BATCH else None
+            mask = self_mask(torch, B, 30, device, SEED) \
+                if kind == "self" else None
+            attention_times[(N, kind, B)] = time_attention(torch, A, q, k, v,
+                                                           g, mask)
+    bn_times = time_bn(torch, BN, device, shapes=shapes)
+    return (err["K1"], err["K2"], sums_err, dx_err, summary, k4_summary,
+            attention_times, bn_times)
+
+
+def check_hub(torch, port, device):
+    """Phase 21(d): ``resnet50_extractor(pretrained=True)`` through
+    ``torch.hub.load(..., source="local")`` from the zoo's flagship
+    ``.pth``, on NHWC and NCHW images, bit-equal to ``model_zoo.get``'s
+    ``model.visual``; cuDNN deterministic."""
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.rand(EVAL_BATCH, 224, 224, 3).astype(
+        np.float32)).to(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        extract = torch.hub.load(os.path.join(REPO, "virtex_tpu_torch"),
+                                 "resnet50_extractor", source="local",
+                                 pretrained=True)
+        nhwc, nchw = extract(images), extract(images.permute(0, 3, 1, 2))
+        model, _ = port.model_zoo.get(ZOO_FLAGSHIP, pretrained=True)
+        with torch.inference_mode():
+            ref = model.visual.eval()(images)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if tuple(nhwc.shape) != (EVAL_BATCH, 7, 7, 2048) \
+            or nhwc.device != device:
+        fail(f"hub extractor: {tuple(nhwc.shape)} on {nhwc.device}")
+    if not torch.equal(nhwc, ref) or not torch.equal(nchw, ref):
+        fail("hub extractor: its features are not model.visual's bits "
+             f"(NHWC max |diff| {float((nhwc - ref).abs().max()):.3e}, NCHW "
+             f"{float((nchw - ref).abs().max()):.3e})")
+    say("21 hub", f"torch.hub.load(virtex_tpu_torch, 'resnet50_extractor', "
+        f"source='local', pretrained=True): B{EVAL_BATCH} 224² NHWC and "
+        f"NCHW → {tuple(nhwc.shape)} {nhwc.dtype} on {nhwc.device}, both "
+        f"bit-equal to model_zoo.get('{ZOO_FLAGSHIP}', pretrained=True)'s "
+        "model.visual")
+
+
+def check_detectron2(torch, port, run, zoo_dir):
+    """Phase 21(e): eval_detectron2 --weight-init virtex on phase 13's
+    checkpoint and on the zoo's R-101 ``.pth``. Without detectron2 each
+    writes its ``.pkl``, whose tensors renamed back are the checkpoint's
+    ResNet bit for bit."""
+    import importlib.util
+    import pickle
+    if importlib.util.find_spec("detectron2") is not None:
+        fail("detectron2 is installed here; phase 21(e) exports only")
+    d2 = port.eval_detectron2
+    runs = [(os.path.join(REPO, PRETRAIN_CONFIG),
+             os.path.join(run, f"checkpoint_{PRETRAIN_ITERS}.pth")),
+            (os.path.join(REPO, "configs", ZOO_R101),
+             os.path.join(zoo_dir, "bicaptioning_R_101_L1_H1024.pth"))]
+    done = []
+    for config, ckpt in runs:
+        depth = d2.infer_resnet_depth(port.Config(config).MODEL.VISUAL.NAME)
+        out = os.path.join(WORK, f"d2_R{depth}")
+        t0 = time.perf_counter()
+        result, _ = run_cli(d2, ["--config", config, "--weight-init",
+                                 "virtex", "--checkpoint-path", ckpt,
+                                 "--serialization-dir", out],
+                            out + ".log")
+        seconds = time.perf_counter() - t0
+        with open(result["output"], "rb") as f:
+            exported = pickle.load(f)
+        if result["results"] is not None or not exported.get(
+                "matching_heuristics"):
+            fail(f"eval_detectron2 R-{depth}: {sorted(exported)}, results "
+                 f"{result['results']}")
+        backbone = {k[len("visual.cnn."):]: v for k, v in
+                    port.read_checkpoint(ckpt)["model"].items()
+                    if k.startswith("visual.cnn.")
+                    and not k.endswith("num_batches_tracked")}
+        back = {port.detectron2_name(k): k for k in backbone}
+        unequal = [k for k, v in exported["model"].items()
+                   if k not in back or not np.array_equal(
+                       v, backbone[back[k]].float().numpy())]
+        if sorted(back) != sorted(exported["model"]) or unequal:
+            fail(f"eval_detectron2 R-{depth}: {len(unequal)} exported tensors "
+                 f"are not the checkpoint's, e.g. {unequal[:3]}")
+        blocks = {".".join(k.split(".")[:2]) for k in exported["model"]
+                  if k.startswith("res")}
+        if depth not in D2_BLOCKS or len(blocks) != D2_BLOCKS[depth]:
+            fail(f"eval_detectron2: depth {depth}, {len(blocks)} blocks")
+        done.append(f"R-{depth} from {os.path.relpath(ckpt, REPO)}: "
+                    f"{len(exported['model'])} tensors in "
+                    f"{len(blocks)} blocks, renamed back bit-equal to the "
+                    f"checkpoint's ResNet ({seconds:.1f} s)")
+    say("21 detectron2", "python -m virtex_tpu_torch.scripts.eval_detectron2"
+        " --weight-init virtex, no detectron2 here so the .pkl is the "
+        "result: " + "; ".join(done))
+
+
+def check_vocabulary(port, root):
+    """Phase 21(f): build_vocabulary on phase 13's captions; the port's
+    reader loads the JSON ``.model`` and the ``.sp.model`` and encodes
+    every caption alike."""
+    captions = os.path.join(root, "annotations", "captions_train2017.json")
+    prefix = os.path.join(WORK, "vocab", "coco")
+    t0 = time.perf_counter()
+    paths, _ = run_cli(port.build_vocabulary, ["-c", captions, "-o", prefix],
+                       prefix + ".log")
+    seconds = time.perf_counter() - t0
+    from_json = port.SentencePieceBPETokenizer(paths["model"])
+    from_sp = port.SentencePieceBPETokenizer(paths["sp_model"])
+    with open(captions) as f:
+        texts = [a["caption"] for a in json.load(f)["annotations"]]
+    differ = [t for t in texts if from_json.encode(t) != from_sp.encode(t)]
+    if differ or not texts:
+        fail(f"build_vocabulary: {len(differ)} of {len(texts)} captions "
+             f"encode differently from the .sp.model, e.g. {differ[:2]}")
+    loaded = sorted(m for m in sys.modules for bad in (
+        "transformers", "tokenizers", "sentencepiece")
+        if m == bad or m.startswith(bad + "."))
+    if loaded:
+        fail(f"build_vocabulary imported {loaded}")
+    say("21 vocabulary", f"python -m virtex_tpu_torch.scripts."
+        f"build_vocabulary on phase 13's {len(texts)} captions in "
+        f"{seconds:.2f} s (Python {sys.version.split()[0]}): "
+        f"{from_json.get_vocab_size()} pieces; the .model and the .sp.model "
+        f"encode all {len(texts)} captions alike; no transformers, "
+        "tokenizers or sentencepiece imported; no kernel")
+
+
+def zoo_timing_lines(card, attention_times, bn_times, train_times):
+    lib = (f"library: scaled_dot_product_attention, {SDPA_BACKEND}; K2's: "
+           "its aten backward op")
+    yield (f"{card} | K1 and K2 at the zoo's head counts, bf16, device ms "
+           f"per call ({lib}): " + "; ".join(
+               f"{N} heads {kind} B{B} " + ", ".join(
+                   f"{kernel} {timing_text(t)}" for kernel, t in
+                   times.items())
+               for (N, kind, B), times in attention_times.items()))
+    for key, title, library in (
+            ("sums", "K4 stage 1 (sums)", "torch.batch_norm_backward_reduce"),
+            ("dx", "K4 stage 2 (dx)", "torch.batch_norm_backward_elemt")):
+        yield (f"{card} | {title} at the wide and deep ResNets' new shapes, "
+               f"bf16 B{TRAIN_BATCH}, device ms per call (library: "
+               f"{library}): " + "; ".join(
+                   f"{hw}x{hw}x{C} {timing_text(t[key])}"
+                   for (hw, C), t in bn_times.items()))
+    yield (f"{card} | zoo train steps, micro-batch {TRAIN_BATCH} x accum "
+           f"{ACCUM}, bf16, host ms per step (mean of two) and peak GiB: "
+           + "; ".join(f"{rel.split('/')[1][:-5]} {ms:.1f} ms = "
+                       f"{ACCUM * TRAIN_BATCH / ms * 1e3:.1f} img/s, "
+                       f"{peak:.2f} GiB"
+                       for rel, (ms, peak) in train_times.items()))
+
+
+def check_phase21(torch, port, device, run, root):
+    """Phase 21. Returns its launches and the largest absolute bf16
+    errors of K1, K2, K4's sums and dx at its shapes."""
+    zoo_dir = os.path.join(WORK, "zoo")
+    os.makedirs(zoo_dir, exist_ok=True)
+    env = {port.model_zoo.ZOO_DIR_ENV: zoo_dir}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        launches, bn_shapes, train_times = check_zoo(torch, port, device,
+                                                     zoo_dir)
+        (k1_err, k2_err, sums_err, dx_err, summary, k4_summary,
+         attention_times, bn_times) = check_zoo_kernels(torch, port, device,
+                                                        bn_shapes)
+        say("21 zoo kernels", f"K1 and K2 at {ZOO_HEADS} heads match the "
+            f"plain versions (fp32 tol {TOL['float32']:.0e}, bf16 tol "
+            f"{TOL['bfloat16']:.0e}, atol {ATOL}), keep masks bit for bit: "
+            f"{summary}; K4 at {zoo_k4_shapes(bn_shapes)} (sums/dx errors): "
+            f"{k4_summary}")
+        card = card_line()
+        for line in zoo_timing_lines(card, attention_times, bn_times,
+                                     train_times):
+            say("21 zoo timings", line)
+        check_hub(torch, port, device)
+        torch.cuda.empty_cache()
+        check_detectron2(torch, port, run, zoo_dir)
+        check_vocabulary(port, root)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches, (k1_err, k2_err, sums_err, dx_err)
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -3525,6 +4002,9 @@ def import_port():
     from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
     from virtex_tpu_torch.utils.common import common_parser
     from virtex_tpu_torch.utils.nucleus_sampling import topp_drop
+    from virtex_tpu_torch.model_zoo import model_zoo
+    from virtex_tpu_torch.modules.visual_backbones import detectron2_name
+    from virtex_tpu_torch.scripts import build_vocabulary, eval_detectron2
     return types.SimpleNamespace(**locals())
 
 
@@ -3794,6 +4274,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     dp2_counts, dp2_seconds = check_dp_world_2(torch, port, device,
                                                kernel_step_ms)
+    torch.cuda.empty_cache()
+
+    # 21. the model zoo on the card, the hub, the Detectron2 export and the
+    # vocabulary
+    zoo_counts, zoo_errs = check_phase21(torch, port, device, run, root)
     shutil.rmtree(WORK)
     say("seconds", "per phase (the time up to each phase's last line): "
         + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
@@ -3802,7 +4287,8 @@ def main() -> None:
         f"{dp2_seconds['ranks']:.1f}; all "
         f"{sum(PHASE_SECONDS.values()):.1f}")
     later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
-             + dp1_counts[k] + dp2_counts[k] for k in NO_LAUNCHES}
+             + dp1_counts[k] + dp2_counts[k] + zoo_counts[k]
+             for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -3823,7 +4309,7 @@ def main() -> None:
         "launches": serve_counts["K1"] + train_launches["K1"]
         + task_launches["K1"] + nucleus_counts["K1"]
         + pretrain_counts["K1"] + later["K1"],
-        "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err),
+        "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err, zoo_errs[0]),
         **row(list(k1_eval.values())),
     }, {
         "name": "K2 attention_bwd",
@@ -3832,7 +4318,7 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/attention.py:103",
         "launches": train_launches["K2"] + task_launches["K2"]
         + nucleus_counts["K2"] + pretrain_counts["K2"] + later["K2"],
-        "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err),
+        "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err, zoo_errs[1]),
         **row([t["K2"] for t in train_times.values()]),
     }, {
         "name": "K4 bn_backward_sums",
@@ -3842,7 +4328,7 @@ def main() -> None:
         "launches": train_launches["K4"] + task_launches["K4"]
         + nucleus_counts["K4"] + pretrain_counts["K4"]
         + finetune_counts["K4"] + later["K4"],
-        "max_abs_err": k4_err,
+        "max_abs_err": max(k4_err, zoo_errs[2]),
         **row([tuple(t / bn_calls for t in bn_step["sums"])
                + (next(iter(bn_times.values()))["sums"][4],)]),
     }, {
@@ -3853,7 +4339,7 @@ def main() -> None:
         "launches": train_launches["K4dx"] + task_launches["K4dx"]
         + nucleus_counts["K4dx"] + pretrain_counts["K4dx"]
         + finetune_counts["K4dx"] + later["K4dx"],
-        "max_abs_err": dx_err,
+        "max_abs_err": max(dx_err, zoo_errs[3]),
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),
     }]}), flush=True)

@@ -152,6 +152,11 @@ SLICE_MODULES = [
     "virtex_tpu_torch.ops._mesh",
     "virtex_tpu_torch.parallel",
     "virtex_tpu_torch.parallel.mesh",
+    "virtex_tpu_torch.model_zoo",
+    "virtex_tpu_torch.model_zoo.model_zoo",
+    "virtex_tpu_torch.hubconf",
+    "virtex_tpu_torch.scripts.eval_detectron2",
+    "virtex_tpu_torch.scripts.build_vocabulary",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",

@@ -73,6 +73,18 @@ def caption_batch(batch_size: int, image_size: int, max_len: int,
     }
 
 
+def init_batch(cfg, image: int) -> dict:
+    """One example shaped by ``cfg`` with every key any task reads, as the
+    JAX model zoo initialises a model: [SOS] then [EOS]s, a zero image."""
+    n = cfg.DATA.MAX_CAPTION_LENGTH
+    tokens = np.full((1, n), cfg.DATA.EOS_INDEX, np.int32)
+    tokens[:, 0] = cfg.DATA.SOS_INDEX
+    return {"image": np.zeros((1, image, image, 3), np.float32),
+            "caption_tokens": tokens, "noitpac_tokens": tokens[:, ::-1].copy(),
+            "caption_lengths": np.full((1,), n, np.int32),
+            "labels": tokens, "masked_labels": tokens}
+
+
 def redraw(tree, rng, path=()):
     """Redraw the leaves that flax initialises to constants."""
     out = {}

@@ -30,12 +30,21 @@ negated merge rank), then by (piece id, left id, right id); by piece id
 alone when every score is equal. Such a model has no added tokens; it
 runs the BPE above with ``fuse_unk`` and the ``▁`` Metaspace. A Unigram
 model, or a BPE model with ``byte_fallback``, raises.
+
+:func:`train_tokenizer` trains such a vocabulary, as the JAX package's
+HF ``BpeTrainer`` does, and writes the tokenizer JSON;
+:func:`export_sentencepiece_model` writes a vocabulary as a binary
+SentencePiece ``ModelProto`` (the wire format written here too).
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 import json
+import os
 import struct
 import unicodedata
+from collections import Counter, defaultdict
 from typing import Dict, Iterable, List, Optional, Tuple
 
 SPECIAL_TOKENS = ["<unk>", "[SOS]", "[EOS]", "[MASK]"]
@@ -165,19 +174,7 @@ class SentencePieceBPETokenizer:
         return out
 
     def _pre_tokenize(self, text: str) -> List[str]:
-        r = self._replacement
-        text = text.replace(" ", r)
-        if self._prepend and not text.startswith(r):
-            text = r + text
-        words, cur = [], ""
-        for c in text:
-            if c == r and cur:
-                words.append(cur)
-                cur = ""
-            cur += c
-        if cur:
-            words.append(cur)
-        return words
+        return metaspace_words(text, self._replacement, self._prepend)
 
     def _bpe(self, word: str) -> List[int]:
         cached = self._cache.get(word)
@@ -221,6 +218,28 @@ class SentencePieceBPETokenizer:
         return "".join(
             (t.replace(r, "") if i == 0 and self._prepend else
              t.replace(r, " ")) for i, t in enumerate(tokens)).strip()
+
+
+def metaspace_words(text: str, replacement: str = "\u2581",
+                    prepend: bool = True) -> List[str]:
+    """The Metaspace pre-tokenizer with ``split``: spaces become
+    ``replacement``, one is prepended to a non-empty text that does not
+    start with it (``prepend_scheme`` ``always``), and the text splits
+    before every ``replacement``. An empty text has no words."""
+    if not text:
+        return []
+    text = text.replace(" ", replacement)
+    if prepend and not text.startswith(replacement):
+        text = replacement + text
+    words, cur = [], ""
+    for c in text:
+        if c == replacement and cur:
+            words.append(cur)
+            cur = ""
+        cur += c
+    if cur:
+        words.append(cur)
+    return words
 
 
 def _metaspace(pre_tokenizer, path: str) -> Tuple[str, bool]:
@@ -355,3 +374,227 @@ def sentencepiece_merges(pieces: List[Tuple[str, float, int]],
     for rank, c in enumerate(candidates):
         ranks.setdefault((c[4], c[5]), rank)
     return ranks
+
+
+# -- training -----------------------------------------------------------------
+def _merge_word(symbols: List[int], a: int, b: int, new: int
+                ) -> List[Tuple[Tuple[int, int], int]]:
+    """Merge every (a, b) of one word into ``new``, left to right, in
+    place; returns the pair-count changes (pair, ±1) the merges make to
+    the pairs around them (never to (a, b) itself)."""
+    changes = []
+    i = 0
+    while i < len(symbols):
+        if symbols[i] == a and i + 1 < len(symbols) and symbols[i + 1] == b:
+            if i > 0:
+                changes += [((symbols[i - 1], a), -1),
+                            ((symbols[i - 1], new), 1)]
+            symbols[i:i + 2] = [new]
+            if i < len(symbols) - 1:
+                changes += [((b, symbols[i + 1]), -1),
+                            ((new, symbols[i + 1]), 1)]
+        i += 1
+    return changes
+
+
+def train_bpe(word_counts: Dict[str, int], vocab_size: int
+              ) -> Tuple[List[str], List[Tuple[str, str]]]:
+    """BPE merges learned from word counts, as the HF ``tokenizers``
+    ``BpeTrainer`` learns them: the special tokens get ids 0.., the
+    characters of the words the next ids in code-point order; then, until
+    the vocabulary holds ``vocab_size`` pieces, the pair of adjacent
+    pieces with the largest count (ties to the smaller pair of ids) is
+    merged in the words it was queued with. A queued count that is stale
+    is re-counted and queued again; pairs a merge creates are queued with
+    the words they were created in. A merge whose piece exists already
+    adds no piece, and a pair merged twice keeps its later rank.
+
+    Returns the pieces in id order and the merges in rank order."""
+    ids: Dict[str, int] = {}
+    pieces: List[str] = []
+
+    def add(piece: str) -> int:
+        if piece not in ids:
+            ids[piece] = len(pieces)
+            pieces.append(piece)
+        return ids[piece]
+
+    for token in SPECIAL_TOKENS:
+        add(token)
+    for c in sorted({c for word in word_counts for c in word}, key=ord):
+        add(c)
+    words = [[ids[c] for c in word] for word in word_counts]
+    counts = list(word_counts.values())
+    pair_counts: Dict[Tuple[int, int], int] = defaultdict(int)
+    where: Dict[Tuple[int, int], set] = defaultdict(set)
+    for i, word in enumerate(words):
+        for pair in zip(word, word[1:]):
+            pair_counts[pair] += counts[i]
+            where[pair].add(i)
+    order = itertools.count()  # equal (count, pair) entries pop first-in
+    queue: list = []
+
+    def enqueue() -> None:
+        for pair, pos in where.items():
+            if pair_counts[pair] > 0:
+                heapq.heappush(queue, (-pair_counts[pair], pair,
+                                       next(order), pos))
+        where.clear()
+
+    enqueue()
+    ranks: Dict[Tuple[int, int], int] = {}
+    rank = 0
+    while len(ids) < vocab_size and queue:
+        count, pair, _, pos = heapq.heappop(queue)
+        if -count != pair_counts[pair]:
+            heapq.heappush(queue, (-pair_counts[pair], pair, next(order),
+                                   pos))
+            continue
+        if -count < 1:
+            break
+        new = add(pieces[pair[0]] + pieces[pair[1]])
+        ranks[pair] = rank
+        rank += 1
+        for i in pos:
+            for changed, delta in _merge_word(words[i], pair[0], pair[1],
+                                              new):
+                pair_counts[changed] += delta * counts[i]
+                if delta > 0:
+                    where[changed].add(i)
+        enqueue()
+    merges = [(pieces[a], pieces[b]) for (a, b), _ in
+              sorted(ranks.items(), key=lambda kv: kv[1])]
+    return pieces, merges
+
+
+def tokenizer_json(pieces: List[str], merges: List[Tuple[str, str]]
+                   ) -> dict:
+    """The HF tokenizer JSON of a BPE vocabulary: the special tokens as
+    added tokens, the ``▁`` Metaspace pre-tokenizer and decoder
+    (``prepend_scheme`` ``always``, ``split``), and a BPE model with
+    ``<unk>`` and ``fuse_unk``."""
+    metaspace = {"type": "Metaspace", "replacement": "▁",
+                 "prepend_scheme": "always", "split": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False,
+             "lstrip": False, "rstrip": False, "normalized": False,
+             "special": True} for i, t in enumerate(SPECIAL_TOKENS)],
+        "normalizer": None, "pre_tokenizer": metaspace,
+        "post_processor": None, "decoder": dict(metaspace),
+        "model": {
+            "type": "BPE", "dropout": None, "unk_token": "<unk>",
+            "continuing_subword_prefix": None, "end_of_word_suffix": None,
+            "fuse_unk": True, "byte_fallback": False,
+            "ignore_merges": False,
+            "vocab": {p: i for i, p in enumerate(pieces)},
+            "merges": [list(m) for m in merges]}}
+
+
+def train_tokenizer(captions: Iterable[str], output_path: str,
+                    vocab_size: int = 10000, lower: bool = True,
+                    strip_accents: bool = True) -> SentencePieceBPETokenizer:
+    """Train a BPE vocabulary of ``vocab_size`` pieces on ``captions``
+    (lowercased and accent-stripped as :func:`preprocess_caption` does,
+    split into words by the ``▁`` Metaspace) and write its tokenizer JSON
+    to ``output_path``; returns the tokenizer reading it. The counterpart
+    of ``virtex_tpu.data.tokenizers.train_tokenizer``: the same vocabulary
+    and merges as its HF ``BpeTrainer``, in the same JSON layout."""
+    word_counts: Counter = Counter()
+    for caption in captions:
+        word_counts.update(metaspace_words(
+            preprocess_caption(caption, lower, strip_accents)))
+    pieces, merges = train_bpe(dict(word_counts), vocab_size)
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    with open(output_path, "w", encoding="utf-8") as f:
+        json.dump(tokenizer_json(pieces, merges), f, indent=2,
+                  ensure_ascii=False)
+    return SentencePieceBPETokenizer(output_path)
+
+
+# -- SentencePiece export -----------------------------------------------------
+# SentencePiece.type; TrainerSpec.model_type 2 is BPE; the fields written:
+# TrainerSpec.model_type 3, .vocab_size 4, .byte_fallback 35, .unk_id 40;
+# NormalizerSpec (ModelProto field 3) .name 1, .precompiled_charsmap 2,
+# .add_dummy_prefix 3, .remove_extra_whitespaces 4, .escape_whitespaces 5.
+SP_UNKNOWN, SP_CONTROL, SP_BPE = 2, 3, 2
+
+
+def _put_varint(value: int) -> bytes:
+    out = bytearray()
+    value &= (1 << 64) - 1  # a negative int32 as protobuf writes it
+    while True:
+        byte = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(byte | 0x80)
+        else:
+            out.append(byte)
+            return bytes(out)
+
+
+def _put_field(number: int, wire: int, value) -> bytes:
+    key = _put_varint(number << 3 | wire)
+    if wire == _VARINT:
+        return key + _put_varint(int(value))
+    if wire == _FIXED32:
+        return key + struct.pack("<f", value)
+    return key + _put_varint(len(value)) + value
+
+
+def export_sentencepiece_model(model_path: str, output_path: str) -> None:
+    """Write the BPE vocabulary of a tokenizer JSON (as
+    :func:`train_tokenizer` writes it) as a binary SentencePiece
+    ``ModelProto``, as ``virtex_tpu.data.tokenizers
+    .export_sentencepiece_model`` writes it: each piece in id order with
+    its type (``<unk>`` UNKNOWN, the other special tokens CONTROL, the
+    rest NORMAL) and score (a merged piece's negated merge rank, a
+    composite piece without a merge ranked after every merge, a single
+    character 0), a BPE trainer spec, and the normalizer pinned to
+    identity, keep-whitespace, dummy prefix and escaped whitespace, so
+    :class:`SentencePieceBPETokenizer` reads it back to the same
+    encodes."""
+    with open(model_path, encoding="utf-8") as f:
+        model = json.load(f)["model"]
+    if model.get("type") != "BPE":
+        raise ValueError(f"{model_path}: not a BPE tokenizer JSON")
+    vocab: Dict[str, int] = model["vocab"]
+    if sorted(vocab.values()) != list(range(len(vocab))):
+        raise ValueError(f"{model_path}: vocab ids are not contiguous "
+                         f"0..{len(vocab) - 1}; SentencePiece identifies "
+                         "pieces by position")
+    merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+              for m in model["merges"]]
+    product_rank: Dict[str, int] = {}
+    for rank, (left, right) in enumerate(merges):
+        product_rank.setdefault(left + right, rank)
+    out = bytearray()
+    unranked = 0
+    for piece in sorted(vocab, key=vocab.get):
+        if piece == "<unk>":
+            kind, score = SP_UNKNOWN, 0.0
+        elif piece in SPECIAL_TOKENS:
+            kind, score = SP_CONTROL, 0.0
+        elif piece in product_rank:
+            kind, score = SP_NORMAL, -float(product_rank[piece])
+        elif len(piece) >= 2:
+            unranked += 1
+            kind, score = SP_NORMAL, -float(len(merges) + unranked)
+        else:
+            kind, score = SP_NORMAL, 0.0
+        out += _put_field(1, _BYTES, _put_field(1, _BYTES, piece.encode(
+            "utf-8")) + _put_field(2, _FIXED32, score) + _put_field(
+            3, _VARINT, kind))
+    out += _put_field(2, _BYTES, _put_field(3, _VARINT, SP_BPE)
+                      + _put_field(4, _VARINT, len(vocab))
+                      + _put_field(35, _VARINT, 0)
+                      + _put_field(40, _VARINT, UNK_INDEX))
+    out += _put_field(3, _BYTES, _put_field(1, _BYTES, b"identity")
+                      + _put_field(2, _BYTES, b"")
+                      + _put_field(3, _VARINT, 1)
+                      + _put_field(4, _VARINT, 0)
+                      + _put_field(5, _VARINT, 1))
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    with open(output_path, "wb") as f:
+        f.write(bytes(out))

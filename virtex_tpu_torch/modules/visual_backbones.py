@@ -5,10 +5,15 @@ Counterpart of ``virtex_tpu/modules/visual_backbones.py``
 :class:`ResNetVisualBackbone`: NHWC images in (float, or uint8 normalized
 here with the ImageNet mean and std in the compute dtype), the NHWC grid
 (B, Hg, Wg, C) out, and ``frozen`` (BN on running statistics, no
-gradient into the CNN). The Detectron2 export is not ported yet.
+gradient into the CNN), and :func:`detectron2_backbone_state_dict`, the
+Detectron2 export.
 """
 from __future__ import annotations
 
+import re
+from typing import Any, Dict
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,3 +50,43 @@ class ResNetVisualBackbone(nn.Module):
                                device=image.device)
             image = (image.to(self.dtype) / 255.0 - mean) / std
         return self.cnn(image)
+
+
+# torchvision's names within a block → Detectron2's
+_D2_BLOCK = {"conv1": "conv1", "conv2": "conv2", "conv3": "conv3",
+             "bn1": "conv1.norm", "bn2": "conv2.norm", "bn3": "conv3.norm",
+             "downsample.0": "shortcut", "downsample.1": "shortcut.norm"}
+_BLOCK_KEY = re.compile(r"layer(\d+)\.(\d+)\.(.+)\.(\w+)")
+
+
+def detectron2_name(name: str) -> str:
+    """A ResNet state-dict name (torchvision's) → Detectron2's: the stem
+    under ``stem.conv1`` (its BatchNorm ``stem.conv1.norm``), ``layer<k>``
+    → ``res<k+1>``, each ``bn<i>`` under ``conv<i>.norm``, the downsample
+    as ``shortcut`` (its BatchNorm ``shortcut.norm``)."""
+    if name.startswith(("conv1.", "bn1.")):
+        return ("stem.conv1." if name.startswith("conv1.")
+                else "stem.conv1.norm.") + name.split(".", 1)[1]
+    m = _BLOCK_KEY.fullmatch(name)
+    if not m or m.group(3) not in _D2_BLOCK:
+        raise KeyError(f"not a ResNet entry: {name!r}")
+    stage, block, module, entry = m.groups()
+    return f"res{int(stage) + 1}.{block}.{_D2_BLOCK[module]}.{entry}"
+
+
+def detectron2_backbone_state_dict(visual: ResNetVisualBackbone
+                                   ) -> Dict[str, Any]:
+    r"""The backbone's ResNet in Detectron2's names, as
+    ``virtex_tpu.modules.visual_backbones.detectron2_backbone_state_dict``
+    exports it: ``{"model": {name: np.ndarray}, "__author__":
+    "virtex_tpu", "matching_heuristics": True}``, the arrays fp32 in the
+    torch layout (convolutions OIHW), the BatchNorms' weight, bias and
+    running statistics (no ``num_batches_tracked``)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in visual.cnn.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        out[detectron2_name(name)] = np.ascontiguousarray(
+            value.detach().float().cpu().numpy())
+    return {"model": out, "__author__": "virtex_tpu",
+            "matching_heuristics": True}
