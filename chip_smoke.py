@@ -105,7 +105,10 @@ prints no result, when there is no card or when any phase fails:
     tie (beam scores within BEAM_SCORE_RTOL). Host ms per batch of 32.
 15. the binary SentencePiece reader on this machine: the committed
     ``tests/fixtures/torch_sp_bpe.model`` encodes and decodes equal to its
-    golden, importing no ``transformers``, protobuf or sentencepiece.
+    golden, and ``python -m virtex_tpu_torch.scripts.tokenizer_selfcheck``
+    passes on the Unigram byte-fallback ``tests/fixtures/
+    torch_sp_unigram.model`` and its golden (the JAX reader's ids),
+    importing no ``transformers``, protobuf or sentencepiece.
 16. clf_linear (``python -m virtex_tpu_torch.scripts.clf_linear``) with
     ``--weight-init virtex`` from phase 13, on synthetic ImageNet and
     iNaturalist trees (512 train and 128 val JPEGs each, 500x375 and
@@ -166,8 +169,8 @@ prints no result, when there is no card or when any phase fails:
     (gloo stages the all-reduces through the host) and the host ms inside
     its all-reduces by kind.
 21. the model zoo (``virtex_tpu_torch.model_zoo``): (a) each of its 16
-    entries at its published widths, weights drawn from a numpy seed
-    (``randomize_``), written as a reference-format ``.pth`` into a
+    entries at its published widths, weights drawn on the card from a seed
+    (``card_randomize_``), written as a reference-format ``.pth`` into a
     ``$VIRTEX_TPU_ZOO_DIR`` and loaded by ``model_zoo.get(entry,
     pretrained=True)`` on the card, every tensor bit-equal to the file; its
     eval step at batch 32 in bf16 with 4·L K1 launches for a bicaptioning
@@ -191,6 +194,28 @@ prints no result, when there is no card or when any phase fails:
     ``.pkl``, whose tensors renamed back equal the checkpoint's ResNet bit
     for bit, in 16 and 33 blocks. (f) ``build_vocabulary`` on phase 13's
     captions: the ``.model`` and the ``.sp.model`` encode them alike.
+22. tensor parallelism of the textual head: two gloo ranks on the one
+    card, each a process of its own (``python3 chip_smoke.py --tp-rank R
+    ...``), on a mesh of data 1 × model 2 (``PARALLEL.MODEL`` 2): each rank
+    holds 8 of the flagship's 16 heads and half of its feed-forward
+    columns. (a) One fp32 step (TF32 off, dropout 0, cuDNN deterministic)
+    of 128 × 2 from rank 0's weights by broadcast, against phase 20(b)'s
+    one process on the same batch: the losses, ``grad_norm``, the BatchNorm
+    buffers and every gradient gathered to full names within DP_FP32_TOL of
+    each tensor's scale; 8 K1, 8 K2 and 106 + 106 K4 launches per rank, and
+    the all-reduces by kind as TP_STEP_COLLECTIVES works them out. (b)
+    Three bf16 steps at dropout 0.1: after each, every replicated parameter
+    and buffer bit-equal on the two ranks, the ranks' losses bit-equal,
+    and their first attention seeds apart by 1000003, each one's K1 and
+    K2 keep masks equal to ``philox_keep_reference``; host ms of the step
+    and inside its all-reduces (gloo, staged through the host). (c)
+    ``bicaptioning_R_50_L1_H2048`` (A32 F8192, 16 heads per rank), one bf16
+    step at dropout 0, the losses within LOSS_RTOL of one process's. (d)
+    ``pretrain_virtex`` with ``PARALLEL.MODEL 2`` on phase 13's data, 4
+    iterations, validating and saving every 2, and resumed from 2: rank
+    0's checkpoints hold full tensors, which a one-process model loads and
+    whose slices equal each rank's shards bit for bit; the resumed run's
+    last checkpoint bit-equal to the unbroken one's.
     Every phase's seconds are printed before the kernels line.
 
 The line before the last is a JSON object on the kernels; the last line is
@@ -812,6 +837,26 @@ def randomize_(torch, model, seed: int) -> None:
             std = float(t.std()) if t.numel() > 1 else 0.0
             z = rng.standard_normal(tuple(t.shape)).astype(np.float32)
             t.copy_(torch.from_numpy(mean + (std or 0.1) * z))
+
+
+def card_randomize_(torch, model, seed: int) -> None:
+    """``randomize_``'s rule, each tensor's draws from a generator on
+    ``DEVICE`` seeded with ``seed``: as quick as the card, and the same
+    bits in every process on one card. Phases 21 and 22 draw with it; the
+    earlier phases keep ``randomize_``'s numpy draws, on which phase 12's
+    gate was set."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    seen = set()
+    with torch.no_grad():
+        for _, t in sorted(model.state_dict(keep_vars=True).items()):
+            if not t.is_floating_point() or t.data_ptr() in seen:
+                continue
+            seen.add(t.data_ptr())
+            mean = float(t.mean())
+            std = float(t.std()) if t.numel() > 1 else 0.0
+            z = torch.randn(tuple(t.shape), generator=gen, device=DEVICE)
+            t.copy_(mean + (std or 0.1) * z)
 
 
 def caption_batch(torch, B, image_size, T, vocab, seed, device):
@@ -2062,6 +2107,9 @@ BEAM_SCORE_RTOL = {"float32": 1e-3, "bfloat16": 5e-2}
 DIRECTORY_IMAGES = 6
 SP_MODEL = os.path.join("tests", "fixtures", "torch_sp_bpe.model")
 SP_GOLDEN = os.path.join("tests", "fixtures", "torch_sp_bpe_golden.json")
+SP_UNIGRAM = os.path.join("tests", "fixtures", "torch_sp_unigram.model")
+SP_UNIGRAM_GOLDEN = os.path.join("tests", "fixtures",
+                                 "torch_sp_unigram_golden.json")
 # Phase 16's synthetic transfer sets: ImageNet's usual sizes (H, W), 8
 # wnids; iNaturalist labels drawn from its 8142 classes.
 DOWN_SIZES = ((375, 500), (500, 375))
@@ -2258,14 +2306,25 @@ def check_sp_model(port) -> None:
         fail(f"{SP_MODEL}: {len(bad)} of {len(golden['cases'])} captions "
              f"differ from {SP_GOLDEN} (e.g. {bad[:3]}), vocabulary "
              f"{tok.get_vocab_size()} vs {golden['vocab_size']}")
+    from virtex_tpu_torch.scripts import tokenizer_selfcheck
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tokenizer_selfcheck.main(["--model", os.path.join(
+            REPO, SP_UNIGRAM), "--golden", os.path.join(REPO,
+                                                        SP_UNIGRAM_GOLDEN)])
+    if rc != 0 or "PASS" not in out.getvalue():
+        fail(f"tokenizer_selfcheck on {SP_UNIGRAM} exited {rc}: "
+             f"{out.getvalue()[-2000:]}")
     loaded = sorted(m for m in set(sys.modules) - before
                     if m.split(".")[0] in ("transformers", "sentencepiece")
                     or m.startswith("google.protobuf"))
     if loaded:
-        fail(f"reading {SP_MODEL} imported {loaded}")
+        fail(f"reading {SP_MODEL} and {SP_UNIGRAM} imported {loaded}")
     say("15 sentencepiece", f"{SP_MODEL} ({tok.get_vocab_size()} pieces) "
         f"read by the port: {len(golden['cases'])} captions encode and "
-        f"decode equal to {SP_GOLDEN}; installed here: "
+        f"decode equal to {SP_GOLDEN}; python -m virtex_tpu_torch.scripts."
+        f"tokenizer_selfcheck on the Unigram byte-fallback {SP_UNIGRAM}: "
+        f"{out.getvalue().strip().splitlines()[-1]}; installed here: "
         + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items())
         + "; none imported")
 
@@ -2719,11 +2778,12 @@ REMAT_LAUNCHES = {"K1": 16, "K2": 8, "K4": 106, "K4dx": 106}
 REMAT_LOSS_RTOL, REMAT_GRAD_RTOL = 1e-5, 1e-3
 
 
-def drawn_state(torch, port, spec, seed: int) -> dict:
-    """The state dict of a ``spec`` model on the card, drawn from ``seed``."""
+def drawn_state(torch, port, spec, seed: int, draw=randomize_) -> dict:
+    """The state dict of a ``spec`` model on the card, drawn from ``seed``
+    by ``draw``."""
     torch.manual_seed(SEED)
     model = port.PretrainingModelFactory.from_spec(spec, DEVICE)
-    randomize_(torch, model, seed)
+    draw(torch, model, seed)
     return model.state_dict()
 
 
@@ -3243,13 +3303,18 @@ def fp32_errors(torch, model, metrics, want, device) -> dict:
             "grads": len(errs), "buffers": len(want["buffers"])}
 
 
+def reduced_kind(tensor, group) -> str:
+    """What an all-reduce carries: the flat gradient buffer, a (2, C)
+    BatchNorm tensor, or a scalar or metrics vector."""
+    return ("grads" if tensor.numel() > 2**20 else
+            "bn (2, C)" if tensor.dim() == 2 else "scalars")
+
+
 @contextlib.contextmanager
-def timed_all_reduces(torch, totals: dict):
+def timed_all_reduces(torch, totals: dict, kind=reduced_kind):
     """Add the host ms spent inside ``torch.distributed.all_reduce`` to
-    ``totals`` by what is reduced (the flat gradient buffer, a (2, C)
-    BatchNorm tensor, or a scalar or metrics vector), each call after a
-    synchronize, so that the wait for the card's queued work is not
-    counted."""
+    ``totals`` by ``kind(tensor, group)``, each call after a synchronize,
+    so that the wait for the card's queued work is not counted."""
     dist = torch.distributed
     plain = dist.all_reduce
 
@@ -3257,9 +3322,8 @@ def timed_all_reduces(torch, totals: dict):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = plain(tensor, *args, **kwargs)
-        kind = ("grads" if tensor.numel() > 2**20 else
-                "bn (2, C)" if tensor.dim() == 2 else "scalars")
-        totals[kind] = totals.get(kind, 0.0) \
+        kind_ = kind(tensor, kwargs.get("group"))
+        totals[kind_] = totals.get(kind_, 0.0) \
             + (time.perf_counter() - t0) * 1e3
         return out
 
@@ -3600,7 +3664,7 @@ def zoo_train_step(torch, port, device, rel, model, cfg, n_bn):
 
 def check_zoo(torch, port, device, zoo_dir):
     """Phase 21(a) and (b): every zoo entry written as a reference-format
-    ``.pth`` (weights from a numpy seed), loaded by ``model_zoo.get(...,
+    ``.pth`` (weights drawn on the card from a seed), loaded by ``model_zoo.get(...,
     pretrained=True)`` on the card, bit-equal, and run through the eval
     step; beam captioning for ZOO_BEAM; the ZOO_TRAINED architectures
     through a train step. Keeps the flagship's and R-101's files in
@@ -3620,11 +3684,11 @@ def check_zoo(torch, port, device, zoo_dir):
         path = os.path.join(zoo_dir, name + ".pth")
         t0 = time.perf_counter()
         if name not in written:
-            # initialised on the card, which is quicker than the factory's
-            # draws on the host: randomize_ redraws every tensor anyway
+            # initialised and drawn on the card, which is quicker than
+            # drawing on the host
             with torch.device(device):
                 model, _ = zoo.get(rel, overrides=overrides)
-            randomize_(torch, model, SEED + names.index(name))
+            card_randomize_(torch, model, SEED + names.index(name))
             written[name] = {k: v.detach().cpu() for k, v in
                              model.state_dict().items()}
             torch.save({"model": written[name]}, path)
@@ -3957,6 +4021,444 @@ def check_phase21(torch, port, device, run, root):
     return launches, (k1_err, k2_err, sums_err, dx_err)
 
 
+# -- phase 22 ----------------------------------------------------------------
+# Tensor parallelism: two gloo ranks on the one card on a mesh of data 1 x
+# model 2. Per train step of ACCUM micro-steps, each rank all-reduces: over
+# its data group (one rank here) each of the 53 BatchNorm layers' statistics
+# and K4's sums and the two caption losses' denominators per micro-step, and
+# the gradients and the metrics once; over its model group, per micro-step,
+# in each of the two decoders, the backward of the copy on the inputs of its
+# four column-split blocks (the self-attention's x, the cross-attention's x
+# and visual tokens, the FFN's x) and the forward sums of its three
+# row-split blocks (both attentions' out_proj, linear2), and once per step
+# the clip's sum of the split gradients' squares:
+#   tp_copy = 2 · 4 · ACCUM, tp_reduce = 2 · 3 · ACCUM, grad_norm = 1.
+TP_MODEL = 2
+TP_HEADS = 16 // TP_MODEL
+TP_STEP_COLLECTIVES = {"bn_stats": R50_BN_LAYERS * ACCUM,
+                       "bn_sums": R50_BN_LAYERS * ACCUM,
+                       "loss_count": 2 * ACCUM,
+                       "tp_copy": 2 * 4 * ACCUM, "tp_reduce": 2 * 3 * ACCUM,
+                       "grads": 1, "grad_norm": 1, "metrics": 1}
+TP_DROPOUT_STEPS = 3
+TP_WIDE = "bicaptioning_R_50_L1_H2048"   # A32 F8192: 16 heads per rank
+TP_WIDE_TEXTUAL = "transdec_postnorm::L1_H2048_A32_F8192"
+TP_SEED_STRIDE = 1000003   # modules/transformer.py SHARD_SEED_STRIDE
+# (d): the CLI on phase 13's data, validating and saving every 2 of 4
+# iterations, then resumed from 2.
+TP_CLI_ITERS, TP_CLI_EVERY = 4, 2
+TP_TIMEOUT_S = 600
+
+
+def tp_model(torch, port, spec, state, mesh, rank):
+    """A ``spec`` model on the card from ``state`` (rank 1 from other
+    weights, which the broadcast replaces), sliced to this rank's shard,
+    and its train step with the flagship's optimizer and a generator."""
+    from virtex_tpu_torch.parallel import replicate_, shard_module_
+    model = port.PretrainingModelFactory.from_spec(spec, DEVICE)
+    model.load_state_dict(state, strict=True)
+    if rank:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(0.5)
+    shard_module_(replicate_(model, mesh), mesh)
+    opt = port.build_optimizer(model.named_parameters(),
+                               port.OptimSpec.flagship(), mesh=mesh)
+    gen = torch.Generator(device=DEVICE)
+    return model, gen, port.make_train_step(model, opt, ACCUM, generator=gen,
+                                            mesh=mesh)
+
+
+def replicated_unequal(torch, model, mesh) -> list:
+    """The names of ``model``'s replicated parameters and buffers whose
+    bits differ from model rank 0's (each dtype's tensors broadcast in one
+    flat buffer over the model group)."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+    from virtex_tpu_torch.parallel.mesh import tp_split
+    by_dtype = {}
+    for name, t in itertools.chain(model.named_parameters(),
+                                   model.named_buffers()):
+        if tp_split(name) is None:
+            by_dtype.setdefault(t.dtype, []).append((name, t.detach()))
+    bad = []
+    for entries in by_dtype.values():
+        mine = [t for _, t in entries]
+        flat = _flatten_dense_tensors(mine)
+        torch.distributed.broadcast(flat, src=0, group=mesh.model_group)
+        for (name, _), a, b in zip(entries, mine,
+                                   _unflatten_dense_tensors(flat, mine)):
+            if not torch.equal(a, b):
+                bad.append(name)
+    return bad
+
+
+def tp_cli(torch, port, args: list, mesh) -> dict:
+    """``pretrain_virtex`` on this rank, its launches per train and eval
+    step, and whether the model's shards at the end equal the slices of
+    the last checkpoint."""
+    from virtex_tpu_torch.parallel.mesh import shard_state_dict
+    cli = port.pretrain
+    made = []
+    plain_shard = cli.shard_module_
+
+    def recorded(model, mesh):
+        made.append(plain_shard(model, mesh))
+        return made[-1]
+
+    cli.shard_module_ = recorded
+    steps, evals = [], []
+    try:
+        result = run_pretrain(torch, port, args, steps, evals)
+    finally:
+        cli.shard_module_ = plain_shard
+    run = args[args.index("--serialization-dir") + 1]
+    full = port.read_checkpoint(os.path.join(
+        run, f"checkpoint_{TP_CLI_ITERS}.pth"), map_location=DEVICE)["model"]
+    own = made[0].state_dict()
+    sliced = shard_state_dict(full, mesh)
+    unequal = [k for k, v in own.items() if not torch.equal(v, sliced[k])]
+    return {"losses": result["losses"], "val": result["val"],
+            "steps": steps, "evals": evals, "unequal": unequal,
+            "tensors": len(own)}
+
+
+def tp_worker(rank: int, work: str, url: str) -> None:
+    """Phase 22, one rank of data 1 × model 2; writes ``rank<r>.json``."""
+    import torch
+    sys.path.insert(0, REPO)
+    port = import_port()
+    from virtex_tpu_torch.engine.train_state import step_seed
+    from virtex_tpu_torch.parallel import create_mesh
+    from virtex_tpu_torch.parallel.mesh import gather_tensor
+    from virtex_tpu_torch.utils import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(DEVICE)
+    torch.cuda.set_device(device)
+    distributed.initialize(url, TP_MODEL, rank, backend="gloo")
+    mesh = create_mesh(1, TP_MODEL)
+    ref = torch.load(os.path.join(WORK, "dp2", "reference.pt"),
+                     weights_only=True)
+    batch = {k: v.to(device) for k, v in ref["batch"].items()}
+    spec = dataclasses.replace(port.ModelSpec.flagship(), textual_dropout=0.0)
+    out = {"rank": rank, "model_rank": mesh.model_rank, "seconds": {}}
+    mark = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        out["seconds"][part] = now - mark[0]
+        mark[0] = now
+
+    # (a) fp32 against one process
+    torch.backends.cudnn.deterministic = True
+    model, gen, step = tp_model(torch, port, dataclasses.replace(
+        spec, dtype="float32"), ref["state"], mesh, rank)
+    gen.manual_seed(step_seed(SEED, 0, mesh.data_rank))
+    distributed.reset_all_reduce_counts()
+    torch.cuda.synchronize()
+    reset_counts(port.A, port.BN)   # a main path starts here
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    torch.cuda.synchronize()
+    counts = raw_counts(port.A, port.BN)   # ... and ends here
+    collectives = dict(distributed.all_reduce_counts)
+    grads = {n: gather_tensor(n, p.grad, mesh, "check")
+             for n, p in model.named_parameters()}
+    want = ref["float32"]
+    errs = grad_errors(torch, grads, want["grads"], device)
+    buffers = dict(model.named_buffers())
+    worst = max(errs, key=errs.get)
+    out["float32"] = {
+        "metrics": metrics, "launches": counts, "collectives": collectives,
+        "grad_err": errs[worst], "worst": worst, "grads": len(errs),
+        "buffer_err": max(rel_err(buffers[n], r.to(device),
+                                  float(r.abs().max()))
+                          for n, r in want["buffers"].items()),
+        "loss_err": max(abs(metrics[k] - v) / abs(v)
+                        for k, v in want["metrics"].items())}
+    del model, step, grads
+    torch.cuda.empty_cache()
+    lap("a")
+
+    # (b) bf16 at dropout 0.1: replicated tensors bit-equal, seeds apart
+    torch.backends.cudnn.deterministic = True
+    model, gen, step = tp_model(torch, port, port.ModelSpec.flagship(),
+                                ref["state"], mesh, rank)
+    attn = model.textual.transformer.layers[0].self_attn
+    plain_fn, seeds = attn.attention_fn, []
+
+    def recorded(q, k, v, mask, dropout_rate=0.0, dropout_seed=None):
+        if dropout_seed is not None and not seeds:
+            seeds.append(int(dropout_seed))
+        return plain_fn(q, k, v, mask, dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
+
+    attn.attention_fn = recorded
+    b16 = {"metrics": [], "unequal": [], "launches": []}
+    for it in range(1, TP_DROPOUT_STEPS + 1):
+        gen.manual_seed(step_seed(SEED, it, mesh.data_rank))
+        distributed.reset_all_reduce_counts()
+        torch.cuda.synchronize()
+        reset_counts(port.A, port.BN)   # a main path starts here
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        b16["launches"].append(launch_counts(port.A, port.BN))  # ends here
+        if it == 1:
+            b16["collectives"] = dict(distributed.all_reduce_counts)
+        b16["metrics"].append(metrics)
+        b16["unequal"].append(replicated_unequal(torch, model, mesh))
+    b16["seed"] = seeds[0]
+    b16["keep"] = check_keep_bits(torch, port.A, device, TP_HEADS, 0.1,
+                                  seeds[0], torch.bfloat16)
+    attn.attention_fn = plain_fn
+    b16["step_ms"] = host_ms(torch, lambda: step(batch), 1, warmup=0)
+    totals = {}
+    model_group = mesh.model_group
+
+    def kind(tensor, group):
+        return ("model group" if group is model_group else
+                "data group, grads" if tensor.numel() > 2**20 else
+                "data group, other")
+    with timed_all_reduces(torch, totals, kind):
+        b16["synced_ms"] = host_ms(torch, lambda: step(batch), 1, warmup=0)
+    b16["all_reduce_ms"] = totals
+    out["bfloat16"] = b16
+    del model, step
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) the H2048 head, 16 heads per rank
+    wide = dataclasses.replace(port.ModelSpec.flagship(),
+                               textual_name=TP_WIDE_TEXTUAL,
+                               textual_dropout=0.0)
+    state = drawn_state(torch, port, wide, SEED + 22, card_randomize_)
+    wbatch = train_batch(torch, wide, device, SEED + 22)
+    model, gen, step = tp_model(torch, port, wide, state, mesh, rank)
+    del state
+    gen.manual_seed(step_seed(SEED, 0, mesh.data_rank))
+    torch.cuda.synchronize()
+    reset_counts(port.A, port.BN)   # a main path starts here
+    metrics = {k: float(v) for k, v in step(wbatch).items()}
+    torch.cuda.synchronize()
+    out["wide"] = {"metrics": metrics,
+                   "launches": launch_counts(port.A, port.BN)}  # ends here
+    del model, step, wbatch
+    torch.cuda.empty_cache()
+    lap("c")
+
+    # (d) the CLI, and its resume
+    with open(os.path.join(work, "cli_args.json")) as f:
+        base = json.load(f)
+    runs = {}
+    for name, extra in (("unbroken", []), ("resumed", [
+            "--resume-from", os.path.join(work, "cli_unbroken",
+                                          f"checkpoint_{TP_CLI_EVERY}.pth")])):
+        runs[name] = tp_cli(torch, port, base + [
+            "--serialization-dir", os.path.join(work, f"cli_{name}"),
+            *extra], mesh)
+    out["cli"] = runs
+    lap("d")
+    distributed.synchronize()
+    distributed.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_reference(torch, port, device) -> dict:
+    """One process's bf16 step of the H2048 model at dropout 0 on (c)'s
+    weights and batch: its metrics."""
+    wide = dataclasses.replace(port.ModelSpec.flagship(),
+                               textual_name=TP_WIDE_TEXTUAL,
+                               textual_dropout=0.0)
+    state = drawn_state(torch, port, wide, SEED + 22, card_randomize_)
+    batch = train_batch(torch, wide, device, SEED + 22)
+    model, gen, step = seeded_step(torch, port, wide, state, SEED)
+    del state
+    metrics = {k: float(v) for k, v in step(batch).items()}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def check_tp(torch, port, device, pretrain_args):
+    """Phase 22. Returns the ranks' counted launches, summed, and its
+    seconds: the one process's reference, and the ranks."""
+    work = os.path.join(WORK, "tp")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    ref_wide = tp_reference(torch, port, device)
+    ref = torch.load(os.path.join(WORK, "dp2", "reference.pt"),
+                     weights_only=True)["float32"]["metrics"]
+    base = [a for a in pretrain_args] + [
+        "OPTIM.NUM_ITERATIONS", str(TP_CLI_ITERS), "PARALLEL.MODEL",
+        str(TP_MODEL), "--checkpoint-every", str(TP_CLI_EVERY)]
+    with open(os.path.join(work, "cli_args.json"), "w") as f:
+        json.dump(base, f)
+    t1 = time.perf_counter()
+    url = f"file://{os.path.join(work, 'rendezvous')}"
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+            for r in range(TP_MODEL)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), work, url], cwd=REPO,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_MODEL)]
+    try:
+        rcs = [p.wait(timeout=TP_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    seconds = {"reference": t1 - t0, "ranks": time.perf_counter() - t1}
+    if rcs != [0] * TP_MODEL:
+        tails = []
+        for r in range(TP_MODEL):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}: {f.read()[-3000:]}")
+        fail(f"tensor parallel: the ranks exited {rcs}\n" + "\n".join(tails))
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    total = {k: 0 for k in NO_LAUNCHES}
+    for o in ranks:
+        f32, b16, wide, cli = (o["float32"], o["bfloat16"], o["wide"],
+                               o["cli"])
+        for what, got in (("fp32 step", f32["launches"]),
+                          *(("bf16 step", c) for c in b16["launches"]),
+                          ("H2048 step", wide["launches"])):
+            if got != LAUNCHES_PER_STEP:
+                fail(f"rank {o['rank']}: the {what} launched {got}; "
+                     f"expected {LAUNCHES_PER_STEP}")
+        if f32["collectives"] != TP_STEP_COLLECTIVES \
+                or b16["collectives"] != TP_STEP_COLLECTIVES:
+            fail(f"rank {o['rank']}: all-reduces {f32['collectives']}, "
+                 f"{b16['collectives']}; expected {TP_STEP_COLLECTIVES}")
+        errs = {k: f32[k] for k in ("grad_err", "buffer_err", "loss_err")}
+        if max(errs.values()) > DP_FP32_TOL:
+            fail(f"rank {o['rank']}, fp32, against one process (tol "
+                 f"{DP_FP32_TOL:.0e}): {errs} (worst gradient "
+                 f"{f32['worst']})")
+        if any(b16["unequal"]):
+            fail(f"rank {o['rank']}: replicated tensors differ from model "
+                 f"rank 0's after the bf16 dropout steps: {b16['unequal']}")
+        gap = max(abs(wide["metrics"][k] - v) / abs(v)
+                  for k, v in ref_wide.items() if k != "grad_norm")
+        if not gap <= LOSS_RTOL:
+            fail(f"rank {o['rank']}, H2048 bf16: losses {wide['metrics']} "
+                 f"against one process's {ref_wide} (rtol {LOSS_RTOL})")
+        for name, run in cli.items():
+            if any(c != LAUNCHES_PER_STEP for c in run["steps"]) \
+                    or not run["steps"]:
+                fail(f"rank {o['rank']}, CLI {name}: train steps launched "
+                     f"{run['steps']}")
+            check_evals(f"rank {o['rank']}, CLI {name}", run["evals"])
+            if run["unequal"]:
+                fail(f"rank {o['rank']}, CLI {name}: its shards differ "
+                     f"from the last checkpoint's slices: "
+                     f"{run['unequal'][:4]}")
+        counted = [f32["launches"], *b16["launches"], wide["launches"]] \
+            + [c for run in cli.values() for c in run["steps"]
+               + [{k: e[k] for k in NO_LAUNCHES} for e in run["evals"]]]
+        for c in counted:
+            total = {k: total[k] + c[k] for k in total}
+    r0, r1 = ranks
+    for key in ("float32", "bfloat16", "wide"):
+        if r0[key]["metrics"] != r1[key]["metrics"]:
+            fail(f"tensor parallel, {key}: the ranks' metrics differ: "
+                 f"{r0[key]['metrics']} vs {r1[key]['metrics']}")
+    s0, s1 = r0["bfloat16"]["seed"], r1["bfloat16"]["seed"]
+    if s1 - s0 != TP_SEED_STRIDE * (r1["model_rank"] - r0["model_rank"]):
+        fail(f"tensor parallel: first attention seeds {s0}, {s1}; expected "
+             f"them {TP_SEED_STRIDE} apart")
+    keep = [port.A.philox_keep_reference(s, TRAIN_BATCH, TP_HEADS, 30, 49,
+                                         0.1, device=device)
+            for s in (s0, s1)]
+    if torch.equal(*keep):
+        fail("tensor parallel: the two shards drew one keep mask")
+    runs = r0["cli"]
+    unbroken, resumed = runs["unbroken"], runs["resumed"]
+    if r0["cli"]["unbroken"]["losses"] != r1["cli"]["unbroken"]["losses"]:
+        fail("tensor parallel CLI: the ranks' losses differ")
+    if sorted(unbroken["val"], key=int) != [str(TP_CLI_EVERY),
+                                            str(TP_CLI_ITERS)] \
+            or not all(np.isfinite(v["loss"])
+                       for v in unbroken["val"].values()):
+        fail(f"tensor parallel CLI: validation {unbroken['val']}")
+    late = {k: v for k, v in unbroken["losses"].items()
+            if int(k) > TP_CLI_EVERY}
+    if resumed["losses"] != late:
+        fail(f"tensor parallel CLI: resumed losses {resumed['losses']} vs "
+             f"unbroken {late}")
+    last = f"checkpoint_{TP_CLI_ITERS}.pth"
+    a = flat_state(port, os.path.join(work, "cli_unbroken", last))
+    b = flat_state(port, os.path.join(work, "cli_resumed", last))
+    unequal = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or unequal:
+        fail(f"tensor parallel CLI: {len(unequal)} of {len(a)} tensors of "
+             f"the resumed {last} differ from the unbroken run's, e.g. "
+             f"{unequal[:4]}")
+    one = port.PretrainingModelFactory.from_spec(port.ModelSpec.flagship(),
+                                                 DEVICE)
+    one.load_state_dict(port.read_checkpoint(
+        os.path.join(work, "cli_unbroken", last))["model"], strict=True)
+    del one
+    torch.cuda.empty_cache()
+    f32, b16 = r0["float32"], r0["bfloat16"]
+
+    def worst(key):
+        return max(o["float32"][key] for o in ranks)
+
+    say("22 tensor parallel", f"(a) data 1 x model {TP_MODEL} over gloo on "
+        f"one card (a CUDA context each), flagship at full width, {TP_HEADS}"
+        f" of 16 heads and 2048 of 4096 FFN columns per rank, one step of "
+        f"{ACCUM} x {TRAIN_BATCH}, dropout 0, rank 0's weights broadcast, "
+        f"fp32 (TF32 off, cuDNN deterministic) against phase 20(b)'s one "
+        f"process (tol {DP_FP32_TOL:.0e} per element at each tensor's "
+        f"scale): losses and grad_norm {worst('loss_err'):.3e}, BatchNorm "
+        f"buffers {worst('buffer_err'):.3e}, all {f32['grads']} gradients "
+        f"gathered to full names {worst('grad_err'):.3e} (worst "
+        f"{f32['worst']}); loss {f32['metrics']['loss']} vs {ref['loss']}; "
+        f"launches per rank {f32['launches']}; all-reduces per step "
+        f"{json.dumps(f32['collectives'])}")
+    say("22 tensor parallel", f"(b) bf16, dropout 0.1, {TP_DROPOUT_STEPS} "
+        f"steps: every replicated parameter and buffer bit-equal on the two "
+        f"ranks after each, losses bit-equal "
+        f"{[m['loss'] for m in b16['metrics']]}; first attention seeds "
+        f"{s0}, {s1} ({TP_SEED_STRIDE} apart), each rank's K1 and K2 keep "
+        f"masks at {TP_HEADS} heads equal philox_keep_reference on its seed "
+        f"(keep {r0['bfloat16']['keep']:.4f}, {r1['bfloat16']['keep']:.4f}) "
+        f"and differ between the ranks; launches per rank per step "
+        f"{b16['launches'][0]} (all {TP_DROPOUT_STEPS}). (c) {TP_WIDE} (16 of 32 heads per rank), bf16, "
+        f"dropout 0: loss {r0['wide']['metrics']['loss']} vs one process's "
+        f"{ref_wide['loss']} (rtol {LOSS_RTOL}); launches "
+        f"{r0['wide']['launches']}. (d) python -m virtex_tpu_torch.scripts."
+        f"pretrain_virtex PARALLEL.MODEL {TP_MODEL} on phase 13's data, "
+        f"{TP_CLI_ITERS} iterations: losses "
+        f"{json.dumps(unbroken['losses'])}, validation at {TP_CLI_EVERY} "
+        f"and {TP_CLI_ITERS}; rank 0's {last} loads into one process and "
+        f"its slices equal each rank's {unbroken['tensors']} tensors bit for "
+        f"bit; resumed from {TP_CLI_EVERY}, all {len(a)} model and "
+        f"optimizer tensors of {last} bit-equal to the unbroken run's")
+    say("22 tensor parallel", f"{card_line()} | bf16 TP step of {ACCUM} x "
+        f"{TRAIN_BATCH} over gloo (the all-reduces staged through the host; "
+        f"not NCCL's time), host ms on ranks 0 and 1: " + "; ".join(
+            f"{o['bfloat16']['step_ms']:.1f}" for o in ranks)
+        + " | a step with a synchronize before each all-reduce, its ms and "
+        "the host ms inside the all-reduces by group: " + "; ".join(
+            f"rank {o['rank']} {o['bfloat16']['synced_ms']:.1f} "
+            + json.dumps({k: round(v, 1) for k, v in
+                          o["bfloat16"]["all_reduce_ms"].items()})
+            for o in ranks)
+        + " | the ranks' seconds by part (after starting up): " + "; ".join(
+            json.dumps({k: round(v, 1) for k, v in o["seconds"].items()})
+            for o in ranks))
+    return total, seconds
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -4279,16 +4781,22 @@ def main() -> None:
     # 21. the model zoo on the card, the hub, the Detectron2 export and the
     # vocabulary
     zoo_counts, zoo_errs = check_phase21(torch, port, device, run, root)
+    torch.cuda.empty_cache()
+
+    # 22. tensor parallelism: two gloo ranks on the card, data 1 x model 2
+    tp_counts, tp_seconds = check_tp(torch, port, device, pretrain_args)
     shutil.rmtree(WORK)
     say("seconds", "per phase (the time up to each phase's last line): "
         + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
         + f"; 20(b): the one process's reference "
         f"{dp2_seconds['reference']:.1f}, the ranks "
-        f"{dp2_seconds['ranks']:.1f}; all "
+        f"{dp2_seconds['ranks']:.1f}; 22: the one process's reference "
+        f"{tp_seconds['reference']:.1f}, the ranks "
+        f"{tp_seconds['ranks']:.1f}; all "
         f"{sum(PHASE_SECONDS.values()):.1f}")
     later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
              + dp1_counts[k] + dp2_counts[k] + zoo_counts[k]
-             for k in NO_LAUNCHES}
+             + tp_counts[k] for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -4351,5 +4859,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:   # one rank of phase 20(b)
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-rank"]:   # one rank of phase 22
+        tp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
         main()

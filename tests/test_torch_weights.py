@@ -157,6 +157,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.hubconf",
     "virtex_tpu_torch.scripts.eval_detectron2",
     "virtex_tpu_torch.scripts.build_vocabulary",
+    "virtex_tpu_torch.scripts.tokenizer_selfcheck",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",

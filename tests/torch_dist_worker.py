@@ -1,5 +1,6 @@
-"""One rank of a data-parallel job of the PyTorch port, on the CPU over
-gloo, for tests/test_torch_distributed.py.
+"""One rank of a data- or tensor-parallel job of the PyTorch port, on the
+CPU over gloo, for tests/test_torch_distributed.py and
+tests/test_torch_tensor_parallel.py.
 
     python -m tests.torch_dist_worker <job> <spec.pt>
 
@@ -7,12 +8,14 @@ The process group comes from torchrun's environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``). ``spec.pt`` holds the
 job's inputs; the rank writes what it measured to ``<out>/rank<r>.pt``.
 Jobs: ``checks`` (the op and train-step parity checks, one spawn for all
-of them) and ``cli`` (one of the port's scripts, with its checkpoint
-writes and its training batches' image ids recorded). Imports torch and
-the port only.
+of them), ``tp`` (the tensor-parallel checks on a ``(data, model)`` grid
+of ``spec["grid"]``) and ``cli`` (one of the port's scripts, with its
+checkpoint writes and its training batches' image ids recorded). Imports
+torch and the port only.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -24,7 +27,7 @@ from virtex_tpu_torch.utils import distributed
 def local_rows(batch, mesh, micro: bool = False):
     """This rank's shard of a global batch: rows ``[r·b, (r+1)·b)`` of the
     batch dim, dim 0, or with ``micro`` dim 1 of ``(accum, B, ...)``
-    leaves."""
+    leaves, for the data rank r."""
     dim = 1 if micro else 0
 
     def take(v):
@@ -33,8 +36,8 @@ def local_rows(batch, mesh, micro: bool = False):
             raise ValueError(f"a batch of {n} does not shard over "
                              f"{mesh.data} ranks")
         b = n // mesh.data
-        index = (slice(None),) * dim + (slice(mesh.rank * b,
-                                              (mesh.rank + 1) * b),)
+        r = mesh.data_rank
+        index = (slice(None),) * dim + (slice(r * b, (r + 1) * b),)
         return v[index]
 
     return {k: take(v) for k, v in batch.items()}
@@ -174,6 +177,107 @@ def checks(spec, mesh):
             "dropout": _counted(_dropout_check, spec["dropout"], mesh)}
 
 
+def _tp_model(spec, mesh, overrides=()):
+    """The model of ``spec`` from its full state dict (ranks but 0 from
+    other weights, which the broadcast replaces), sliced to this rank's
+    shard, its optimizer and its train step."""
+    from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
+    from virtex_tpu_torch.engine.trainer import make_train_step
+    from virtex_tpu_torch.factories import PretrainingModelFactory
+    from virtex_tpu_torch.optim.optimizer import build_optimizer
+    from virtex_tpu_torch.parallel import replicate_, shard_module_
+
+    cfg = Config(override_list=spec["overrides"] + list(overrides))
+    model = PretrainingModelFactory.from_spec(ModelSpec.from_config(cfg),
+                                              device="cpu")
+    model.load_state_dict(spec["state_dict"], strict=True)
+    if mesh.rank:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+    shard_module_(replicate_(model, mesh), mesh)
+    opt = build_optimizer(model.named_parameters(),
+                          OptimSpec.from_config(cfg), mesh=mesh)
+    gen = torch.Generator().manual_seed(spec.get("seed", 0) + mesh.data_rank)
+    step = make_train_step(model, opt, accum_steps=spec["accum"],
+                           generator=gen, mesh=mesh)
+    return model, opt, step
+
+
+def _tp_local(batch, mesh):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in local_rows(batch, mesh, micro=True).items()}
+
+
+def _tp_step_check(spec, mesh):
+    """The train steps of ``spec`` on this rank's data shard and head
+    shard: the metrics, the first step's gradients and all-reduces (the
+    gradients gathered to full names), and the full state after the
+    last."""
+    from virtex_tpu_torch.engine.train_state import TrainState
+    from virtex_tpu_torch.parallel.mesh import gather_tensor
+
+    model, opt, step = _tp_model(spec, mesh)
+    metrics, grads, counts = [], None, None
+    for i, batch in enumerate(spec["batches"]):
+        distributed.reset_all_reduce_counts()
+        metrics.append({k: float(v) for k, v in step(
+            _tp_local(batch, mesh)).items()})
+        if i == 0:
+            counts = dict(distributed.all_reduce_counts)
+            grads = {n: gather_tensor(n, p.grad, mesh)
+                     for n, p in model.named_parameters()}
+    state = TrainState(model, opt, mesh=mesh).state_dict()
+    return {"metrics": metrics, "grads": grads, "counts": counts,
+            "state": state["model"], "optimizer": state["optimizer"]}
+
+
+def _tp_dropout_check(spec, mesh):
+    """Steps at dropout 0.1: this rank's own (sharded) state after each."""
+    model, _, step = _tp_model(spec, mesh, ["MODEL.TEXTUAL.DROPOUT", 0.1])
+    states, metrics = [], []
+    for batch in spec["batches"]:
+        metrics.append({k: float(v) for k, v in step(
+            _tp_local(batch, mesh)).items()})
+        states.append({k: v.clone() for k, v in model.state_dict().items()})
+    return {"states": states, "metrics": metrics}
+
+
+def _tp_resume_check(spec, mesh):
+    """With ``spec["save_dir"]``: a checkpoint written there after the
+    first step, at this grid. With ``spec["resume_from"]`` (a checkpoint
+    written at another ``model``): the second step resumed from it, its
+    metrics and full state."""
+    from virtex_tpu_torch.engine.checkpointing import CheckpointManager
+    from virtex_tpu_torch.engine.train_state import TrainState
+
+    out = {}
+    if "save_dir" in spec:
+        model, opt, step = _tp_model(spec, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        step(_tp_local(spec["batches"][0], mesh))
+        state.iteration = 1
+        CheckpointManager(spec["save_dir"]).step(state)
+    if "resume_from" in spec:
+        model, opt, step = _tp_model(spec, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        CheckpointManager(os.path.dirname(spec["resume_from"])).load(
+            spec["resume_from"], state)
+        out["metrics"] = {k: float(v) for k, v in step(
+            _tp_local(spec["batches"][1], mesh)).items()}
+        out["state"] = state.state_dict()["model"]
+    return out
+
+
+def tp_checks(spec, mesh):
+    out = {"step": _tp_step_check(spec["step"], mesh),
+           "dropout": _tp_dropout_check(spec["step"], mesh)}
+    if "resume" in spec:
+        out["resume"] = _tp_resume_check(dict(spec["step"],
+                                              **spec["resume"]), mesh)
+    return out
+
+
 def cli(spec):
     """``<module>.main(args)`` with the checkpoint writes and the image ids
     of each training batch recorded."""
@@ -216,7 +320,10 @@ def main() -> None:
     else:
         from virtex_tpu_torch.parallel import create_mesh
         distributed.initialize(backend="gloo")
-        out = checks(spec, create_mesh())
+        if job == "tp":
+            out = tp_checks(spec, create_mesh(*spec["grid"]))
+        else:
+            out = checks(spec, create_mesh())
     rank = distributed.get_rank()
     torch.save(out, f"{spec['out']}/rank{rank}.pt")
     distributed.shutdown()

@@ -1,10 +1,11 @@
 r"""
 The caption tokenizer, read from the JSON vocabulary file that
-``virtex_tpu.data.tokenizers.train_tokenizer`` writes, in pure Python.
+``virtex_tpu.data.tokenizers.train_tokenizer`` writes, or from a binary
+SentencePiece ``.model``, in pure Python.
 
 Counterpart of ``virtex_tpu/data/tokenizers.py``
 :class:`SentencePieceBPETokenizer`, without the HF ``tokenizers`` package.
-It reads the file's BPE model and runs it as that package does:
+It reads a BPE or a Unigram model and runs it as that package does:
 
 - the special tokens (``<unk>`` 0, which doubles as padding, ``[SOS]`` 1,
   ``[EOS]`` 2, ``[MASK]`` 3) are matched in the text first, leftmost and
@@ -12,24 +13,37 @@ It reads the file's BPE model and runs it as that package does:
 - the Metaspace pre-tokenizer replaces spaces with ``▁``, prepends one
   ``▁`` to a piece that does not start with it (``prepend_scheme``
   ``always``), and splits before every ``▁``;
-- each word is split into characters (a character outside the vocabulary
-  is ``<unk>``, and with ``fuse_unk`` a run of them is one ``<unk>``), then
-  the adjacent pair of lowest merge rank is merged, leftmost first, until
-  no pair has a merge;
+- BPE: each word is split into characters (a character outside the
+  vocabulary is ``<unk>``, and with ``fuse_unk`` a run of them is one
+  ``<unk>``), then the adjacent pair of lowest merge rank is merged,
+  leftmost first, until no pair has a merge;
+- Unigram: each word is the best path (Viterbi) over the pieces that match
+  at each character, a path's score the sum of its pieces' scores; a
+  character with no one-character piece may also be ``<unk>``, scored the
+  lowest piece score less 10; a later candidate replaces a node's best
+  only if it scores higher; the unknown runs of the best path are fused
+  into one string, which is a piece or ``<unk>``;
+- byte fallback (either model): a character (BPE) or fused unknown string
+  (Unigram) outside the vocabulary becomes the ``<0xNN>`` pieces of its
+  UTF-8 bytes when every one of them is a piece, else ``<unk>``. In BPE a
+  pending ``<unk>`` is emitted at the next character in the vocabulary or
+  at the word's end, so it may follow byte pieces, as the HF model does;
 - :meth:`decode` drops ids ≤ 3, turns ``▁`` into spaces (none in the first
-  token) and strips the result.
+  token) and strips the result; a ``<0xNN>`` piece stays as its text, as
+  the JAX reader's ``Metaspace`` decoder leaves it.
 
-A binary SentencePiece BPE ``.model`` (the reference's ``coco_10k.model``)
-is read too, without the sentencepiece or protobuf packages: the
-``ModelProto`` is parsed from the protobuf wire format here
-(:func:`read_sentencepiece_model`), and the merges are rebuilt from the
-piece table as the JAX package rebuilds them: every split of a NORMAL or
-USER_DEFINED piece whose halves are both pieces is a merge, ranked by
-−score (SentencePiece's BPE trainer scores each merged piece with its
-negated merge rank), then by (piece id, left id, right id); by piece id
-alone when every score is equal. Such a model has no added tokens; it
-runs the BPE above with ``fuse_unk`` and the ``▁`` Metaspace. A Unigram
-model, or a BPE model with ``byte_fallback``, raises.
+A binary SentencePiece ``.model`` (the reference's ``coco_10k.model``) is
+read without the sentencepiece or protobuf packages: the ``ModelProto`` is
+parsed from the protobuf wire format here
+(:func:`read_sentencepiece_model`). A Unigram model takes every piece with
+its score and ``<unk>`` at id 0. For a BPE model the merges are rebuilt
+from the piece table as the JAX package rebuilds them: every split of a
+NORMAL or USER_DEFINED piece whose halves are both pieces is a merge,
+ranked by −score (SentencePiece's BPE trainer scores each merged piece
+with its negated merge rank), then by (piece id, left id, right id); by
+piece id alone when every score is equal. Such a model has no added
+tokens; it runs with ``fuse_unk``, the proto's ``byte_fallback`` and the
+``▁`` Metaspace.
 
 :func:`train_tokenizer` trains such a vocabulary, as the JAX package's
 HF ``BpeTrainer`` does, and writes the tokenizer JSON;
@@ -41,6 +55,7 @@ from __future__ import annotations
 import heapq
 import itertools
 import json
+import math
 import os
 import struct
 import unicodedata
@@ -49,6 +64,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 SPECIAL_TOKENS = ["<unk>", "[SOS]", "[EOS]", "[MASK]"]
 UNK_INDEX, SOS_INDEX, EOS_INDEX, MASK_INDEX = 0, 1, 2, 3
+# An unknown character's Unigram score: the lowest piece score less this
+# (HF ``tokenizers``' ``K_UNK_PENALTY``, SentencePiece's ``kUnkPenalty``).
+UNIGRAM_UNK_PENALTY = 10.0
 
 
 def preprocess_caption(text: str, lower: bool = True,
@@ -65,12 +83,13 @@ def preprocess_caption(text: str, lower: bool = True,
 
 class SentencePieceBPETokenizer:
     """``get_vocab_size`` / ``token_to_id`` / ``id_to_token`` / ``encode``
-    / ``decode`` over a BPE vocabulary (see the module docstring).
+    / ``decode`` over a BPE or Unigram vocabulary (see the module
+    docstring).
 
     Args:
-        model_path: the tokenizer JSON that ``train_tokenizer`` writes, or
-            a binary SentencePiece BPE ``.model``; the first byte tells
-            them apart.
+        model_path: a tokenizer JSON (a BPE one as ``train_tokenizer``
+            writes it, or a Unigram one), or a binary SentencePiece
+            ``.model``; the first byte tells them apart.
     """
 
     def __init__(self, model_path: str):
@@ -88,27 +107,38 @@ class SentencePieceBPETokenizer:
     def _load_json(self, blob) -> None:
         model_path = self.model_path
         model = blob["model"]
-        if model.get("type") != "BPE":
-            raise ValueError(f"{model_path}: model type "
-                             f"{model.get('type')!r}, expected BPE")
-        for key in ("dropout", "continuing_subword_prefix",
-                    "end_of_word_suffix"):
-            if model.get(key) is not None:
-                raise ValueError(f"{model_path}: BPE {key} is not supported")
-        if model.get("byte_fallback"):
-            raise ValueError(f"{model_path}: byte_fallback is not supported")
         if blob.get("normalizer") is not None:
             raise ValueError(f"{model_path}: a normalizer is not supported")
         self._replacement, self._prepend = _metaspace(
             blob.get("pre_tokenizer"), model_path)
-        self._vocab: Dict[str, int] = dict(model["vocab"])
-        self._unk = model.get("unk_token")
-        self._fuse_unk = bool(model.get("fuse_unk", False))
-        self._ignore_merges = bool(model.get("ignore_merges", False))
-        self._ranks: Dict[Tuple[str, str], int] = {}
-        for rank, m in enumerate(model["merges"]):
-            a, b = m.split(" ", 1) if isinstance(m, str) else m
-            self._ranks.setdefault((a, b), rank)
+        decoder = blob.get("decoder") or {}
+        if decoder.get("type") != "Metaspace" or _metaspace(
+                decoder, model_path) != (self._replacement, self._prepend):
+            raise ValueError(f"{model_path}: expected the pre-tokenizer's "
+                             "Metaspace as the decoder")
+        self._byte_fallback = bool(model.get("byte_fallback", False))
+        if model.get("type") == "Unigram":
+            self._set_unigram([(p, float(sc)) for p, sc in model["vocab"]],
+                              model.get("unk_id"))
+        elif model.get("type") == "BPE":
+            for key in ("dropout", "continuing_subword_prefix",
+                        "end_of_word_suffix"):
+                if model.get(key) is not None:
+                    raise ValueError(f"{model_path}: BPE {key} is not "
+                                     "supported")
+            self._unigram = None
+            self._vocab: Dict[str, int] = dict(model["vocab"])
+            self._unk = model.get("unk_token")
+            self._fuse_unk = bool(model.get("fuse_unk", False))
+            self._ignore_merges = bool(model.get("ignore_merges", False))
+            self._ranks: Dict[Tuple[str, str], int] = {}
+            for rank, m in enumerate(model["merges"]):
+                a, b = m.split(" ", 1) if isinstance(m, str) else m
+                self._ranks.setdefault((a, b), rank)
+        else:
+            raise ValueError(f"{model_path}: model type "
+                             f"{model.get('type')!r}, expected BPE or "
+                             "Unigram")
         added = {t["content"]: t["id"] for t in blob.get("added_tokens", [])}
         self._special = {t["id"] for t in blob.get("added_tokens", [])
                          if t.get("special")}
@@ -118,21 +148,34 @@ class SentencePieceBPETokenizer:
     def _load_sentencepiece(self, data: bytes) -> None:
         proto = read_sentencepiece_model(
             data, f"{self.model_path} (a binary SentencePiece model)")
-        if proto["model_type"] == SP_UNIGRAM:
-            raise ValueError(
-                f"{self.model_path}: a Unigram SentencePiece model; the "
-                "port reads BPE models only (a Unigram reader is queued in "
-                "ROADMAP.md §1, item 4)")
-        if proto["byte_fallback"]:
-            raise ValueError(f"{self.model_path}: byte_fallback is not "
-                             "supported")
         pieces = proto["pieces"]
-        self._vocab = {piece: i for i, (piece, _, _) in enumerate(pieces)}
-        self._ranks = sentencepiece_merges(pieces, self._vocab)
-        self._unk, self._fuse_unk, self._ignore_merges = "<unk>", True, False
+        self._byte_fallback = proto["byte_fallback"]
+        if proto["model_type"] == SP_UNIGRAM:
+            self._set_unigram([(p, score) for p, score, _ in pieces],
+                              UNK_INDEX)
+        else:
+            self._unigram = None
+            self._vocab = {piece: i for i, (piece, _, _) in enumerate(pieces)}
+            self._ranks = sentencepiece_merges(pieces, self._vocab)
+            self._unk, self._fuse_unk, self._ignore_merges = ("<unk>", True,
+                                                              False)
         self._replacement, self._prepend = "\u2581", True
         self._special, self._added = set(), []
         self._token_to_id = dict(self._vocab)
+
+    def _set_unigram(self, pieces: List[Tuple[str, float]],
+                     unk_id: Optional[int]) -> None:
+        """A Unigram model of ``pieces`` (piece, score) in id order, as HF
+        builds one: a repeated piece takes its last id."""
+        if unk_id is not None and not 0 <= unk_id < len(pieces):
+            raise ValueError(f"{self.model_path}: Unigram unk_id {unk_id} "
+                             f"outside its {len(pieces)} pieces")
+        self._unigram = pieces
+        self._vocab = {piece: i for i, (piece, _) in enumerate(pieces)}
+        self._unk_id = unk_id
+        self._unk_score = min((sc for _, sc in pieces),
+                              default=math.inf) - UNIGRAM_UNK_PENALTY
+        self._max_piece = max((len(p) for p, _ in pieces), default=0)
 
     # -- vocabulary ------------------------------------------------------------
     def get_vocab_size(self) -> int:
@@ -153,7 +196,7 @@ class SentencePieceBPETokenizer:
                 ids.append(self._token_to_id[piece])
                 continue
             for word in self._pre_tokenize(piece):
-                ids.extend(self._bpe(word))
+                ids.extend(self._word(word))
         return ids
 
     def _split_added(self, text: str) -> List[Tuple[str, bool]]:
@@ -176,35 +219,105 @@ class SentencePieceBPETokenizer:
     def _pre_tokenize(self, text: str) -> List[str]:
         return metaspace_words(text, self._replacement, self._prepend)
 
+    def _word(self, word: str) -> List[int]:
+        ids = self._cache.get(word)
+        if ids is None:
+            ids = (self._bpe(word) if self._unigram is None
+                   else self._viterbi(word))
+            self._cache[word] = ids
+        return ids
+
+    def _bytes(self, text: str) -> Optional[List[str]]:
+        """The ``<0xNN>`` pieces of ``text``'s UTF-8 bytes, if byte
+        fallback is on and every one of them is a piece."""
+        if not self._byte_fallback:
+            return None
+        pieces = [f"<0x{b:02X}>" for b in text.encode("utf-8")]
+        return pieces if all(p in self._vocab for p in pieces) else None
+
     def _bpe(self, word: str) -> List[int]:
-        cached = self._cache.get(word)
-        if cached is not None:
-            return cached
         if self._ignore_merges and word in self._vocab:
-            ids = [self._vocab[word]]
-        else:
-            symbols: List[Optional[str]] = []  # None: an unknown character
-            for c in word:
-                if c in self._vocab:
-                    symbols.append(c)
-                elif not (self._fuse_unk and symbols and symbols[-1] is None):
-                    symbols.append(None)
-            while len(symbols) > 1:
-                best = None
-                for i in range(len(symbols) - 1):
-                    rank = self._ranks.get((symbols[i], symbols[i + 1]))
-                    if rank is not None and (best is None or rank < best[0]):
-                        best = (rank, i)
-                if best is None:
-                    break
-                i = best[1]
-                symbols[i:i + 2] = [symbols[i] + symbols[i + 1]]
-            if None in symbols and self._unk not in self._vocab:
-                raise ValueError(f"{self.model_path}: unknown character in "
-                                 f"{word!r} and no unk token")
-            ids = [self._vocab[s] if s is not None else self._vocab[self._unk]
-                   for s in symbols]
-        self._cache[word] = ids
+            return [self._vocab[word]]
+        symbols: List[Optional[str]] = []  # None: an unknown character
+        unk = 0  # unknown characters pending, fused or not
+        for c in word:
+            if c in self._vocab:
+                symbols.extend([None] * unk)
+                unk = 0
+                symbols.append(c)
+                continue
+            fallback = self._bytes(c)
+            if fallback is not None:
+                symbols.extend(fallback)
+            elif self._fuse_unk and unk:
+                continue
+            else:
+                symbols.extend([None] * unk)
+                unk = 1
+        symbols.extend([None] * unk)
+        while len(symbols) > 1:
+            best = None
+            for i in range(len(symbols) - 1):
+                rank = self._ranks.get((symbols[i], symbols[i + 1]))
+                if rank is not None and (best is None or rank < best[0]):
+                    best = (rank, i)
+            if best is None:
+                break
+            i = best[1]
+            symbols[i:i + 2] = [symbols[i] + symbols[i + 1]]
+        if None in symbols and self._unk not in self._vocab:
+            raise ValueError(f"{self.model_path}: unknown character in "
+                             f"{word!r} and no unk token")
+        return [self._vocab[s] if s is not None else self._vocab[self._unk]
+                for s in symbols]
+
+    def _viterbi(self, word: str) -> List[int]:
+        """A Unigram word's ids: the best path, its unknown runs fused."""
+        pieces, unk_id = self._unigram, self._unk_id
+        n = len(word)
+        # best[e]: (score, start, id) of the best path ending at e
+        best: List[Optional[Tuple[float, int, int]]] = [None] * (n + 1)
+        for start in range(n):
+            here = best[start][0] if start else 0.0
+            single = False
+            for end in range(start + 1, min(n, start + self._max_piece) + 1):
+                pid = self._vocab.get(word[start:end])
+                if pid is None:
+                    continue
+                score = pieces[pid][1] + here
+                if best[end] is None or score > best[end][0]:
+                    best[end] = (score, start, pid)
+                single = single or end == start + 1
+            if not single:
+                if unk_id is None:
+                    raise ValueError(f"{self.model_path}: unknown character "
+                                     f"in {word!r} and no unk id")
+                score = self._unk_score + here
+                if best[start + 1] is None or score > best[start + 1][0]:
+                    best[start + 1] = (score, start, unk_id)
+        strings, run, end = [], [], n
+        while end > 0:
+            _, start, pid = best[end]
+            if pid == unk_id:
+                run.append(word[start:end])
+            else:
+                if run:
+                    strings.append("".join(reversed(run)))
+                    run = []
+                strings.append(word[start:end])
+            end = start
+        if run:
+            strings.append("".join(reversed(run)))
+        ids: List[int] = []
+        for text in reversed(strings):
+            pid = self._vocab.get(text)
+            if pid is None:
+                fallback = self._bytes(text)
+                if fallback is not None:
+                    ids.extend(self._vocab[p] for p in fallback)
+                    continue
+                pid = unk_id
+            ids.append(pid)
         return ids
 
     # -- decode ----------------------------------------------------------------

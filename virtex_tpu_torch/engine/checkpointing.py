@@ -19,7 +19,11 @@ sidecar naming the iteration it holds; a load heals a best copy that a
 crash left stale. In a data-parallel run rank 0 writes, prunes and heals,
 every rank tracks the best (the metric is the same on all of them) and
 waits at one barrier after each save and each load, and every rank loads
-on resume. Which barrier a rank reaches never depends on the files. Every load goes through ``torch.load(weights_only=True)``,
+on resume. Under tensor parallelism every rank joins the model group's
+gather of the full state (``TrainState.state_dict``) before rank 0 writes
+it, and a load reads the full file and keeps this rank's shard, so the
+file is the same at any ``PARALLEL.MODEL`` and a run resumes from it at
+another. Which barrier a rank reaches never depends on the files. Every load goes through ``torch.load(weights_only=True)``,
 which refuses a pickle that would run code.
 """
 from __future__ import annotations
@@ -101,8 +105,9 @@ class CheckpointManager:
                                    or metric > self.best_metric):
             self.best_metric, self.best_iteration = float(metric), iteration
         path = self.path(iteration)
+        full = state.state_dict()  # a collective under tensor parallelism
         if is_master_process():
-            payload = _cpu(state.state_dict())
+            payload = _cpu(full)
             payload.update(
                 best_metric=self.best_metric,
                 best_iteration=self.best_iteration,

@@ -5,7 +5,9 @@ Counterpart of ``virtex_tpu/engine/trainer.py`` :func:`make_eval_step`:
 BatchNorm on running statistics, no dropout, fp32 results. With a
 ``mesh`` under a process group each rank scores its shard of a batch, the
 group is published to the losses (their global denominators,
-``ops/_mesh.py``), and the metrics are the means over the ranks.
+``ops/_mesh.py``), and the metrics are the means over the ranks. Under
+tensor parallelism the ranks are the data group's, and the model group
+is published to the sharded head.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ from virtex_tpu_torch.utils.distributed import all_reduce_sum
 def make_eval_step(model, mesh=None) -> Callable[[Dict[str, torch.Tensor]],
                                                  Dict[str, torch.Tensor]]:
     """``batch → {"loss", <component>: …}``, every value an fp32 scalar."""
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
-        with kernel_group(group):
+        with kernel_group(group, model_group):
             out = model(batch)
         metrics = {"loss": out["loss"].float()}
         for k, v in out["loss_components"].items():

@@ -23,6 +23,15 @@ before the optimizer, so that clipping sees the global gradient's norm.
 The metrics are the means over the ranks. Every rank then takes the same
 update.
 
+With ``model`` > 1 (tensor parallelism, ``parallel/mesh.py``) the "ranks"
+above are the data group's, the ranks that hold this rank's shard of the
+head: the gradient sum runs over them and divides by ``data ×
+accum_steps``, and the metrics are their means. The model group is
+published beside the data group; a replicated parameter's gradient is
+whole on every rank of it (the Megatron pair in ``ops/_mesh.py``), a split
+one's is this rank's shard, and the optimizer's clip sums the shards'
+squares over the model group.
+
 Dropout draws from ``generator`` (a :class:`torch.Generator` on the
 model's device), which advances with every micro-step, so a run is
 reproducible from its seed. Its bits are not the JAX package's threefry
@@ -52,14 +61,15 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
     averaged gradient before clipping."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
     world = 1 if mesh is None else mesh.data
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.train()
         model.zero_grad(set_to_none=True)
         losses, comps = [], {}
-        with kernel_group(group):
+        with kernel_group(group, model_group):
             for i in range(accum_steps):
                 micro = (batch if accum_steps == 1
                          else {k: v[i] for k, v in batch.items()})

@@ -248,9 +248,11 @@ class OptimizerFactory:
     visual backbone stepped by zero."""
 
     @classmethod
-    def from_config(cls, config: Config, named_params) -> Optimizer:
+    def from_config(cls, config: Config, named_params,
+                    mesh=None) -> Optimizer:
         return build_optimizer(named_params, OptimSpec.from_config(config),
-                               visual_frozen=bool(config.MODEL.VISUAL.FROZEN))
+                               visual_frozen=bool(config.MODEL.VISUAL.FROZEN),
+                               mesh=mesh)
 
 
 class LRSchedulerFactory:

@@ -19,6 +19,22 @@ caller passes down (``generator=``): the sublayer and FFN masks, and the
 seed of the attention kernel's in-kernel dropout. Training with dropout
 and no generator raises, so a step is reproducible from its seed.
 
+Tensor parallelism (``parallel/mesh.py shard_module_``): a layer whose
+``shards`` is ``model`` > 1 holds its rank's N / model heads of both
+attentions and F / model columns of the FFN, and runs inside a step that
+publishes the model group (``ops/_mesh.py``). The input of each
+column-split block (the self-attention's x, the cross-attention's x and
+visual tokens, the FFN's x) goes through ``copy_to_model_group``; each
+row-split product (``out_proj``, ``linear2``) is a partial sum, summed
+over the group in fp32 by ``reduce_from_model_group``, and its bias is
+added once, after the sum. Dropout stays in lockstep over the group: the
+generator draws the same shapes in the same order on every rank, so the
+masks of the replicated activations are equal; the FFN's mask is drawn at
+the full (B, T, F) and each rank takes its columns; the attention kernel's
+seed is offset by ``model_rank · 1000003`` (the JAX package's per-shard
+offset), so the shards' keep masks differ. The decode path refuses a
+sharded layer.
+
 With ``remat`` each decoder layer runs through
 :func:`virtex_tpu_torch.utils.remat.remat` in training (``nn.remat`` of the
 layer in the JAX package): the backward recomputes it from the generator's
@@ -34,10 +50,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from virtex_tpu_torch.ops._mesh import (
+    active_model_group,
+    copy_to_model_group,
+    rank_of,
+    reduce_from_model_group,
+    world_of,
+)
 from virtex_tpu_torch.ops.attention import NEG_INF, fused_attention
 from virtex_tpu_torch.utils.remat import remat as remat_call
 
 Cache = Dict[str, torch.Tensor]
+# The attention kernel's seed offset per model rank (the JAX package's
+# per-shard stride, ``virtex_tpu/ops/attention.py``).
+SHARD_SEED_STRIDE = 1000003
 
 
 class Linear(nn.Linear):
@@ -57,17 +83,53 @@ class Linear(nn.Linear):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Inverted dropout, as flax's: keep where u >= ``rate`` with u drawn
     from ``generator`` (on x's device), kept values scaled by 1/(1 − rate).
-    The identity at rate 0."""
+    The identity at rate 0. ``shard`` (rank, parts): ``x`` is part
+    ``rank`` of ``parts`` equal column blocks of its last dim; u is drawn
+    at the full width and the block's columns are taken."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator "
                          "(generator=)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rank, parts = shard
+    width = x.shape[-1]
+    u = torch.rand(tuple(x.shape[:-1]) + (width * parts,),
+                   generator=generator, device=x.device)
+    keep = u.narrow(-1, rank * width, width) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def model_group_of(module: nn.Module):
+    """The published model group of a layer sharded ``module.shards`` ways
+    (None when it is whole); raises when the step published none of that
+    size."""
+    if module.shards == 1:
+        return None
+    group = active_model_group()
+    if world_of(group) != module.shards:
+        raise ValueError(f"{type(module).__name__} holds 1/{module.shards} "
+                         f"of its heads: run it in a step that publishes "
+                         f"its model group of {module.shards} ranks "
+                         f"(ops/_mesh.py kernel_group)")
+    return group
+
+
+def _refuse_sharded(module: nn.Module) -> None:
+    if module.shards != 1:
+        raise ValueError("the decode path runs on a whole layer; this one "
+                         f"is sharded {module.shards} ways")
+
+
+def sum_shards(partial: torch.Tensor, bias: torch.Tensor, group,
+               dtype: torch.dtype) -> torch.Tensor:
+    """A row-split product's partial sums summed over ``group`` in fp32,
+    then its bias (in ``dtype``, as the layer's) added once."""
+    total = reduce_from_model_group(partial, group)
+    return (total + bias.to(dtype).float()).to(dtype)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +156,9 @@ class MultiHeadAttention(nn.Module):
     + scaled dot-product attention + output projection.
 
     ``attention_fn`` is the attention core, :func:`fused_attention`; a
-    comparison against the plain version swaps it by name."""
+    comparison against the plain version swaps it by name. ``shards`` > 1:
+    the packed projection holds this rank's heads of q, k and v, and
+    ``out_proj.weight`` their input columns (see the module docstring)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  dropout: float = 0.1, dtype: torch.dtype = torch.bfloat16):
@@ -106,6 +170,7 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
         self.out_proj = Linear(hidden_size, hidden_size, dtype)
         self.attention_fn = fused_attention
+        self.shards = 1
 
     def _project(self, x, part: slice):
         w = self.in_proj_weight[part].to(self.dtype)
@@ -113,26 +178,41 @@ class MultiHeadAttention(nn.Module):
             self.dtype))
 
     def _split(self, x, n: int):
-        """(B, T, n·H) → n tensors (B, T, N, D), views into ``x``."""
+        """(B, T, n·W) → n tensors (B, T, N, D), views into ``x``; W and N
+        are this shard's width and heads."""
         B, T, _ = x.shape
+        heads = self.num_heads // self.shards
         D = self.hidden_size // self.num_heads
-        return [t.view(B, T, self.num_heads, D)
-                for t in x.split(self.hidden_size, dim=-1)][:n]
+        return [t.view(B, T, heads, D)
+                for t in x.split(heads * D, dim=-1)][:n]
 
     def _qkv(self, q_in, kv_in):
-        H = self.hidden_size
+        W = self.hidden_size // self.shards
         if kv_in is q_in:
-            return self._split(self._project(q_in, slice(0, 3 * H)), 3)
-        (q,) = self._split(self._project(q_in, slice(0, H)), 1)
-        k, v = self._split(self._project(kv_in, slice(H, 3 * H)), 2)
+            return self._split(self._project(q_in, slice(0, 3 * W)), 3)
+        (q,) = self._split(self._project(q_in, slice(0, W)), 1)
+        k, v = self._split(self._project(kv_in, slice(W, 3 * W)), 2)
         return q, k, v
 
-    def _out(self, ctx):
+    def _out(self, ctx, group=None):
         B, T, N, D = ctx.shape
-        return self.out_proj(ctx.reshape(B, T, N * D))
+        ctx = ctx.reshape(B, T, N * D)
+        if group is None:
+            return self.out_proj(ctx)
+        partial = F.linear(ctx.to(self.dtype),
+                           self.out_proj.weight.to(self.dtype))
+        return sum_shards(partial, self.out_proj.bias, group, self.dtype)
 
     def forward(self, q_in, kv_in, mask=None,
                 generator: Optional[torch.Generator] = None):
+        group = model_group_of(self)
+        if group is not None:
+            same = kv_in is q_in
+            q_in = copy_to_model_group(q_in, group)
+            kv_in = q_in if same else copy_to_model_group(kv_in, group)
+            if mask is not None and mask.shape[1] == self.num_heads > 1:
+                n = self.num_heads // self.shards
+                mask = mask.narrow(1, rank_of(group) * n, n)
         q, k, v = self._qkv(q_in, kv_in)
         rate = self.dropout if self.training else 0.0
         seed = None
@@ -142,13 +222,16 @@ class MultiHeadAttention(nn.Module):
                                  "torch.Generator (generator=)")
             seed = torch.randint(2**31 - 1, (), generator=generator,
                                  device=generator.device)
+            if group is not None:
+                seed = seed + rank_of(group) * SHARD_SEED_STRIDE
         ctx = self.attention_fn(q, k, v, mask, dropout_rate=rate,
                                 dropout_seed=seed)
-        return self._out(ctx.to(self.dtype))
+        return self._out(ctx.to(self.dtype), group)
 
     # -- KV-cache decode path ------------------------------------------------
     def project_kv(self, kv_in):
         """K/V of the visual tokens, computed once for cross-attention."""
+        _refuse_sharded(self)
         k, v = self._split(self._project(kv_in, slice(self.hidden_size,
                                                       None)), 2)
         return k.contiguous(), v.contiguous()
@@ -156,6 +239,7 @@ class MultiHeadAttention(nn.Module):
     def decode_self(self, q_in, k_cache, v_cache, position: int):
         """One token against a running cache. q_in (B, 1, H); caches
         (B, Tmax, N, D), written in place at ``position``."""
+        _refuse_sharded(self)
         q, k_new, v_new = self._qkv(q_in, q_in)
         k_cache[:, position] = k_new[:, 0]
         v_cache[:, position] = v_new[:, 0]
@@ -167,6 +251,7 @@ class MultiHeadAttention(nn.Module):
 
     def attend_kv(self, q_in, k, v):
         """Attention with precomputed K/V (cross-attention at decode)."""
+        _refuse_sharded(self)
         (q,) = self._split(self._project(q_in, slice(0, self.hidden_size)), 1)
         probs = attention_weights(q, k, None, self.dtype)
         return self._out(_context(probs, v, self.dtype))
@@ -182,7 +267,9 @@ class DecoderLayer(nn.Module):
         if norm_type not in ("post", "pre"):
             raise ValueError(f"unknown norm_type {norm_type!r}")
         self.num_heads, self.dropout = num_heads, dropout
+        self.feedforward_size = feedforward_size
         self.norm_type, self.dtype = norm_type, dtype
+        self.shards = 1
         self.self_attn = MultiHeadAttention(hidden_size, num_heads, dropout,
                                             dtype)
         self.multihead_attn = MultiHeadAttention(hidden_size, num_heads,
@@ -197,7 +284,16 @@ class DecoderLayer(nn.Module):
         return dropout(x, self.dropout if self.training else 0.0, generator)
 
     def ffn(self, x, generator: Optional[torch.Generator] = None):
-        return self.linear2(self._drop(F.gelu(self.linear1(x)), generator))
+        group = model_group_of(self)
+        if group is None:
+            return self.linear2(self._drop(F.gelu(self.linear1(x)),
+                                           generator))
+        h = F.gelu(self.linear1(copy_to_model_group(x, group)))
+        h = dropout(h, self.dropout if self.training else 0.0, generator,
+                    (rank_of(group), self.shards))
+        partial = F.linear(h.to(self.dtype), self.linear2.weight.to(
+            self.dtype))
+        return sum_shards(partial, self.linear2.bias, group, self.dtype)
 
     def _sub(self, norm, x, fn, generator):
         """A sublayer with its residual, in pre- or post-norm order."""
@@ -220,6 +316,7 @@ class DecoderLayer(nn.Module):
 
     def init_cache(self, visual, batch: int, max_length: int) -> Cache:
         """Empty self-attention K/V plus the visual tokens' cross K/V."""
+        _refuse_sharded(self)
         depth = visual.shape[-1] // self.num_heads
         shape = (batch, max_length, self.num_heads, depth)
         ck, cv = self.multihead_attn.project_kv(visual)

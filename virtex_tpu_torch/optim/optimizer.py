@@ -22,6 +22,13 @@ one entry (``named_parameters()`` yields it once), so it is clipped,
 decayed and stepped once. The schedule and the Lookahead sync depend only
 on the step count, a host integer, so an update makes no device round
 trip; it updates the parameters in place under ``no_grad``.
+
+Under tensor parallelism (a ``mesh`` with ``model`` > 1) the split
+parameters are this rank's shards: every step but the clip is elementwise
+and runs on them as they are; the clip's global norm sums the split
+parameters' squares over the model group and counts the replicated ones
+once, so it is the whole model's norm, and :meth:`Optimizer.state_dict`
+gathers the split state to full tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +39,13 @@ import torch
 
 from virtex_tpu_torch.config import OptimSpec
 from virtex_tpu_torch.optim.lr_schedules import Schedule, make_schedule
+from virtex_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_tensor,
+    shard_tensor,
+    tp_split,
+)
+from virtex_tpu_torch.utils.distributed import all_reduce_sum
 from virtex_tpu_torch.utils.weights import flax_name_map
 
 NO_DECAY = r".*textual.(embedding|transformer).*(norm.*|bias)"
@@ -77,7 +91,8 @@ class Optimizer:
                  no_decay_pattern: str = NO_DECAY, momentum: float = 0.9,
                  clip_norm: float = 10.0, use_lookahead: bool = True,
                  lookahead_k: int = 5, lookahead_alpha: float = 0.5,
-                 frozen_pattern: Optional[str] = None):
+                 frozen_pattern: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         if optimizer_name not in ("sgd", "adamw"):
             raise ValueError(f"Unknown optimizer {optimizer_name!r}")
         named = list(named_params)
@@ -101,6 +116,13 @@ class Optimizer:
         self._decay = [i for i, n in enumerate(self.names) if decay[n]]
         self._frozen = [i for i, n in enumerate(self.names) if frozen[n]]
         self._lrs = [cnn_lr if cnn[n] else lr for n in self.names]
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        if self.mesh is not None:  # the clip's index sets, on the device
+            split = [tp_split(n) is not None for n in self.names]
+            self._split, self._whole = (torch.tensor(
+                [i for i, s in enumerate(split) if s == want],
+                dtype=torch.long, device=self.params[0].device)
+                for want in (True, False))
         # State: the step count of the LR scale, the momentum trace or the
         # Adam moments, and the Lookahead slow weights and count.
         self.step_count = 0
@@ -121,8 +143,14 @@ class Optimizer:
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.mesh is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:  # the split parameters' squares summed over the shards
+            squares = norms.square()
+            split = all_reduce_sum(squares[self._split].sum(), "grad_norm",
+                                   self.mesh.model_group)
+            norm = torch.sqrt(split + squares[self._whole].sum())
         coef = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
         u = torch._foreach_mul(grads, coef)
         pick = lambda xs, idx: [xs[i] for i in idx]  # noqa: E731
@@ -187,7 +215,8 @@ class Optimizer:
         """The step count, the momentum trace or the Adam moments and
         count, and the Lookahead slow weights and count, each tensor keyed
         by its parameter's name. The tensors are the live state, not
-        copies."""
+        copies; under tensor parallelism the split ones are gathered to
+        full tensors (every rank of the model group calls this)."""
         state: Dict[str, object] = {
             "optimizer_name": self.optimizer_name,
             "step_count": self.step_count,
@@ -195,6 +224,9 @@ class Optimizer:
         if self.optimizer_name == "adamw":
             state["adam_count"] = self.adam_count
         for key, tensors in self._buffers().items():
+            if self.mesh is not None:
+                tensors = [gather_tensor(n, t, self.mesh)
+                           for n, t in zip(self.names, tensors)]
             state[key] = dict(zip(self.names, tensors))
         return state
 
@@ -202,7 +234,8 @@ class Optimizer:
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """Copy a :meth:`state_dict` into this optimizer's state in place.
         The optimizer, the Lookahead choice and the parameter names must
-        match."""
+        match. Under tensor parallelism the state holds full tensors and
+        this rank keeps its shards."""
         if state["optimizer_name"] != self.optimizer_name:
             raise ValueError(f"state of {state['optimizer_name']!r}, "
                              f"optimizer is {self.optimizer_name!r}")
@@ -219,7 +252,8 @@ class Optimizer:
                 raise ValueError(f"{key}: parameter names differ (missing "
                                  f"{missing}, unexpected {extra})")
             for name, t in zip(self.names, tensors):
-                t.copy_(saved[name])
+                t.copy_(saved[name] if self.mesh is None
+                        else shard_tensor(name, saved[name], self.mesh))
         self.step_count = int(state["step_count"])
         self.lookahead_count = int(state["lookahead_count"])
         if self.optimizer_name == "adamw":
@@ -227,10 +261,12 @@ class Optimizer:
 
 
 def build_optimizer(named_params, spec: OptimSpec,
-                    visual_frozen: bool = False) -> Optimizer:
+                    visual_frozen: bool = False,
+                    mesh: Optional[Mesh] = None) -> Optimizer:
     """The chain that ``OPTIM.*`` describes, as the JAX package's
     ``OptimizerFactory.from_config`` builds it: the LR schedule from
-    ``LR_DECAY_NAME`` and a frozen visual backbone stepped by zero."""
+    ``LR_DECAY_NAME`` and a frozen visual backbone stepped by zero;
+    ``mesh`` for a model sharded by ``parallel.shard_module_``."""
     schedule = make_schedule(spec.lr_decay_name, spec.num_iterations,
                              spec.warmup_steps, spec.lr_steps, spec.lr_gamma)
     return Optimizer(
@@ -240,4 +276,4 @@ def build_optimizer(named_params, spec: OptimSpec,
         clip_norm=spec.clip_grad_norm, use_lookahead=spec.lookahead_use,
         lookahead_k=spec.lookahead_steps,
         lookahead_alpha=spec.lookahead_alpha,
-        frozen_pattern="cnn" if visual_frozen else None)
+        frozen_pattern="cnn" if visual_frozen else None, mesh=mesh)

@@ -21,6 +21,18 @@ images of its loader shard, BatchNorm synced over the global batch; rank
 0 logs to stdout and writes the checkpoints, whose ``items_consumed`` is
 per host, and every rank resumes from them.
 
+Tensor parallel: ``PARALLEL.MODEL`` m > 1 splits the textual head's heads
+and feed-forward columns over m adjacent ranks (``parallel/mesh.py``);
+the world is ``PARALLEL.DATA`` × m. The ranks of one model group read the
+same rows (the loaders shard by the data rank) and draw one dropout
+stream; rank 0's full model is broadcast and then sliced, and the
+checkpoints hold the full model, so a run resumes at another m.
+
+    torchrun --nproc-per-node 2 -m virtex_tpu_torch.scripts.pretrain_virtex \
+        --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
+        --serialization-dir /tmp/virtex_run \
+        --config-override PARALLEL.MODEL 2
+
     torchrun --nproc-per-node 4 -m virtex_tpu_torch.scripts.pretrain_virtex \
         --config configs/_base_bicaptioning_R_50_L1_H1024.yaml \
         --serialization-dir /tmp/virtex_run
@@ -37,7 +49,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from virtex_tpu_torch.config import Config
+from virtex_tpu_torch.config import Config, ModelSpec
 from virtex_tpu_torch.data.loader import DataLoader
 from virtex_tpu_torch.engine.checkpointing import CheckpointManager
 from virtex_tpu_torch.engine.evaluation import make_eval_step
@@ -51,7 +63,14 @@ from virtex_tpu_torch.factories import (
     TokenizerFactory,
 )
 from virtex_tpu_torch.native import DataPlane, decoder_for
-from virtex_tpu_torch.parallel import create_mesh, replicate_, shard_batch
+from virtex_tpu_torch.ops._mesh import kernel_group
+from virtex_tpu_torch.parallel import (
+    check_divisible,
+    create_mesh,
+    replicate_,
+    shard_batch,
+    shard_module_,
+)
 from virtex_tpu_torch.utils.common import common_parser, common_setup
 from virtex_tpu_torch.utils.distributed import (
     broadcast_object,
@@ -63,21 +82,25 @@ from virtex_tpu_torch.utils.timer import Timer
 logger = logging.getLogger("virtex_tpu_torch")
 
 
-def log_val_predictions(model, batch, _C, k: int = 3) -> None:
+def log_val_predictions(model, batch, _C, mesh=None, k: int = 3) -> None:
     """Log the argmax captions of the first ``k`` validation images beside
-    their ground truth (the reference's log_predictions)."""
-    if "caption_tokens" not in batch:
+    their ground truth (the reference's log_predictions), on rank 0. The
+    ranks of rank 0's model group run the sharded forward with it."""
+    if "caption_tokens" not in batch or (mesh is not None
+                                         and mesh.data_rank != 0):
         return
-    with torch.inference_mode():
+    model_group = None if mesh is None else mesh.model_group
+    with torch.inference_mode(), kernel_group(None, model_group):
         preds = model.eval()(batch).get("predictions")
-    if preds is None:
+    if preds is None or not is_master_process():
         return
     tok = TokenizerFactory.from_config(_C)
     for p, g in zip(preds[:k].tolist(), batch["caption_tokens"][:k].tolist()):
         logger.info(f'  pred: "{tok.decode(p)}"  |  gt: "{tok.decode(g)}"')
 
 
-def validate(model, eval_step, loader_factory, device, _C) -> Dict[str, float]:
+def validate(model, eval_step, loader_factory, device, _C,
+             mesh=None) -> Dict[str, float]:
     """Each eval metric over one pass of the validation split: the batches'
     values weighed by their images. With batches of one size this is the
     reference's mean over batches; a short last batch, which the reference
@@ -92,8 +115,8 @@ def validate(model, eval_step, loader_factory, device, _C) -> Dict[str, float]:
         for key, v in eval_step(batch).items():
             sums[key] = sums.get(key, 0.0) + float(v) * size
         n += size
-        if i == 0 and is_master_process():
-            log_val_predictions(model, batch, _C)
+        if i == 0:
+            log_val_predictions(model, batch, _C, mesh)
     return {k: v / n for k, v in sums.items()}
 
 
@@ -103,11 +126,13 @@ def main(_A) -> Dict[str, Any]:
     seconds of each iteration, and the final iteration."""
     _C = Config(_A.config, _A.config_override)
     device = common_setup(_C, _A, job_type="pretrain")
+    if _C.PARALLEL.MODEL > 1:
+        check_divisible(ModelSpec.from_config(_C).textual, _C.PARALLEL.MODEL)
     mesh = create_mesh(_C.PARALLEL.DATA, _C.PARALLEL.MODEL)
     batch_size, accum = _C.OPTIM.BATCH_SIZE, _C.OPTIM.GRAD_ACCUM_STEPS
     if batch_size % mesh.data != 0:
         raise ValueError(f"OPTIM.BATCH_SIZE {batch_size} not divisible by "
-                         f"the {mesh.data} processes")
+                         f"the {mesh.data} data shards")
     per_host_batch = batch_size // mesh.data
     if per_host_batch % accum != 0:
         raise ValueError(f"per-process batch {per_host_batch} not divisible "
@@ -121,20 +146,22 @@ def main(_A) -> Dict[str, Any]:
     train_loader = DataLoader(
         train_dataset, per_host_batch, shuffle=True, seed=_C.RANDOM_SEED,
         prefetch=_C.DATA.PREFETCH, infinite=True, num_shards=mesh.data,
-        shard_index=mesh.rank, pin_memory=pin)
+        shard_index=mesh.data_rank, pin_memory=pin)
     # A short last batch is kept, so the whole split is validated (the
     # reference drops it); validate() weighs each batch by its images.
     # Sharded, the split's last len % world images are not scored.
     val_loader_factory = lambda: DataLoader(  # noqa: E731
         val_dataset, per_host_batch, shuffle=False, infinite=False,
-        num_shards=mesh.data, shard_index=mesh.rank, drop_last=False,
+        num_shards=mesh.data, shard_index=mesh.data_rank, drop_last=False,
         pin_memory=pin)
 
     # ---------------------------------------------------------------- model
     torch.manual_seed(_C.RANDOM_SEED)
-    model = replicate_(PretrainingModelFactory.from_config(_C, device), mesh)
-    optimizer = OptimizerFactory.from_config(_C, model.named_parameters())
-    state = TrainState(model, optimizer)
+    model = shard_module_(replicate_(
+        PretrainingModelFactory.from_config(_C, device), mesh), mesh)
+    optimizer = OptimizerFactory.from_config(_C, model.named_parameters(),
+                                             mesh=mesh)
+    state = TrainState(model, optimizer, mesh=mesh)
     generator = torch.Generator(device=device)
     train_step = make_train_step(model, optimizer, accum, generator=generator,
                                  mesh=mesh)
@@ -173,7 +200,7 @@ def main(_A) -> Dict[str, Any]:
         timer.tic()
         batch = shard_batch(next(train_iter), device, accum)
         generator.manual_seed(step_seed(_C.RANDOM_SEED, iteration,
-                                        mesh.rank))
+                                        mesh.data_rank))
         metrics = train_step(batch)
         state.iteration = iteration
         if iteration % _A.log_every == 0:
@@ -192,7 +219,8 @@ def main(_A) -> Dict[str, Any]:
                    if device.type == "cuda" else ""))
 
         if iteration % _A.checkpoint_every == 0:
-            val = validate(model, eval_step, val_loader_factory, device, _C)
+            val = validate(model, eval_step, val_loader_factory, device, _C,
+                           mesh)
             logger.info(f"Val @ {iteration}: {val}")
             result["val"][iteration] = val
             # rolling best = lowest validation loss (the manager keeps the

@@ -10,15 +10,23 @@ backends on its own, and a CUDA run never goes on without its group.
 
 Without an initialised group every function here is the single-process
 no-op: world size 1, rank 0, no barrier, the value itself.
-:data:`all_reduce_counts` counts the calls of :func:`all_reduce_sum` by
-what they reduce, as the kernels count their launches.
+:data:`all_reduce_counts` counts the calls of :func:`all_reduce_sum` and
+:func:`all_gather` by what they carry, as the kernels count their
+launches.
+
+Under tensor parallelism the world is a ``data × model`` grid
+(:func:`grid_groups`): the ``model`` ranks of one data shard are adjacent,
+world rank ``d · model + m``, as the JAX package's ``create_mesh`` lays
+its devices out, and each rank belongs to one data group (the ranks that
+hold its shard of the model, one per data shard) and one model group (the
+ranks that hold its data shard, one per shard of the model).
 """
 from __future__ import annotations
 
 import collections
 import datetime
 import os
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -146,6 +154,42 @@ def all_reduce_sum(tensor: torch.Tensor, what: str,
     if dist.is_initialized():
         dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
+
+
+def all_gather(tensor: torch.Tensor, what: str,
+               group: Optional[dist.ProcessGroup] = None
+               ) -> List[torch.Tensor]:
+    """Every rank's ``tensor`` (all of one shape) in the rank order of
+    ``group``; counts one call under ``what``. Without a process group,
+    ``[tensor]``."""
+    all_reduce_counts[what] += 1
+    if not dist.is_initialized():
+        return [tensor]
+    out = [torch.empty_like(tensor)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, tensor.contiguous(), group=group)
+    return out
+
+
+def grid_groups(data: int, model: int
+                ) -> Tuple[dist.ProcessGroup, dist.ProcessGroup]:
+    """This rank's data group and model group in a ``data × model`` grid
+    of the world (world rank ``d · model + m``). Every rank creates every
+    group, in one order, as ``dist.new_group`` requires."""
+    if data * model != get_world_size():
+        raise ValueError(f"a {data} x {model} grid of a world of "
+                         f"{get_world_size()} ranks")
+    rank = get_rank()
+    data_group = model_group = None
+    for m in range(model):
+        g = dist.new_group([d * model + m for d in range(data)])
+        if rank % model == m:
+            data_group = g
+    for d in range(data):
+        g = dist.new_group([d * model + m for m in range(model)])
+        if rank // model == d:
+            model_group = g
+    return data_group, model_group
 
 
 def average_across_processes(

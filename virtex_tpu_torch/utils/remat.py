@@ -21,10 +21,11 @@ reruns a module that draws from generators and writes buffers, so
   statistics and ``num_batches_tracked``) are copied before the
   recomputation and written back after it, so they keep what the first run
   wrote;
-- **the same group**: the recomputation runs in autograd's thread, where
-  the train step's published process group (``ops/_mesh.py``) is not set,
-  so it is published again there, and the recomputed BatchNorm takes the
-  global statistics the first run took.
+- **the same groups**: the recomputation runs in autograd's thread, where
+  the train step's published process groups (``ops/_mesh.py``) are not
+  set, so they are published again there: the recomputed BatchNorm takes
+  the global statistics the first run took, and a sharded decoder layer
+  sums over its model group again.
 """
 from __future__ import annotations
 
@@ -34,7 +35,11 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from virtex_tpu_torch.ops._mesh import active_group, kernel_group
+from virtex_tpu_torch.ops._mesh import (
+    active_group,
+    active_model_group,
+    kernel_group,
+)
 
 
 def remat(module: torch.nn.Module, *args,
@@ -51,7 +56,7 @@ def remat(module: torch.nn.Module, *args,
     def first_run():
         if generator is not None:
             before["state"] = generator.get_state()
-        before["group"] = active_group()
+        before["groups"] = active_group(), active_model_group()
         yield
 
     @contextlib.contextmanager
@@ -62,7 +67,7 @@ def remat(module: torch.nn.Module, *args,
             generator.set_state(before["state"])
         buffers = [(b, b.clone()) for b in module.buffers()]
         try:
-            with kernel_group(before["group"]):
+            with kernel_group(*before["groups"]):
                 yield
         finally:
             with torch.no_grad():
