@@ -216,6 +216,17 @@ prints no result, when there is no card or when any phase fails:
     0's checkpoints hold full tensors, which a one-process model loads and
     whose slices equal each rank's shards bit for bit; the resumed run's
     last checkpoint bit-equal to the unbroken one's.
+23. the feature bit-check and the closure rehearsal: (a) ``python -m
+    virtex_tpu_torch.scripts.feature_bitcheck`` on the five
+    ``configs/task_ablations`` at full width (R-50 at 224², the H2048 head,
+    B 2, fp32, TF32 off, dropout 0), each on a ``.pth`` drawn on the card
+    with ``card_randomize_``: the card writes its eval grid, losses and
+    d(loss)/d(image) (4/2/2/0/0 K1 and K2, 53 + 53 K4 launches) and the
+    CPU is held to them at the script's gates; (b) the card held to the
+    JAX package's results in ``tests/fixtures/torch_bitcheck_golden.npz``
+    (resnet18 at 64²) on the numpy-drawn ``.pth`` files whose sha256 it
+    pins; (c) ``python -m virtex_tpu_torch.scripts.reproduce_parity`` on
+    the card, every step of the synthetic rehearsal.
     Every phase's seconds are printed before the kernels line.
 
 The line before the last is a JSON object on the kernels; the last line is
@@ -230,6 +241,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -4459,6 +4471,222 @@ def check_tp(torch, port, device, pretrain_args):
     return total, seconds
 
 
+# -- phase 23 ----------------------------------------------------------------
+# (a) The five task ablations at full width (R-50 at 224², the H2048 head),
+# each on a .pth drawn on the card; the card's results held on the CPU.
+BITCHECK_CONFIGS = {
+    "task_ablations/bicaptioning_R_50_L1_H2048.yaml":
+        {"K1": 4, "K2": 4, "K4": 53, "K4dx": 53},
+    "task_ablations/captioning_R_50_L1_H2048.yaml":
+        {"K1": 2, "K2": 2, "K4": 53, "K4dx": 53},
+    "task_ablations/masked_lm_R_50_L1_H2048.yaml":
+        {"K1": 2, "K2": 2, "K4": 53, "K4dx": 53},
+    "task_ablations/token_classification_R_50.yaml":
+        {"K1": 0, "K2": 0, "K4": 53, "K4dx": 53},
+    "task_ablations/multilabel_classification_R_50.yaml":
+        {"K1": 0, "K2": 0, "K4": 53, "K4dx": 53},
+}
+# (b) The JAX package's results on the golden's numpy-drawn .pth files
+# (resnet18 at 64²: 20 BatchNorms), written on the CPU by
+# tests/torch_bitcheck_jax.py --golden.
+BITCHECK_GOLDEN = os.path.join("tests", "fixtures",
+                               "torch_bitcheck_golden.npz")
+GOLDEN_BN_LAYERS = 20
+
+
+def bitcheck_run(port, argv: list, log_path: str):
+    """``feature_bitcheck.main(argv)``, its output to ``log_path``; returns
+    the exit code and, where the train-mode checks ran again on other ReLU
+    sides, how they were chosen and the input gradient's error there."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port.feature_bitcheck.main(argv)
+    with open(log_path, "w") as f:
+        f.write(out.getvalue())
+    rerun = re.search(r"\[PASS\] d\(loss\)/d\(image\) \((.*)\): "
+                      r"err=(\S+)", out.getvalue())
+    return rc, rerun and (rerun.group(1), float(rerun.group(2)))
+
+
+def key_errors(port, path: str, ref_path: str, task: str) -> dict:
+    """The per-element error of each result of ``task`` in ``path``
+    against ``ref_path`` (feature_bitcheck's metric)."""
+    fb = port.feature_bitcheck
+    mine, _ = fb.load_reference(path, task)
+    ref, _ = fb.load_reference(ref_path, task)
+    return {k: fb.channel_error(mine[k], ref[k]) for k in sorted(ref)}
+
+
+def check_bitcheck_full(torch, port, device, work):
+    """Phase 23(a). Returns its launches and each task's largest errors."""
+    fb = port.feature_bitcheck
+    launches = dict(NO_LAUNCHES)
+    errors = {}
+    for i, rel in enumerate(BITCHECK_CONFIGS):
+        stem = os.path.splitext(os.path.basename(rel))[0]
+        config = os.path.join("configs", rel)
+        torch.manual_seed(SEED + 23 + i)    # card_randomize_ keeps the
+        model, cfg = port.model_zoo.get(    # init's mean and spread
+            rel, overrides=fb.FORCED_OVERRIDES, device=DEVICE)
+        card_randomize_(torch, model, SEED + 23 + i)
+        pth = os.path.join(work, f"{stem}.pth")
+        torch.save({"model": model.state_dict()}, pth)
+        task = cfg.MODEL.NAME
+        del model
+        torch.cuda.empty_cache()
+        card_npz = os.path.join(work, f"{stem}_card.npz")
+        cpu_npz = os.path.join(work, f"{stem}_cpu.npz")
+        common = ["--config", config, "--checkpoint-path", pth]
+        reset_counts(port.A, port.BN)       # a main path starts here
+        rc, _ = bitcheck_run(port, common + ["--device", DEVICE, "--write",
+                                             card_npz],
+                             os.path.join(work, f"{stem}_card.log"))
+        torch.cuda.synchronize()
+        counts = raw_counts(port.A, port.BN)  # ... and ends here
+        if rc != 0:
+            fail(f"feature_bitcheck on the card, {stem}: exit {rc} "
+                 f"(log {work})")
+        if counts != BITCHECK_CONFIGS[rel]:
+            fail(f"feature_bitcheck on the card, {stem}: launches {counts}, "
+                 f"expected {BITCHECK_CONFIGS[rel]}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        rc, sides = bitcheck_run(port, common + [
+            "--device", "cpu", "--write", cpu_npz, "--against", card_npz],
+            os.path.join(work, f"{stem}_cpu.log"))
+        if rc != 0:
+            with open(os.path.join(work, f"{stem}_cpu.log")) as f:
+                fail(f"feature_bitcheck, the CPU held to the card, {stem}: "
+                     f"exit {rc}:\n{f.read()[-3000:]}")
+        errors[stem] = (key_errors(port, cpu_npz, card_npz, task), sides,
+                        counts)
+        os.remove(pth)
+    return launches, errors
+
+
+def check_bitcheck_golden(torch, port, device, work):
+    """Phase 23(b). Returns its launches and each task's largest errors
+    against the JAX package."""
+    fb = port.feature_bitcheck
+    with np.load(os.path.join(REPO, BITCHECK_GOLDEN)) as f:
+        golden = {k: f[k] for k in f.files}
+    tasks = sorted(k.split("/")[0] for k in golden if k.endswith("/config"))
+    launches = dict(NO_LAUNCHES)
+    errors = {}
+    for task in tasks:
+        config = str(golden[f"{task}/config"])
+        overrides = [str(v) for v in golden[f"{task}/overrides"]]
+        seed, batch = int(golden[f"{task}/seed"]), int(
+            golden[f"{task}/batch_size"])
+        pth = os.path.join(work, f"golden_{task}.pth")
+        sha = fb.write_checkpoint(os.path.join(REPO, config), overrides,
+                                  seed, pth)
+        if sha != str(golden[f"{task}/checkpoint_sha256"]):
+            fail(f"the golden's {task} .pth drew another sha256 on this "
+                 f"machine: {sha}")
+        card_npz = os.path.join(work, f"golden_{task}_card.npz")
+        reset_counts(port.A, port.BN)       # a main path starts here
+        rc, sides = bitcheck_run(port, [
+            "--config", config, "--config-override", *overrides,
+            "--checkpoint-path", pth, "--seed", str(seed),
+            "--batch-size", str(batch), "--device", DEVICE,
+            "--write", card_npz, "--against", BITCHECK_GOLDEN],
+            os.path.join(work, f"golden_{task}.log"))
+        torch.cuda.synchronize()
+        counts = raw_counts(port.A, port.BN)  # ... and ends here
+        if rc != 0:
+            with open(os.path.join(work, f"golden_{task}.log")) as f:
+                fail(f"feature_bitcheck, the card held to the JAX package's "
+                     f"golden, {task}: exit {rc}:\n{f.read()[-3000:]}")
+        if counts["K4"] < GOLDEN_BN_LAYERS or counts["K4dx"] < \
+                GOLDEN_BN_LAYERS:
+            fail(f"feature_bitcheck on the card, golden {task}: launches "
+                 f"{counts}, expected {GOLDEN_BN_LAYERS} of each K4 stage "
+                 "or more")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        errors[task] = (key_errors(port, card_npz,
+                                   os.path.join(REPO, BITCHECK_GOLDEN),
+                                   task), sides, counts)
+    return launches, errors
+
+
+def check_rehearsal(torch, port, device, work):
+    """Phase 23(c). Returns its launches and the steps' seconds."""
+    log = os.path.join(work, "rehearsal.log")
+    out = io.StringIO()
+    reset_counts(port.A, port.BN)           # a main path starts here
+    try:
+        with contextlib.redirect_stdout(out):
+            summary = port.reproduce_parity.rehearse(
+                ["--device", DEVICE, "--workdir",
+                 os.path.join(work, "parity")])
+    except port.reproduce_parity.StepFailed as e:
+        with open(log, "w") as f:
+            f.write(out.getvalue())
+        fail(f"the synthetic rehearsal failed: {e}:\n"
+             f"{out.getvalue()[-3000:]}")
+    torch.cuda.synchronize()
+    counts = raw_counts(port.A, port.BN)    # ... and ends here
+    with open(log, "w") as f:
+        f.write(out.getvalue())
+    text = out.getvalue()
+    for want in ("rehearsal complete", "feature_bitcheck: PASS"):
+        if want not in text:
+            fail(f"the synthetic rehearsal printed no {want!r} ({log})")
+    if text.count("tokenizer_selfcheck: PASS") != 2:
+        fail(f"the synthetic rehearsal's tokenizer self-checks ({log})")
+    if min(counts.values()) == 0:
+        fail(f"the synthetic rehearsal launched {counts}: every kernel "
+             "runs in its pretraining")
+    return counts, summary
+
+
+def error_text(errors: dict) -> str:
+    return "; ".join(
+        f"{name} " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + (f" (dimage {sides[1]:.3e} with {sides[0]})" if sides else "")
+        + f", launches {json.dumps(counts)}"
+        for name, (errs, sides, counts) in errors.items())
+
+
+def check_phase23(torch, port, device):
+    """Phase 23. Returns its launches, summed."""
+    fb = port.feature_bitcheck
+    work = os.path.join(WORK, "bitcheck")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    full_counts, full = check_bitcheck_full(torch, port, device, work)
+    t1 = time.perf_counter()
+    say("23 bitcheck", f"{card_line()} | (a) python -m virtex_tpu_torch."
+        f"scripts.feature_bitcheck on the five task ablations at full width "
+        f"(R-50 at 224², L1_H2048_A32_F8192, B 2, fp32 with TF32 off, "
+        f"dropout 0), each on a .pth drawn on the card: the card's grid, "
+        f"losses and d(loss)/d(image) written, the CPU held to them (gates "
+        f"{fb.GRID_TOL:.0e} grid, {fb.LOSS_TOL:.0e} losses, "
+        f"{fb.GRAD_TOL:.0e} dimage, per element at its channel's scale), "
+        f"the CPU's largest errors per key: {error_text(full)}; "
+        f"{t1 - t0:.1f} s")
+    golden_counts, golden = check_bitcheck_golden(torch, port, device, work)
+    t2 = time.perf_counter()
+    say("23 bitcheck", f"{card_line()} | (b) the card against the JAX "
+        f"package's results ({BITCHECK_GOLDEN}: resnet18 at 64², "
+        f"L1_H128_A4_F256, B 2, each on the numpy-drawn .pth whose sha256 "
+        f"it pins), largest errors per key: {error_text(golden)}; "
+        f"{t2 - t1:.1f} s")
+    rehearsal_counts, summary = check_rehearsal(torch, port, device, work)
+    t3 = time.perf_counter()
+    say("23 rehearsal", f"{card_line()} | (c) python -m virtex_tpu_torch."
+        f"scripts.reproduce_parity (synthetic, on {DEVICE}): every step "
+        f"passed, seconds " + json.dumps(
+            {k: round(v, 2) for k, v in summary["seconds"].items()})
+        + f"; eval_captioning {json.dumps(summary['eval_captioning']['metrics'])}"
+        f", VOC07 mAP {summary['clf_voc07']['mAP']:.2f}, top-1 "
+        f"{summary['clf_linear']['value']:.2f}; launches "
+        f"{json.dumps(rehearsal_counts)}; {t3 - t2:.1f} s | phase 23 "
+        f"{t3 - t0:.1f} s")
+    return {k: full_counts[k] + golden_counts[k] + rehearsal_counts[k]
+            for k in NO_LAUNCHES}
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -4507,6 +4735,7 @@ def import_port():
     from virtex_tpu_torch.model_zoo import model_zoo
     from virtex_tpu_torch.modules.visual_backbones import detectron2_name
     from virtex_tpu_torch.scripts import build_vocabulary, eval_detectron2
+    from virtex_tpu_torch.scripts import feature_bitcheck, reproduce_parity
     return types.SimpleNamespace(**locals())
 
 
@@ -4785,6 +5014,11 @@ def main() -> None:
 
     # 22. tensor parallelism: two gloo ranks on the card, data 1 x model 2
     tp_counts, tp_seconds = check_tp(torch, port, device, pretrain_args)
+    torch.cuda.empty_cache()
+
+    # 23. feature_bitcheck at full width, the card against the JAX
+    # package's golden, and the closure rehearsal
+    bitcheck_counts = check_phase23(torch, port, device)
     shutil.rmtree(WORK)
     say("seconds", "per phase (the time up to each phase's last line): "
         + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
@@ -4796,7 +5030,7 @@ def main() -> None:
         f"{sum(PHASE_SECONDS.values()):.1f}")
     later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
              + dp1_counts[k] + dp2_counts[k] + zoo_counts[k]
-             + tp_counts[k] for k in NO_LAUNCHES}
+             + tp_counts[k] + bitcheck_counts[k] for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the

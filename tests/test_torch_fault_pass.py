@@ -99,7 +99,8 @@ def test_frozen_backbone_through_the_whole_model():
         assert torch.equal(v, before[k]), k
 
 
-@pytest.mark.parametrize("arch", ["resnet101", "wide_resnet50_2"])
+@pytest.mark.parametrize("arch", ["resnet101", "wide_resnet50_2",
+                                  "resnext50_32x4d", "resnext101_32x8d"])
 def test_backbone_ablation_trunk_matches_jax(arch):
     x = np.random.RandomState(2).rand(1, 64, 64, 3).astype(np.float32)
     jm = JaxVisual(arch, dtype=jnp.float32)

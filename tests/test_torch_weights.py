@@ -158,6 +158,8 @@ SLICE_MODULES = [
     "virtex_tpu_torch.scripts.eval_detectron2",
     "virtex_tpu_torch.scripts.build_vocabulary",
     "virtex_tpu_torch.scripts.tokenizer_selfcheck",
+    "virtex_tpu_torch.scripts.feature_bitcheck",
+    "virtex_tpu_torch.scripts.reproduce_parity",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",
