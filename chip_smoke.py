@@ -227,6 +227,24 @@ prints no result, when there is no card or when any phase fails:
     (resnet18 at 64²) on the numpy-drawn ``.pth`` files whose sha256 it
     pins; (c) ``python -m virtex_tpu_torch.scripts.reproduce_parity`` on
     the card, every step of the synthetic rehearsal.
+24. the end-to-end learning proof (``python -m virtex_tpu_torch.scripts.
+    quality_proxy``): (a) K1 and K2 at the proxy's head, 4 heads of 32,
+    fp32 and bf16, self-attention over 30 (and 16) tokens and
+    cross-attention to 16 and 4 visual tokens at B 8, 16 and 32, and K1 at
+    16 heads at the full width's validation batch of 48, against their
+    plain versions; their keep masks bit for bit at 4 heads of 32; K4's two
+    stages at resnet18's BatchNorm shapes at 128² (B 16, 32) and 64² (B 8,
+    down to 32 rows); each timed beside its bound, plain version and
+    library call. (b) ``--mode overfit``: 300 steps on one batch of 8,
+    the last loss under 1.0 and beam search (SOS kept) giving back at
+    least 6 of the 8 captions exactly. (c) ``--accum 2``, the JAX proxy's
+    recipe: 400 iterations of pretrain_virtex on the learnable COCO
+    (resnet18 at 128², L1_H128_A4_F512, bf16, dropout 0.1), then
+    eval_captioning --calc-metrics by beam search and by nucleus sampling:
+    CIDEr ≥ 100 and ≥ 80. (d) ``--width full``: the same at the flagship's
+    widths (R-50 at 224², L1_H1024_A16_F4096, 128 × 2) for 100 iterations,
+    the same gates. Each part's K1, K2 and K4 launches equal steps ×
+    micro-steps × layers × directions, and its eval steps' as phase 13's.
     Every phase's seconds are printed before the kernels line.
 
 The line before the last is a JSON object on the kernels; the last line is
@@ -572,15 +590,16 @@ def check_k2(torch, A, device):
     return main_err, keep, summary
 
 
-def check_keep_bits(torch, A, device, N, rate, seed, dtype):
-    """K1's and K2's keep masks at (B 128, N heads, 30, 49) against
-    ``philox_keep_reference``, bit for bit, in ``dtype`` (fp32: the scalar
-    variants; bf16: the tensor-core ones); returns the kept fraction.
+def check_keep_bits(torch, A, device, N, rate, seed, dtype,
+                    B=TRAIN_BATCH, Tq=30, Tk=49, D=64):
+    """K1's and K2's keep masks at (B, N heads, Tq, Tk), head size D
+    (Tq, Tk <= D), against ``philox_keep_reference``, bit for bit, in
+    ``dtype`` (fp32: the scalar variants; bf16: the tensor-core ones);
+    returns the kept fraction.
 
     q = k = 0 makes P uniform. With v the identity over (key, d), K1's
     output row i is keep[i, :]/(Tk·(1 − rate)); with g the identity over
     (query, d), K2's dv[j, i] is keep[i, j]/(Tk·(1 − rate))."""
-    B, Tq, Tk, D = TRAIN_BATCH, 30, 49, 64
     want = A.philox_keep_reference(seed, B, N, Tq, Tk, rate, device=device)
     zq = torch.zeros(B, Tq, N, D, device=device, dtype=dtype)
     zk = torch.zeros(B, Tk, N, D, device=device, dtype=dtype)
@@ -741,13 +760,15 @@ def bn_counts(BN):
             BN.dx_vector_launch_count)
 
 
-def check_k4(torch, BN, device, cases=K4_CASES, m_total=True):
+def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
+             main_batches=(TRAIN_BATCH, FINETUNE_BATCH)):
     """K4's stage 1 against ``bn_backward_sums_reference`` and its stage 2
     against ``bn_backward_dx_reference`` (both fed the plain sums) on the
     card, at ``cases``; each stage launched twice must give equal bits, in
     the variant ``k4_vector_width`` names; with ``m_total``, stage 2 with
     the count of two ranks. Returns the largest absolute errors of the
-    sums and of dx at the model shapes, and a summary."""
+    sums and of dx at the model shapes (batches ``main_batches``), and a
+    summary."""
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     worst, sums_err, dx_err = {}, 0.0, 0.0
@@ -795,7 +816,7 @@ def check_k4(torch, BN, device, cases=K4_CASES, m_total=True):
             if not torch.equal(dx, BN.bn_backward_dx(cl, x, mean, rstd,
                                                      weight, ref)):
                 fail("K4 dx: an NCHW dy and its channels_last copy differ")
-        elif B in (TRAIN_BATCH, FINETUNE_BATCH):
+        elif B in main_batches:
             sums_err = max(sums_err, float((out - ref).abs().max()))
             dx_err = max(dx_err, float((dx.float() - dx_ref.float()).abs()
                                        .max()))
@@ -1917,12 +1938,19 @@ def write_synthetic_coco(torch, plane, root: str, device) -> None:
 
 def run_pretrain(torch, port, args: list, per_step: list, per_eval: list):
     """``pretrain_virtex.main`` on ``args``, recording the launches of each
-    train step and each eval step (read around each call, no sync: the
-    counts are bumped on the host at launch); an eval step's record also
-    holds its batch size under "B"."""
-    cli = port.pretrain
+    train step and each eval step (:func:`counted_steps`)."""
+    with counted_steps(port, port.pretrain, per_step, per_eval):
+        return port.pretrain.main(port.common_parser().parse_args(args))
 
-    def counted(make):
+
+@contextlib.contextmanager
+def counted_steps(port, module, per_step: list, per_eval: list):
+    """While open, the train steps and eval steps that ``module`` makes
+    record their launches in ``per_step`` and ``per_eval`` (read around
+    each call, no sync: the counts are bumped on the host at launch); an
+    eval step's record also holds its batch size under "B"."""
+
+    def counted(make, record, with_batch):
         def factory(*a, **k):
             step = make(*a, **k)
 
@@ -1931,22 +1959,26 @@ def run_pretrain(torch, port, args: list, per_step: list, per_eval: list):
                 out = step(batch)
                 after = launch_counts(port.A, port.BN)
                 counts = {k: after[k] - before[k] for k in after}
-                if make is cli_train:
-                    per_step.append(counts)
-                else:
-                    per_eval.append({**counts,
-                                     "B": int(batch["image"].shape[0])})
+                if with_batch:
+                    counts["B"] = int(batch["image"].shape[0])
+                record.append(counts)
                 return out
             return wrapped
         return factory
 
-    cli_train, cli_eval = cli.make_train_step, cli.make_eval_step
-    cli.make_train_step, cli.make_eval_step = (counted(cli_train),
-                                               counted(cli_eval))
+    saved = {name: getattr(module, name) for name in ("make_train_step",
+                                                      "make_eval_step")
+             if hasattr(module, name)}
+    module.make_train_step = counted(saved["make_train_step"], per_step,
+                                     False)
+    if "make_eval_step" in saved:
+        module.make_eval_step = counted(saved["make_eval_step"], per_eval,
+                                        True)
     try:
-        return cli.main(port.common_parser().parse_args(args))
+        yield
     finally:
-        cli.make_train_step, cli.make_eval_step = cli_train, cli_eval
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def flat_state(port, path: str) -> dict:
@@ -4687,6 +4719,328 @@ def check_phase23(torch, port, device):
             for k in NO_LAUNCHES}
 
 
+# -- phase 24 ----------------------------------------------------------------
+# The end-to-end learning proof (virtex_tpu_torch/scripts/quality_proxy.py).
+# (a) K1 and K2 at the proxy's head, L1_H128_A4: 4 heads of 32, bf16 and
+# fp32. (B, Tq, Tk): the captions' self-attention (30 tokens; 16 in the
+# overfit) and the cross-attention to resnet18's grid, 4x4 = 16 tokens at
+# 128² and 2x2 = 4 at 64²; B 16 is the proxy's micro-batch at accumulation
+# 2 and its last validation batch, 32 its batch at accumulation 1 and its
+# first validation batch, 8 the overfit's batch. Then K1 at the full-width
+# proxy's one validation batch of 48 (16 heads of 64, as phase 3's).
+PROXY_HEADS, PROXY_HEAD_DIM = 4, 32
+PROXY_ATTENTION = [(B, 30, Tk) for B in (16, 32) for Tk in (30, 16, 4)] \
+    + [(8, 16, 16), (8, 16, 4)]
+PROXY_KEEP_SHAPES = [(16, 30, 16), (8, 16, 4)]   # dropout 0.1 bit for bit
+FULL_VAL_BATCH = 48
+# K4's two stages at resnet18's BatchNorm shapes, (H, C) by image side,
+# at the batches each side runs: 128² at the proxy's micro-batches, 64² at
+# the overfit's 8 (its smallest M: 2·2·8 = 32 rows).
+RESNET18_BN_SHAPES = {128: [(64, 64), (32, 64), (16, 128), (8, 256),
+                            (4, 512)],
+                      64: [(32, 64), (16, 64), (8, 128), (4, 256),
+                           (2, 512)]}
+PROXY_K4_BATCHES = {128: (16, 32), 64: (8,)}
+RESNET18_BN_LAYERS = 20
+# (b)-(d): the overfit, the JAX proxy's recipe at accumulation 2, and the
+# proxy at the flagship's widths. Launches per train step of a
+# bicaptioning L1 head: self- and cross-attention in two directions per
+# micro-step (K1 and K2), and both K4 stages per BatchNorm per micro-step;
+# per validation eval step EVAL_LAUNCHES, and 4 K1 more for the
+# validation's logged predictions (one forward of the first batch).
+PROXY_ACCUM = 2
+PROXY_RECIPE_ITERATIONS = 400
+FULL_ITERATIONS = 100
+
+
+def step_launches(accum: int, bn_layers: int) -> dict:
+    return {"K1": 4 * accum, "K2": 4 * accum, "K4": bn_layers * accum,
+            "K4dx": bn_layers * accum}
+
+
+def proxy_attention_cases(torch, dtype, device, seed):
+    """Phase 24(a)'s K1/K2 operands: (name, q, k, v, g, mask), q/k/v
+    strided views of one projection as ``MultiHeadAttention`` passes
+    them."""
+    N, D = PROXY_HEADS, PROXY_HEAD_DIM
+    for i, (B, Tq, Tk) in enumerate(PROXY_ATTENTION):
+        q, k, v = attention_inputs(torch, B, Tq, Tk, N, D, dtype, device,
+                                   seed + i, packed=True)
+        g = attention_inputs(torch, B, Tq, Tq, N, D, dtype, device,
+                             seed + 50 + i)[0]
+        mask = self_mask(torch, B, Tq, device, seed + i) if Tq == Tk \
+            else None
+        kind = "self" if Tq == Tk else "cross"
+        yield f"{kind} B{B} {Tq}x{Tk}", q, k, v, g, mask
+
+
+def check_proxy_kernels(torch, port, device):
+    """Phase 24(a): K1 and K2 at the proxy's shapes, K1 at the full-width
+    proxy's validation batch, and K4's two stages at resnet18's, against
+    their plain versions at phases 3-5's tolerances; K1's and K2's keep
+    masks bit for bit at 4 heads of 32. Returns the largest absolute bf16
+    errors of K1, K2, K4's sums and dx, and a summary."""
+    A, BN = port.A, port.BN
+    worst, err = {}, {"K1": 0.0, "K2": 0.0}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        cases = [(f"{name} {dtype_name}", q, k, v, g, mask)
+                 for name, q, k, v, g, mask in proxy_attention_cases(
+                     torch, dtype, device, SEED + 240)]
+        for i, kind in enumerate(("self", "cross")):
+            Tk = 30 if kind == "self" else 49
+            q, k, v = attention_inputs(torch, FULL_VAL_BATCH, 30, Tk, 16, 64,
+                                       dtype, device, SEED + 260 + i,
+                                       packed=True)
+            mask = self_mask(torch, FULL_VAL_BATCH, 30, device, SEED + 260) \
+                if kind == "self" else None
+            cases.append((f"16x64 {kind} B{FULL_VAL_BATCH} {dtype_name}",
+                          q, k, v, None, mask))
+        for name, q, k, v, g, mask in cases:
+            pairs = [("K1", k1_out(torch, A, name, q, k, v, mask),
+                      A.attention_reference(q, k, v, mask))]
+            if g is not None:
+                pairs += [("K2", a, b) for a, b in zip(
+                    k2_grads(torch, A, q, k, v, mask, g),
+                    A.attention_backward_reference(q, k, v, mask, g))]
+            for kernel, got, ref in pairs:
+                e = rel_err(got, ref, ATOL)
+                worst[f"{kernel} {name}"] = max(
+                    e, worst.get(f"{kernel} {name}", 0.0))
+                if got.shape != ref.shape or not e <= TOL[dtype_name]:
+                    fail(f"{kernel} {name}: {tuple(got.shape)} vs "
+                         f"{tuple(ref.shape)}, error {e:.3e} > "
+                         f"{TOL[dtype_name]:.0e}")
+                if dtype_name == "bfloat16":
+                    err[kernel] = max(err[kernel], float(
+                        (got.float() - ref.float()).abs().max()))
+        for j, (B, Tq, Tk) in enumerate(PROXY_KEEP_SHAPES):
+            check_keep_bits(torch, A, device, PROXY_HEADS, 0.1, 2400 + j,
+                            dtype, B=B, Tq=Tq, Tk=Tk, D=PROXY_HEAD_DIM)
+    cases = [(f"B{B} {hw}x{hw}x{C}", B, hw, C, "channels_last", "bfloat16",
+              "bfloat16") for side, shapes in RESNET18_BN_SHAPES.items()
+             for B in PROXY_K4_BATCHES[side] for hw, C in shapes]
+    sums_err, dx_err, k4_summary = check_k4(
+        torch, BN, device, cases, m_total=False,
+        main_batches=[B for batches in PROXY_K4_BATCHES.values()
+                      for B in batches])
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return err["K1"], err["K2"], sums_err, dx_err, summary, k4_summary
+
+
+# Timed in phase 24(a): K1 and K2 at the proxy's train shapes (B 16 at
+# 128², B 8 at 64²), K1 alone at its validation batch of 32; K4 at
+# resnet18's 128² shapes at B 16, and its smallest M.
+PROXY_TIMED = [(16, 30, 30, True), (16, 30, 16, True), (8, 16, 16, True),
+               (8, 16, 4, True), (32, 30, 30, False), (32, 30, 16, False)]
+PROXY_TIMED_K4 = {16: RESNET18_BN_SHAPES[128], 8: [(2, 512)]}
+
+
+def time_proxy_kernels(torch, port, device):
+    """Phase 24(a)'s timings: {(B, Tq, Tk): {"K1"[, "K2"]: ...}} and
+    {(B, H, C): {"sums" | "dx" | "bwd": ...}}, as phases 9 and 21 time
+    them."""
+    A, BN = port.A, port.BN
+    attention = {}
+    for B, Tq, Tk, backward in PROXY_TIMED:
+        q, k, v = attention_inputs(torch, B, Tq, Tk, PROXY_HEADS,
+                                   PROXY_HEAD_DIM, torch.bfloat16, device,
+                                   SEED, packed=True)
+        g = attention_inputs(torch, B, Tq, Tq, PROXY_HEADS, PROXY_HEAD_DIM,
+                             torch.bfloat16, device, SEED + 1)[0] \
+            if backward else None
+        mask = self_mask(torch, B, Tq, device, SEED) if Tq == Tk else None
+        attention[(B, Tq, Tk)] = time_attention(torch, A, q, k, v, g, mask)
+    bn = {}
+    for B, shapes in PROXY_TIMED_K4.items():
+        bn.update({(B,) + key: t for key, t in time_bn(
+            torch, BN, device, batch=B, shapes=shapes).items()})
+    return attention, bn
+
+
+def proxy_timing_lines(card, attention, bn):
+    lib = (f"library: scaled_dot_product_attention, {SDPA_BACKEND}; K2's: "
+           "its aten backward op")
+    yield (f"{card} | K1 and K2 at 4 heads of 32, bf16, device ms per call "
+           f"({lib}): " + "; ".join(
+               f"{'self' if Tq == Tk else 'cross'} B{B} {Tq}x{Tk} "
+               + ", ".join(f"{kernel} {timing_text(t)}"
+                           for kernel, t in times.items())
+               for (B, Tq, Tk), times in attention.items()))
+    for key, title, library in (
+            ("sums", "K4 stage 1 (sums)", "torch.batch_norm_backward_reduce"),
+            ("dx", "K4 stage 2 (dx)", "torch.batch_norm_backward_elemt")):
+        yield (f"{card} | {title} at resnet18's shapes, bf16, device ms per "
+               f"call (library: {library}): " + "; ".join(
+                   f"B{B} {hw}x{hw}x{C} {timing_text(t[key])}"
+                   for (B, hw, C), t in bn.items()))
+
+
+def proxy_run(torch, port, argv: list, log_path: str):
+    """``quality_proxy.run`` on ``argv`` on the card, its output to
+    ``log_path``; returns its summary and the launches of its window."""
+    out = io.StringIO()
+    reset_counts(port.A, port.BN)           # a main path starts here
+    with contextlib.redirect_stdout(out):
+        summary = port.quality_proxy.run(
+            port.quality_proxy.build_parser().parse_args(
+                argv + ["--device", DEVICE]))
+    torch.cuda.synchronize()
+    counts = launch_counts(port.A, port.BN)  # ... and ends here
+    with open(log_path, "w") as f:
+        f.write(out.getvalue())
+    return summary, counts
+
+
+def curve_text(losses: dict) -> str:
+    return ", ".join(f"{it}: {loss:.3f}" for it, loss in losses.items())
+
+
+def check_overfit(torch, port, work):
+    """Phase 24(b). Returns its launches and summary."""
+    qp = port.quality_proxy
+    steps = []
+    with counted_steps(port, qp, steps, []):
+        summary, counts = proxy_run(torch, port, [
+            "--mode", "overfit", "--workdir", os.path.join(work, "overfit")],
+            os.path.join(work, "overfit.log"))
+    per_step = step_launches(1, RESNET18_BN_LAYERS)
+    want = {k: qp.OVERFIT_STEPS * v for k, v in per_step.items()}
+    if len(steps) != qp.OVERFIT_STEPS or any(c != per_step for c in steps) \
+            or counts != want:
+        fail(f"overfit: launches {counts} ({len(steps)} steps, first "
+             f"{steps[:1]}), expected {per_step} in each of "
+             f"{qp.OVERFIT_STEPS} steps and none in the captioning")
+    line = summary["line"]
+    if line["overfit_smoke"] != "PASS":
+        fail(f"overfit: {json.dumps(line)} (loss gate "
+             f"{qp.OVERFIT_LOSS_GATE}, exact captions >= "
+             f"{qp.OVERFIT_MATCH_GATE} of {qp.OVERFIT_IMAGES}); losses "
+             f"{curve_text(summary['losses'])}; captions "
+             f"{summary['captions']} vs {summary['truth']}")
+    return counts, summary
+
+
+def check_proxy_recipe(torch, port, work, name, argv, iterations, accum,
+                       bn_layers):
+    """Phase 24(c) and (d): the proxy CLI run of ``argv``. Returns its
+    launches and summary; fails unless every train and eval step
+    launched as its recipe says and the CIDEr gates pass."""
+    qp = port.quality_proxy
+    steps, evals = [], []
+    with counted_steps(port, port.pretrain, steps, evals):
+        summary, counts = proxy_run(
+            torch, port, argv + ["--workdir", os.path.join(work, name)],
+            os.path.join(work, f"{name}.log"))
+    per_step = step_launches(accum, bn_layers)
+    # checkpoint-every = iterations: one validation, whose first batch's
+    # predictions are logged (4 K1 more)
+    want = {k: iterations * v + sum(e[k] for e in evals)
+            + (4 if k == "K1" else 0) for k, v in per_step.items()}
+    if len(steps) != iterations or any(c != per_step for c in steps) or \
+            not evals or any({k: e[k] for k in EVAL_LAUNCHES}
+                             != EVAL_LAUNCHES for e in evals) \
+            or counts != want:
+        fail(f"quality proxy {name}: launches {counts}, expected {want} "
+             f"({per_step} in each of {iterations} train steps, "
+             f"{EVAL_LAUNCHES} per eval step, none in eval_captioning); "
+             f"{len(steps)} steps, eval steps {evals}")
+    line = summary["line"]
+    if line["iterations"] != iterations or \
+            line["grad_accum_steps"] != accum:
+        fail(f"quality proxy {name}: ran {json.dumps(line)}")
+    losses = summary["pretrain"]["losses"]
+    if not all(np.isfinite(v) for v in losses.values()):
+        fail(f"quality proxy {name}: losses {curve_text(losses)}")
+    if line["quality_proxy_smoke"] != "PASS":
+        fail(f"quality proxy {name}: {json.dumps(line)} (gates beam >= "
+             f"{qp.BEAM_CIDER_GATE}, nucleus >= {qp.NUCLEUS_CIDER_GATE}); "
+             f"losses {curve_text(losses)}; validation "
+             f"{summary['pretrain']['val']}")
+    return counts, summary
+
+
+def proxy_text(summary) -> str:
+    """Seconds, loss curve, validation loss, CIDEr and a sample of
+    captions of one proxy run."""
+    pre, truth = summary["pretrain"], summary["truth"]
+    seconds = [pre["seconds"][i] for i in sorted(pre["seconds"])][1:]
+    sample = [(p["caption"], summary["nucleus"]["predictions"][i]["caption"],
+               truth[p["image_id"]])
+              for i, p in enumerate(summary["beam"]["predictions"][:3])]
+    val = pre["val"][summary["iterations"]]["loss"]
+    return (f"{json.dumps(summary['line'])}; losses "
+            f"{curve_text(pre['losses'])}; validation loss {val:.4f}"
+            f"; host ms per iteration median "
+            f"{1e3 * float(np.median(seconds)):.1f}; seconds " + json.dumps(
+                {k: round(v, 1) for k, v in summary["seconds"].items()})
+            + "; beam | nucleus | truth: " + "; ".join(
+                f"{b!r} | {n!r} | {t!r}" for b, n, t in sample))
+
+
+def check_phase24(torch, port, device):
+    """Phase 24. Returns its launches, summed, and the largest absolute
+    bf16 errors of K1, K2, K4's sums and dx at (a)'s shapes."""
+    qp = port.quality_proxy
+    work = os.path.join(WORK, "proxy")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    (k1_err, k2_err, sums_err, dx_err, summary,
+     k4_summary) = check_proxy_kernels(torch, port, device)
+    attention, bn = time_proxy_kernels(torch, port, device)
+    say("24 proxy kernels", f"(a) K1 and K2 at {PROXY_HEADS} heads of "
+        f"{PROXY_HEAD_DIM} and K1 at the full width's validation batch of "
+        f"{FULL_VAL_BATCH} match the plain versions (fp32 tol "
+        f"{TOL['float32']:.0e}, bf16 tol {TOL['bfloat16']:.0e}, atol "
+        f"{ATOL}), keep masks bit for bit at {PROXY_KEEP_SHAPES}: {summary}"
+        f"; K4 at resnet18's shapes (sums/dx errors): {k4_summary}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    card = card_line()
+    for line in proxy_timing_lines(card, attention, bn):
+        say("24 proxy timings", line)
+
+    t1 = time.perf_counter()
+    overfit_counts, overfit = check_overfit(torch, port, work)
+    pairs = list(zip(overfit["captions"], overfit["truth"]))
+    say("24 overfit", f"{card_line()} | (b) python -m virtex_tpu_torch."
+        f"scripts.quality_proxy --mode overfit: {json.dumps(overfit['line'])}"
+        f" (gates loss < {qp.OVERFIT_LOSS_GATE}, >= {qp.OVERFIT_MATCH_GATE} "
+        f"of {qp.OVERFIT_IMAGES} exact); losses "
+        f"{curve_text(overfit['losses'])}; launches "
+        f"{json.dumps(overfit_counts)}; seconds " + json.dumps(
+            {k: round(v, 1) for k, v in overfit["seconds"].items()})
+        + "; pred | truth: " + "; ".join(f"{c!r} | {g!r}"
+                                         for c, g in pairs[:3])
+        + f"; {time.perf_counter() - t1:.1f} s")
+
+    t2 = time.perf_counter()
+    recipe_counts, recipe = check_proxy_recipe(
+        torch, port, work, "recipe",
+        ["--iterations", str(PROXY_RECIPE_ITERATIONS), "--accum",
+         str(PROXY_ACCUM)], PROXY_RECIPE_ITERATIONS, PROXY_ACCUM,
+        RESNET18_BN_LAYERS)
+    say("24 proxy", f"{card_line()} | (c) python -m virtex_tpu_torch.scripts"
+        f".quality_proxy --accum {PROXY_ACCUM} (the JAX proxy's recipe: "
+        f"resnet18 at 128², L1_H128_A4_F512, bf16, dropout 0.1, batch 32 in "
+        f"{PROXY_ACCUM} micro-steps, AdamW): {proxy_text(recipe)}; launches "
+        f"{json.dumps(recipe_counts)}; {time.perf_counter() - t2:.1f} s")
+
+    t3 = time.perf_counter()
+    full_counts, full = check_proxy_recipe(
+        torch, port, work, "full",
+        ["--width", "full", "--iterations", str(FULL_ITERATIONS)],
+        FULL_ITERATIONS, ACCUM, R50_BN_LAYERS)
+    say("24 proxy", f"{card_line()} | (d) python -m virtex_tpu_torch.scripts"
+        f".quality_proxy --width full (R-50 at 224², L1_H1024_A16_F4096, "
+        f"bf16, dropout 0.1, {TRAIN_BATCH} x accum {ACCUM}, 256² images): "
+        f"{proxy_text(full)}; launches {json.dumps(full_counts)}; "
+        f"{time.perf_counter() - t3:.1f} s | phase 24 "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {k: overfit_counts[k] + recipe_counts[k] + full_counts[k]
+                for k in NO_LAUNCHES}
+    return launches, (k1_err, k2_err, sums_err, dx_err)
+
+
 def import_port():
     """The port's entry points, as one namespace."""
     from virtex_tpu_torch.config import Config, ModelSpec, OptimSpec
@@ -4736,6 +5090,7 @@ def import_port():
     from virtex_tpu_torch.modules.visual_backbones import detectron2_name
     from virtex_tpu_torch.scripts import build_vocabulary, eval_detectron2
     from virtex_tpu_torch.scripts import feature_bitcheck, reproduce_parity
+    from virtex_tpu_torch.scripts import quality_proxy
     return types.SimpleNamespace(**locals())
 
 
@@ -5019,6 +5374,11 @@ def main() -> None:
     # 23. feature_bitcheck at full width, the card against the JAX
     # package's golden, and the closure rehearsal
     bitcheck_counts = check_phase23(torch, port, device)
+    torch.cuda.empty_cache()
+
+    # 24. the end-to-end learning proof: the kernels at the proxy's shapes,
+    # the overfit check, the JAX proxy's recipe and the full-width proxy
+    proxy_counts, proxy_errs = check_phase24(torch, port, device)
     shutil.rmtree(WORK)
     say("seconds", "per phase (the time up to each phase's last line): "
         + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})
@@ -5030,7 +5390,8 @@ def main() -> None:
         f"{sum(PHASE_SECONDS.values()):.1f}")
     later = {k: voc_counts[k] + remat_counts[k] + sampler_counts[k]
              + dp1_counts[k] + dp2_counts[k] + zoo_counts[k]
-             + tp_counts[k] + bitcheck_counts[k] for k in NO_LAUNCHES}
+             + tp_counts[k] + bitcheck_counts[k] + proxy_counts[k]
+             for k in NO_LAUNCHES}
 
     # ms (and plain_ms, library_ms, bound_ms): K1 as in the eval step
     # (mean of its self and cross launches at B32); K2 the mean of the
@@ -5051,7 +5412,8 @@ def main() -> None:
         "launches": serve_counts["K1"] + train_launches["K1"]
         + task_launches["K1"] + nucleus_counts["K1"]
         + pretrain_counts["K1"] + later["K1"],
-        "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err, zoo_errs[0]),
+        "max_abs_err": max(k1_err, wide_k1_err, edge_k1_err, zoo_errs[0],
+                           proxy_errs[0]),
         **row(list(k1_eval.values())),
     }, {
         "name": "K2 attention_bwd",
@@ -5060,7 +5422,8 @@ def main() -> None:
         "replaces": "virtex_tpu/ops/attention.py:103",
         "launches": train_launches["K2"] + task_launches["K2"]
         + nucleus_counts["K2"] + pretrain_counts["K2"] + later["K2"],
-        "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err, zoo_errs[1]),
+        "max_abs_err": max(k2_err, wide_k2_err, edge_k2_err, zoo_errs[1],
+                           proxy_errs[1]),
         **row([t["K2"] for t in train_times.values()]),
     }, {
         "name": "K4 bn_backward_sums",
@@ -5070,7 +5433,7 @@ def main() -> None:
         "launches": train_launches["K4"] + task_launches["K4"]
         + nucleus_counts["K4"] + pretrain_counts["K4"]
         + finetune_counts["K4"] + later["K4"],
-        "max_abs_err": max(k4_err, zoo_errs[2]),
+        "max_abs_err": max(k4_err, zoo_errs[2], proxy_errs[2]),
         **row([tuple(t / bn_calls for t in bn_step["sums"])
                + (next(iter(bn_times.values()))["sums"][4],)]),
     }, {
@@ -5081,7 +5444,7 @@ def main() -> None:
         "launches": train_launches["K4dx"] + task_launches["K4dx"]
         + nucleus_counts["K4dx"] + pretrain_counts["K4dx"]
         + finetune_counts["K4dx"] + later["K4dx"],
-        "max_abs_err": max(dx_err, zoo_errs[3]),
+        "max_abs_err": max(dx_err, zoo_errs[3], proxy_errs[3]),
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),
     }]}), flush=True)

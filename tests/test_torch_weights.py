@@ -160,6 +160,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.scripts.tokenizer_selfcheck",
     "virtex_tpu_torch.scripts.feature_bitcheck",
     "virtex_tpu_torch.scripts.reproduce_parity",
+    "virtex_tpu_torch.scripts.quality_proxy",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "cv2",
              "tokenizers", "PIL", "virtex_tpu", "transformers",
