@@ -1,0 +1,6 @@
+"""Device ms per caption batch of the operations launched inside the span
+around ``model.visual``'s forward."""
+
+
+def read(trace):
+    return trace.device_ms_per_unit("caption", "visual")
