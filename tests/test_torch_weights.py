@@ -124,6 +124,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.optim.optimizer",
     "virtex_tpu_torch.utils.common",
     "virtex_tpu_torch.utils.timer",
+    "virtex_tpu_torch.utils.tracing",
     "virtex_tpu_torch.native",
     "virtex_tpu_torch.data",
     "virtex_tpu_torch.data.tokenizers",

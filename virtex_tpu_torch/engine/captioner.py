@@ -19,6 +19,7 @@ from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
 from virtex_tpu_torch.utils.nucleus_sampling import (
     AutoRegressiveNucleusSampling,
 )
+from virtex_tpu_torch.utils.tracing import span
 
 CaptionFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
@@ -63,29 +64,32 @@ def make_caption_fn(model, decoder, sos_index: int = 1,
     def caption_fn(images: torch.Tensor,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        model.eval()
-        grid = model.encode_visual(images)
-        B = images.shape[0]
-        # Cross K/V from the untiled grid: projected once per image.
-        caches = model.init_decode(grid, decoder.max_steps)
-        cross = [{"ck": c["ck"].repeat_interleave(K, dim=0),
-                  "cv": c["cv"].repeat_interleave(K, dim=0)} for c in caches]
-        self_caches = [{"k": c["k"].repeat_interleave(K, dim=0),
-                        "v": c["v"].repeat_interleave(K, dim=0)}
-                       for c in caches]
+        with span("caption", images):
+            model.eval()
+            grid = model.encode_visual(images)
+            B = images.shape[0]
+            # Cross K/V from the untiled grid: projected once per image.
+            caches = model.init_decode(grid, decoder.max_steps)
+            cross = [{"ck": c["ck"].repeat_interleave(K, dim=0),
+                      "cv": c["cv"].repeat_interleave(K, dim=0)}
+                     for c in caches]
+            self_caches = [{"k": c["k"].repeat_interleave(K, dim=0),
+                            "v": c["v"].repeat_interleave(K, dim=0)}
+                           for c in caches]
 
-        def step_fn(tokens, position: int, state):
-            if rebase:
-                position = max(position - 1, 0)
-            full = [{**sc, **cx} for sc, cx in zip(state, cross)]
-            logits, full = model.decode_step(tokens, position, full)
-            state = [{"k": c["k"], "v": c["v"]} for c in full]
-            return torch.log_softmax(logits.float(), dim=-1), state
+            def step_fn(tokens, position: int, state):
+                if rebase:
+                    position = max(position - 1, 0)
+                with span("decode_step", tokens):
+                    full = [{**sc, **cx} for sc, cx in zip(state, cross)]
+                    logits, full = model.decode_step(tokens, position, full)
+                    state = [{"k": c["k"], "v": c["v"]} for c in full]
+                    return torch.log_softmax(logits.float(), dim=-1), state
 
-        start = torch.full((B,), sos_index, dtype=torch.long,
-                           device=images.device)
-        preds, _ = decoder.search(start, step_fn, self_caches)
-        return preds
+            start = torch.full((B,), sos_index, dtype=torch.long,
+                               device=images.device)
+            preds, _ = decoder.search(start, step_fn, self_caches)
+            return preds
 
     return caption_fn
 
@@ -101,13 +105,18 @@ def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
             # symptom; the caller threads its own randomness.
             raise ValueError("nucleus captioning needs a torch.Generator "
                              "(generator=)")
-        model.eval()
-        caches = model.init_decode(model.encode_visual(images),
-                                   decoder.max_steps)
-        start = torch.full((images.shape[0],), sos_index, dtype=torch.long,
-                           device=images.device)
-        preds, _ = decoder.search(start, model.decode_step, caches, generator)
-        return preds
+        with span("caption", images):
+            model.eval()
+            caches = model.init_decode(model.encode_visual(images),
+                                       decoder.max_steps)
+            start = torch.full((images.shape[0],), sos_index,
+                               dtype=torch.long, device=images.device)
+            preds, _ = decoder.search(start, step_fn, caches, generator)
+            return preds
+
+    def step_fn(tokens, position: int, caches):
+        with span("decode_step", tokens):
+            return model.decode_step(tokens, position, caches)
 
     return caption_fn
 

@@ -47,6 +47,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from virtex_tpu_torch.ops._mesh import kernel_group
 from virtex_tpu_torch.optim.optimizer import Optimizer
 from virtex_tpu_torch.utils.distributed import all_reduce_sum
+from virtex_tpu_torch.utils.tracing import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -65,7 +66,13 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
     model_group = None if mesh is None else mesh.model_group
     world = 1 if mesh is None else mesh.data
 
+    where = next(model.parameters())  # the stream the spans time
+
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        with span("train_step", where):
+            return _step(batch)
+
+    def _step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.train()
         model.zero_grad(set_to_none=True)
         losses, comps = [], {}
@@ -74,15 +81,18 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
                 micro = (batch if accum_steps == 1
                          else {k: v[i] for k, v in batch.items()})
                 out = model(micro, generator=generator)
-                out["loss"].backward()  # sums into .grad
+                with span("backward", where):
+                    out["loss"].backward()  # sums into .grad
                 losses.append(out["loss"].detach().float())
                 for k, v in out["loss_components"].items():
                     comps.setdefault(k, []).append(v.detach().float())
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if group is not None:  # summed over the ranks in one flat buffer
-            flat = all_reduce_sum(_flatten_dense_tensors(grads), "grads",
-                                  group)
-            torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+            with span("grad_all_reduce", where):
+                flat = all_reduce_sum(_flatten_dense_tensors(grads), "grads",
+                                      group)
+                torch._foreach_copy_(grads,
+                                     _unflatten_dense_tensors(flat, grads))
         if world * accum_steps > 1:
             torch._foreach_div_(grads, float(world * accum_steps))
         grad_norm = optimizer.step()

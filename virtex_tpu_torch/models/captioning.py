@@ -20,6 +20,7 @@ from virtex_tpu_torch.modules.textual_heads import TransformerTextualHead
 from virtex_tpu_torch.ops._mesh import mean_denominator
 from virtex_tpu_torch.modules.transformer import Cache
 from virtex_tpu_torch.modules.visual_backbones import ResNetVisualBackbone
+from virtex_tpu_torch.utils.tracing import span
 
 
 class _TokenCE(torch.autograd.Function):
@@ -74,16 +75,20 @@ class CaptioningModel(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
-        visual_grid = self.visual(batch["image"])
+        image = batch["image"]
+        with span("visual", image):
+            visual_grid = self.visual(image)
         tokens, lengths = batch["caption_tokens"], batch["caption_lengths"]
-        logits = self.textual(visual_grid, tokens, lengths, generator)
+        with span("textual", image):
+            logits = self.textual(visual_grid, tokens, lengths, generator)
         loss = token_cross_entropy(logits[:, :-1], tokens[:, 1:],
                                    self.padding_idx)
         components = {"captioning_forward": loss}
         if self.caption_backward:
             noitpac = batch["noitpac_tokens"]
-            backward_logits = self.backward_textual(visual_grid, noitpac,
-                                                    lengths, generator)
+            with span("backward_textual", image):
+                backward_logits = self.backward_textual(
+                    visual_grid, noitpac, lengths, generator)
             backward_loss = token_cross_entropy(
                 backward_logits[:, :-1], noitpac[:, 1:], self.padding_idx)
             components["captioning_backward"] = backward_loss
@@ -95,7 +100,8 @@ class CaptioningModel(nn.Module):
 
     # -- inference -----------------------------------------------------------
     def encode_visual(self, image: torch.Tensor) -> torch.Tensor:
-        return self.visual(image)
+        with span("visual", image):
+            return self.visual(image)
 
     def init_decode(self, visual_grid, max_length: Optional[int] = None
                     ) -> List[Cache]:

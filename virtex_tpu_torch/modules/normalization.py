@@ -53,6 +53,7 @@ from virtex_tpu_torch.ops.batchnorm import (
     bn_backward_sums,
     bn_train,
 )
+from virtex_tpu_torch.utils.tracing import span
 
 
 class SubsampledBatchNorm(nn.Module):
@@ -109,15 +110,16 @@ class SubsampledBatchNorm(nn.Module):
                         self.weight, self.bias, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        C = x.shape[1]
-        if self.training and self.stat_stride > 1:
-            return self._sampled(x)
-        if self.training:
-            y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                    self.dtype, self.sums_fn, self.dx_fn)
-            self._update_running(mean, var,
-                                 x.numel() // C * world_of(active_group()))
-            return y
-        rstd = 1.0 / torch.sqrt(self.running_var + self.eps)
-        return bn_apply(x, self.running_mean, rstd, self.weight, self.bias,
-                        self.dtype)
+        with span("bn_fwd", x):
+            C = x.shape[1]
+            if self.training and self.stat_stride > 1:
+                return self._sampled(x)
+            if self.training:
+                y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
+                                        self.dtype, self.sums_fn, self.dx_fn)
+                n = x.numel() // C * world_of(active_group())
+                self._update_running(mean, var, n)
+                return y
+            rstd = 1.0 / torch.sqrt(self.running_var + self.eps)
+            return bn_apply(x, self.running_mean, rstd, self.weight,
+                            self.bias, self.dtype)

@@ -46,6 +46,7 @@ from virtex_tpu_torch.parallel.mesh import (
     tp_split,
 )
 from virtex_tpu_torch.utils.distributed import all_reduce_sum
+from virtex_tpu_torch.utils.tracing import span
 from virtex_tpu_torch.utils.weights import flax_name_map
 
 NO_DECAY = r".*textual.(embedding|transformer).*(norm.*|bias)"
@@ -140,6 +141,10 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
+        with span("optimizer", self.params[0]):
+            return self._step()
+
+    def _step(self) -> torch.Tensor:
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]

@@ -78,6 +78,7 @@ from virtex_tpu_torch.utils.distributed import (
     is_master_process,
 )
 from virtex_tpu_torch.utils.timer import Timer
+from virtex_tpu_torch.utils.tracing import per_unit_line, span
 
 logger = logging.getLogger("virtex_tpu_torch")
 
@@ -118,6 +119,15 @@ def validate(model, eval_step, loader_factory, device, _C,
         if i == 0:
             log_val_predictions(model, batch, _C, mesh)
     return {k: v / n for k, v in sums.items()}
+
+
+def stop_profiler(profiler: torch.profiler.profile) -> None:
+    """Stop the profiler and log the program's spans over its iterations:
+    each span's ms per iteration on the host and on the device."""
+    profiler.stop()
+    line = per_unit_line()
+    if line:
+        logger.info(line)
 
 
 def main(_A) -> Dict[str, Any]:
@@ -195,10 +205,12 @@ def main(_A) -> Dict[str, Any]:
                     _A.profile_dir))
             profiler.start()
         if profiler is not None and iteration == start_iteration + 20:
-            profiler.stop()
+            stop_profiler(profiler)
             profiler = None
         timer.tic()
-        batch = shard_batch(next(train_iter), device, accum)
+        with span("data_wait", device):
+            host_batch = next(train_iter)
+        batch = shard_batch(host_batch, device, accum)
         generator.manual_seed(step_seed(_C.RANDOM_SEED, iteration,
                                         mesh.data_rank))
         metrics = train_step(batch)
@@ -230,7 +242,7 @@ def main(_A) -> Dict[str, Any]:
                                         iteration * per_host_batch})
 
     if profiler is not None:
-        profiler.stop()
+        stop_profiler(profiler)
     if _C.OPTIM.NUM_ITERATIONS % _A.checkpoint_every != 0:
         ckpt_mgr.step(state, loader_state={
             "items_consumed": _C.OPTIM.NUM_ITERATIONS * per_host_batch})

@@ -25,6 +25,8 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from virtex_tpu_torch.utils.tracing import span
+
 StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
 NEG_INF = -1e18
 REPETITION_PENALTY = -10000.0
@@ -34,6 +36,13 @@ def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, ties to the lowest index."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+def all_equal(x: torch.Tensor, value) -> bool:
+    """Whether every element of ``x`` equals ``value``: the search loops'
+    host sync, a span of its own."""
+    with span("host_sync", x):
+        return bool((x == value).all())
 
 
 def tree_map(fn, tree):
@@ -101,24 +110,27 @@ class AutoRegressiveBeamSearch:
         rows = torch.arange(B * K, device=device)
         base = (torch.arange(B, device=device) * K)[:, None]
         t = 1
-        while t < self.max_steps and not bool((last == eos).all()):
+        while t < self.max_steps and not all_equal(last, eos):
             last_flat = last.reshape(B * K)
             logprobs, state = step_fn(last_flat, t, state)
-            logprobs = logprobs.float().clone()
-            logprobs[rows, last_flat] += REPETITION_PENALTY
-            finished = (last_flat == eos)[:, None]
-            logprobs = torch.where(finished, after_end, logprobs)
+            with span("beam_select", logprobs):
+                logprobs = logprobs.float().clone()
+                logprobs[rows, last_flat] += REPETITION_PENALTY
+                finished = (last_flat == eos)[:, None]
+                logprobs = torch.where(finished, after_end, logprobs)
 
-            node_lp, node_ix = topk(logprobs, P)                  # (B·K, P)
-            cand = (scores.reshape(B * K)[:, None] + node_lp).reshape(B, K * P)
-            scores, flat_ix = topk(cand, K)                       # (B, K)
-            src = (base + torch.div(flat_ix, P, rounding_mode="floor"))
-            src = src.reshape(B * K)                              # rows
-            last = node_ix.reshape(B, K * P).gather(1, flat_ix)
+                node_lp, node_ix = topk(logprobs, P)              # (B·K, P)
+                cand = (scores.reshape(B * K)[:, None]
+                        + node_lp).reshape(B, K * P)
+                scores, flat_ix = topk(cand, K)                   # (B, K)
+                src = (base + torch.div(flat_ix, P, rounding_mode="floor"))
+                src = src.reshape(B * K)                          # rows
+                last = node_ix.reshape(B, K * P).gather(1, flat_ix)
 
-            preds = preds.reshape(B * K, -1)[src].reshape(B, K, -1)
-            preds[:, :, t] = last
-            state = tree_map(lambda x: x.index_select(0, src), state)
+            with span("beam_reorder", src):
+                preds = preds.reshape(B * K, -1)[src].reshape(B, K, -1)
+                preds[:, :, t] = last
+                state = tree_map(lambda x: x.index_select(0, src), state)
             t += 1
 
         if only_return_best:

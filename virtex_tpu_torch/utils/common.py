@@ -58,7 +58,10 @@ def common_parser(description: str = "") -> argparse.ArgumentParser:
     parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--profile-dir", default=None,
                         help="Write a torch.profiler trace of iterations "
-                             "10-20 into this directory.")
+                             "10-20 into this directory. The trace also "
+                             "holds the program's spans (virtex::<name> "
+                             "ranges), and the log gets one line of each "
+                             "span's host and device ms per iteration.")
     parser.add_argument("--debug-nans", action="store_true",
                         help="Trap NaNs in the backward pass "
                              "(torch.autograd anomaly mode; slow).")

@@ -21,6 +21,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from virtex_tpu_torch.utils.beam_search import all_equal
+
 StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
 NEG_INF = -1e18
 
@@ -82,7 +84,7 @@ class AutoRegressiveNucleusSampling:
                            device=start_tokens.device)
         last = start_tokens.long()
         t = 0
-        while t < self.max_steps and not (t > 0 and bool((last == eos).all())):
+        while t < self.max_steps and not (t > 0 and all_equal(last, eos)):
             logits, state = step_fn(last, t, state)
             logits = logits.float()
             filtered = logits.masked_fill(
