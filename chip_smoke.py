@@ -9,7 +9,7 @@ Run from the repository root, on a machine with a CUDA card, ``nvcc``
 prints no result, when there is no card or when any phase fails:
 
 1. device: the card's name and power limit; TF32 off for every comparison.
-2. build: kernels K1, K2 and K4's two stages
+2. build: kernels K1, K2, K4's two stages and the BatchNorm forward's two
    (``virtex_tpu_torch/csrc/*.cu``) are built with ``nvcc`` for ``sm_90a``,
    one process per source, in parallel.
 3. K1 against its plain PyTorch version on the card: the flagship's
@@ -33,7 +33,12 @@ prints no result, when there is no card or when any phase fails:
    launches of each give equal bits. Both stages also at batch 256 (the
    fine-tune's one micro-step) at its largest and smallest shapes,
    112×112×64 and 7×7×2048; and stage 2 with ``m_total`` = 2·M (sums
-   reduced over two ranks) at 112×112×64 and 7×7×2048.
+   reduced over two ranks) at 112×112×64 and 7×7×2048. Then the BatchNorm
+   forward's kernels at the 12 shapes at batch 128 in bf16: the statistics
+   within FWD_STATS_TOL of their plain version, the running statistics
+   (updated in the same launch) and the apply, in train and eval mode,
+   bit-equal to the torch ops; two launches give equal bits, in the vector
+   variants.
 6. eval step: the flagship ``bicaptioning_R_50_L1_H1024`` at full width in
    bf16 (built by ``PretrainingModelFactory.from_spec`` on the card, its
    default; weights from a numpy seed), batch 32 of captions of varied
@@ -44,18 +49,23 @@ prints no result, when there is no card or when any phase fails:
 8. train step: the flagship in bf16, micro-batch 128 × accumulation 2 as
    ``bench.py`` runs it, captions of varied length, the optimizer of
    ``OPTIM.*``. With dropout 0 the first step's losses and ``grad_norm``
-   match a copy whose attention and BatchNorm backward call the plain
-   versions; then five steps with dropout 0.1 and no warmup give finite
-   losses and a Lookahead sync at step 5. Every step makes exactly 8 K1,
-   8 K2 and 106 launches of each K4 stage, every K1 and K2 launch of a bf16
-   main path (here and in phases 6 and 11) in the tensor-core variant and
-   every K4 launch in the vector variant.
-9. timings: K1, K2, K4's two stages and the whole BatchNorm backward
-   beside their bounds, their plain versions and their library calls
-   (``scaled_dot_product_attention`` pinned to SDPA_BACKEND, its aten
-   backward op, ``torch.batch_norm_backward_reduce`` and
-   ``torch.batch_norm_backward_elemt``; device time from CUDA-graph replay,
-   in turns), per call and per train step, and how many of a step's
+   match a copy whose attention and BatchNorm (forward and backward) call
+   the plain versions, and so do the running statistics; then five steps
+   with dropout 0.1 and no warmup give finite losses and a Lookahead sync
+   at step 5. Every step makes exactly 8 K1, 8 K2, 106 launches of each K4
+   stage and 106 of each BatchNorm forward kernel, every K1 and K2 launch
+   of a bf16 main path (here and in phases 6 and 11) in the tensor-core
+   variant and every K4 and BatchNorm forward launch in the vector
+   variant.
+9. timings: K1, K2, K4's two stages, the whole BatchNorm backward and the
+   BatchNorm forward's two kernels beside their bounds, their plain
+   versions and their library calls (``scaled_dot_product_attention``
+   pinned to SDPA_BACKEND, its aten backward op,
+   ``torch.batch_norm_backward_reduce``, ``torch.batch_norm_backward_elemt``,
+   ``torch.batch_norm_stats`` and ``torch.batch_norm_elemt``; device time
+   from CUDA-graph replay, in turns), per call and per train step (the
+   forward at batch 256, per update of 256 in one micro-step, as the
+   benchmark's train cell runs it), and how many of a step's
    BatchNorm backwards got a dy that had to be copied to rows; the eval
    step, beam captioning, and the train step with the kernels and with the
    plain versions (host clock); one flagship train step under
@@ -300,6 +310,17 @@ LAUNCHES_PER_STEP = {"K1": 8, "K2": 8, "K4": 106, "K4dx": 106}
 # x's dtype, so fp32 differs by the association of the same terms and bf16
 # by at most one rounding (2^-8).
 K4_TOL = 1e-5
+# The BatchNorm forward's statistics kernel against its plain version, per
+# element |a − b| / (|ref| + 1) on the O(1) means, var and rstd: both read x
+# exactly and sum in fp32 in other orders.
+FWD_STATS_TOL = 1e-5
+# The running statistics after a train step, kernels against the plain
+# versions, per element |a − b| / (|ref| + 1): each layer's input is bf16,
+# and where the two sides' statistics differ in their last fp32 bits the
+# apply rounds some elements of y the other way, so every later layer's
+# statistics carry bf16 noise, up to one rounding (2^-8). The update's own
+# arithmetic is held bit for bit in phase 5.
+RUNNING_TOL = 2 ** -8
 DX_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # First train step, kernels against the plain versions (dropout 0): the
 # losses as the eval step's (LOSS_RTOL). grad_norm: the plain attention
@@ -853,6 +874,84 @@ def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
     return sums_err, dx_err, summary
 
 
+def check_bn_forward(torch, BN, device, batch=TRAIN_BATCH,
+                     shapes=R50_BN_SHAPES):
+    """The BatchNorm forward's kernels against their plain versions on the
+    card, bf16 x (NCHW views of NHWC memory, ~2·N(0, 1) + 0.5) at
+    ``batch`` and ``shapes`` (the flagship's): the statistics (E[x], E[x²],
+    var, rstd) within FWD_STATS_TOL of ``bn_forward_stats_reference``; the
+    running statistics, updated in the same launch, bit-equal to
+    ``update_running_reference`` of the kernel's own mean and var; the
+    apply bit-equal to ``bn_apply_reference`` on the kernel's statistics
+    (train mode) and on the updated running statistics (eval mode); the
+    statistics and the apply launched twice for equal bits, all in the
+    vector variants. Returns the largest absolute errors of the statistics
+    and of the apply (0 where bit-equal), and a summary."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    worst, stats_err, apply_err = {}, 0.0, 0.0
+    for hw, C in shapes:
+        M = batch * hw * hw
+        x = (torch.randn(batch, hw, hw, C, generator=gen, device=device)
+             * 2.0 + 0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
+        weight = torch.rand(C, generator=gen, device=device) + 0.5
+        bias = torch.randn(C, generator=gen, device=device) * 0.1
+        running = BN.Running(
+            torch.randn(C, generator=gen, device=device) * 0.3,
+            torch.rand(C, generator=gen, device=device) + 0.5,
+            torch.zeros((), dtype=torch.int64, device=device), 0.9, M)
+        want = BN.Running(running.mean.clone(), running.var.clone(),
+                          running.count.clone(), 0.9, M)
+        before = fwd_counts(BN)
+        stats = BN.bn_forward_stats(x, BN_EPS, running)
+        again = BN.bn_forward_stats(x, BN_EPS)
+        ref = BN.bn_forward_stats_reference(x, BN_EPS)
+        BN.update_running_reference(want, stats[0], stats[2])
+        eval_rstd = 1.0 / torch.sqrt(want.var + BN_EPS)
+        with torch.no_grad():
+            y = BN.bn_apply(x, stats[0], stats[3], weight, bias,
+                            torch.bfloat16)
+            y_again = BN.bn_apply(x, stats[0], stats[3], weight, bias,
+                                  torch.bfloat16)
+            y_eval = BN.bn_apply(x, want.mean, eval_rstd, weight, bias,
+                                 torch.bfloat16)
+        y_ref = BN.bn_apply_reference(x, stats[0], stats[3], weight, bias,
+                                      torch.bfloat16)
+        y_eval_ref = BN.bn_apply_reference(x, want.mean, eval_rstd, weight,
+                                           bias, torch.bfloat16)
+        torch.cuda.synchronize()
+        name = f"{hw}x{hw}x{C}"
+        launched = tuple(a - b for a, b in zip(fwd_counts(BN), before))
+        if launched != (2, 2, 3, 3):
+            fail(f"BatchNorm forward {name}: (statistics, vector, apply, "
+                 f"vector) launches {launched}, expected (2, 2, 3, 3)")
+        if not torch.equal(stats, again) or not torch.equal(y, y_again):
+            fail(f"BatchNorm forward {name}: two launches gave different "
+                 "bits")
+        if not (torch.equal(running.mean, want.mean)
+                and torch.equal(running.var, want.var)
+                and int(running.count) == 1):
+            fail(f"BatchNorm forward {name}: the running statistics differ "
+                 "from update_running_reference's")
+        err = rel_err(stats, ref, 1.0)
+        worst[name] = err
+        if stats.shape != (4, C) or not err <= FWD_STATS_TOL:
+            fail(f"BatchNorm forward statistics {name}: "
+                 f"{tuple(stats.shape)}, error {err:.3e} > "
+                 f"{FWD_STATS_TOL:.0e}")
+        stats_err = max(stats_err, float((stats - ref).abs().max()))
+        apply_err = max(apply_err, float((y.float() - y_ref.float()).abs()
+                                         .max()),
+                        float((y_eval.float() - y_eval_ref.float()).abs()
+                              .max()))
+        if not torch.equal(y, y_ref) or not torch.equal(y_eval, y_eval_ref):
+            fail(f"BatchNorm forward apply {name}: not bit-equal to the "
+                 f"torch ops (max abs error {apply_err:.3e})")
+        del x, y, y_again, y_eval, y_ref, y_eval_ref
+    summary = ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+    return stats_err, apply_err, summary
+
+
 # -- phases 6 and 7 ----------------------------------------------------------
 def randomize_(torch, model, seed: int) -> None:
     """Redraw every floating parameter and buffer from a numpy seed,
@@ -910,34 +1009,61 @@ def caption_batch(torch, B, image_size, T, vocab, seed, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def plain_bn(m, BN) -> None:
+    """Point a SubsampledBatchNorm's forward (statistics, with the running
+    statistics' update, and apply) and backward (sums and dx) at the plain
+    versions."""
+    m.stats_fn = BN.bn_forward_stats_reference
+    m.apply_fn = BN.bn_apply_reference
+    m.sums_fn = BN.bn_backward_sums_reference
+    m.dx_fn = BN.bn_backward_dx_reference
+
+
 def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
     """A copy of ``model`` whose attention (forward and, through autograd,
-    backward) and BatchNorm backward (sums and dx) call the plain
+    backward) and BatchNorm (forward and backward) call the plain
     versions."""
     twin = copy.deepcopy(model)
     for m in twin.modules():
         if isinstance(m, MultiHeadAttention):
             m.attention_fn = A.attention_reference
         elif isinstance(m, SubsampledBatchNorm):
-            m.sums_fn = BN.bn_backward_sums_reference
-            m.dx_fn = BN.bn_backward_dx_reference
+            plain_bn(m, BN)
     return twin
 
 
 # -- phase 8 -----------------------------------------------------------------
+# The BatchNorm forward's launches on every main path of this process
+# (read by launch_counts, summed over the run), for the kernels line.
+FWD_LAUNCHES = {"stats": 0, "apply": 0}
+_fwd_seen = {"stats": 0, "apply": 0}  # the counters at the last reading
+
+
+def fwd_counts(BN):
+    return (BN.fwd_stats_launch_count, BN.fwd_stats_vector_launch_count,
+            BN.fwd_apply_launch_count, BN.fwd_apply_vector_launch_count)
+
+
 def launch_counts(A, BN) -> dict:
     """The launches since ``reset_counts``. Every main path here runs in
     bf16, so each of its K1 and K2 launches must have taken the
-    tensor-core variant, and each of K4's (stage 1 and dx) the vector
-    one."""
+    tensor-core variant, and each of K4's (stage 1 and dx) and of the
+    BatchNorm forward's (statistics and apply) the vector one. The
+    forward's launches since the last reading join FWD_LAUNCHES."""
+    fwd = fwd_counts(BN)
     scalar = (A.launch_count - A.mma_launch_count,
               A.bwd_launch_count - A.mma_bwd_launch_count,
               BN.launch_count - BN.vector_launch_count,
-              BN.dx_launch_count - BN.dx_vector_launch_count)
+              BN.dx_launch_count - BN.dx_vector_launch_count,
+              fwd[0] - fwd[1], fwd[2] - fwd[3])
     if any(scalar):
-        fail(f"{scalar[0]} K1, {scalar[1]} K2, {scalar[2]} K4 and "
-             f"{scalar[3]} K4 dx launches of a bf16 main path took the "
-             "scalar variant")
+        fail(f"{scalar[0]} K1, {scalar[1]} K2, {scalar[2]} K4, "
+             f"{scalar[3]} K4 dx, {scalar[4]} BatchNorm statistics and "
+             f"{scalar[5]} BatchNorm apply launches of a bf16 main path "
+             "took the scalar variant")
+    for key, now in (("stats", fwd[0]), ("apply", fwd[2])):
+        FWD_LAUNCHES[key] += now - _fwd_seen[key]
+        _fwd_seen[key] = now
     return {"K1": A.launch_count, "K2": A.bwd_launch_count,
             "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
 
@@ -945,6 +1071,7 @@ def launch_counts(A, BN) -> dict:
 def reset_counts(A, BN) -> None:
     A.reset_launch_count()
     BN.reset_launch_count()
+    _fwd_seen.update(stats=0, apply=0)
 
 
 def train_batch(torch, spec, device, seed):
@@ -1212,6 +1339,110 @@ def time_bn(torch, BN, device, batch=TRAIN_BATCH, shapes=R50_BN_SHAPES):
     return times
 
 
+BN_EPS = 1e-5  # ResNet's BatchNorm eps (MODEL.VISUAL's default)
+# The BatchNorm forward is timed at the benchmark train cell's update: 256
+# images in one micro-step.
+FWD_TIMING_BATCH = 256
+
+
+def time_bn_forward(torch, BN, device, batch=TRAIN_BATCH,
+                    shapes=R50_BN_SHAPES):
+    """BatchNorm's train-mode forward, bf16, ``batch``, at ``shapes``: its
+    statistics kernel, its apply kernel and the two in turn, each beside
+    its plain version (the torch ops the kernels replaced) and its library
+    call (``torch.batch_norm_stats``, ``torch.batch_norm_elemt`` on the
+    same statistics, the two in turn), rotating input copies past the L2
+    cache as ``time_bn`` does. Returns {(H, C): {"stats" | "apply" | "fwd":
+    (kernel ms, plain ms, library ms, bound ms, bound_by)}}; the bounds
+    read x once for the statistics, once more for the apply and write y
+    once, with the per-channel vectors."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    times = {}
+    for hw, C in shapes:
+        M = batch * hw * hw
+        sets = []
+        while not sets or len(sets) * nbytes(sets[0][0]) < 2 * L2_BYTES:
+            x = (torch.randn(batch, hw, hw, C, generator=gen, device=device)
+                 * 2.0 + 0.5).to(torch.bfloat16).permute(0, 3, 1, 2)
+            weight = torch.rand(C, generator=gen, device=device) + 0.5
+            bias = torch.randn(C, generator=gen, device=device) * 0.1
+            stats = BN.bn_forward_stats(x, BN_EPS)
+            sets.append((x, weight, bias, stats[0], stats[3]))
+
+        def kernel_stats(x, *_):
+            return BN.bn_forward_stats(x, BN_EPS)
+
+        def plain_stats(x, *_):
+            return BN.bn_forward_stats_reference(x, BN_EPS)
+
+        def library_stats(x, *_):
+            return torch.batch_norm_stats(x, BN_EPS)
+
+        def kernel_apply(x, weight, bias, mean, rstd):
+            return BN.bn_apply(x, mean, rstd, weight, bias, torch.bfloat16)
+
+        def plain_apply(x, weight, bias, mean, rstd):
+            return BN.bn_apply_reference(x, mean, rstd, weight, bias,
+                                         torch.bfloat16)
+
+        def library_apply(x, weight, bias, mean, rstd):
+            return torch.batch_norm_elemt(x, weight, bias, mean, rstd,
+                                          BN_EPS)
+
+        def kernel_fwd(x, weight, bias, *_):
+            return BN.bn_forward(x, weight, bias, BN_EPS, torch.bfloat16)
+
+        def plain_fwd(x, weight, bias, *_):
+            st = BN.bn_forward_stats_reference(x, BN_EPS)
+            return BN.bn_apply_reference(x, st[0], st[3], weight, bias,
+                                         torch.bfloat16)
+
+        def library_fwd(x, weight, bias, *_):
+            mean, invstd = torch.batch_norm_stats(x, BN_EPS)
+            return torch.batch_norm_elemt(x, weight, bias, mean, invstd,
+                                          BN_EPS)
+
+        def timed(kernel, plain, library):
+            with torch.no_grad():
+                return time_turns(torch, *(rotating(f, sets) for f in (
+                    kernel, plain, library)), BN_CALLS, BN_REPLAYS)
+
+        x, weight, bias, mean, rstd = sets[0]
+        channel = nbytes(weight, bias, mean, rstd)
+        times[(hw, C)] = {
+            "stats": timed(kernel_stats, plain_stats, library_stats) + bound(
+                nbytes(x) + 2 * channel, 3 * M * C, FP32_FLOPS),
+            "apply": timed(kernel_apply, plain_apply, library_apply) + bound(
+                2 * nbytes(x) + channel, 3 * M * C, FP32_FLOPS),
+            "fwd": timed(kernel_fwd, plain_fwd, library_fwd) + bound(
+                3 * nbytes(x) + 3 * channel, 6 * M * C, FP32_FLOPS)}
+        del sets, x
+    return times
+
+
+def bn_forward_lines(card, times, bn_shapes, batch):
+    """One line per key of ``time_bn_forward``'s times: per call at each
+    shape, and summed over the BatchNorm calls of ``bn_shapes``."""
+    calls = sum(bn_shapes.values())
+    lines = []
+    for key, title, library in (
+            ("stats", "BatchNorm forward statistics", "batch_norm_stats"),
+            ("apply", "BatchNorm forward apply", "batch_norm_elemt"),
+            ("fwd", "BatchNorm forward, both kernels",
+             "batch_norm_stats + batch_norm_elemt")):
+        step = per_step(times, bn_shapes, key)
+        lines.append(
+            f"{card} | {title}, bf16 B{batch}, device ms per call (library: "
+            f"{library}): " + "; ".join(
+                f"{hw}x{hw}x{C} {timing_text(t[key])}"
+                for (hw, C), t in times.items())
+            + f" | summed over {calls} calls: kernel {step[0]:.3f}, plain "
+            f"{step[1]:.3f}, library {step[2]:.3f}, bound {step[3]:.3f} "
+            f"({step[3] / step[0]:.0%} of bound)")
+    return lines
+
+
 def per_step(times, bn_shapes, key):
     """One train step's (kernel, plain, library, bound) ms of ``key``:
     each BatchNorm input shape of the step's forward passes, (B, C, H, W),
@@ -1289,6 +1520,37 @@ def profile_step(torch, fn) -> str:
             f"(ms, events): {by_kind} | top kernels: {top}")
 
 
+def check_fwd_counts(fwd, what: str) -> None:
+    """A train step's BatchNorm forward launches: one statistics and one
+    apply launch for each K4 stage-1 launch, all in the vector variants
+    (``fwd_counts``, read right after the step's ``launch_counts``)."""
+    want = LAUNCHES_PER_STEP["K4"]
+    if fwd != (want, want, want, want):
+        fail(f"{what}: BatchNorm forward (statistics, vector, apply, "
+             f"vector) launches {fwd}, expected {want} of each")
+
+
+def running_gap(torch, model, plain, SubsampledBatchNorm) -> float:
+    """The largest gap, per element |a − b| / (|ref| + 1), between the
+    running statistics of ``model``'s BatchNorms (updated by the
+    statistics kernel) and those of its plain copy (updated by the torch
+    ops from the plain statistics) after the same steps; fails above
+    RUNNING_TOL, or if the counts differ."""
+    worst = 0.0
+    for a, b in zip(model.modules(), plain.modules()):
+        if not isinstance(a, SubsampledBatchNorm):
+            continue
+        if not torch.equal(a.num_batches_tracked, b.num_batches_tracked):
+            fail(f"num_batches_tracked {int(a.num_batches_tracked)} with "
+                 f"the kernels, {int(b.num_batches_tracked)} plain")
+        worst = max(worst, rel_err(a.running_mean, b.running_mean, 1.0),
+                    rel_err(a.running_var, b.running_var, 1.0))
+    if not worst <= RUNNING_TOL:
+        fail(f"running statistics {worst:.3e} from the plain versions' "
+             f"(tol {RUNNING_TOL:.1e})")
+    return worst
+
+
 def check_train(torch, port, device):
     """Phase 8. Returns what phase 9 times and the kernels line reads."""
     A, BN = port.A, port.BN
@@ -1312,11 +1574,13 @@ def check_train(torch, port, device):
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
     first_counts = launch_counts(A, BN)  # ... and ends here
+    first_fwd = fwd_counts(BN)
     dy_copies = BN.dy_copy_count
     unhook()
     if first_counts != LAUNCHES_PER_STEP:
         fail(f"train step launched {first_counts}, expected "
              f"{LAUNCHES_PER_STEP}")
+    check_fwd_counts(first_fwd, "train step 1")
     ref = {k: float(v) for k, v in plain_step(batch).items()}
     if not all(np.isfinite(v) for v in metrics.values()):
         fail(f"train step: non-finite metrics {metrics}")
@@ -1326,12 +1590,16 @@ def check_train(torch, port, device):
             fail(f"train step: {key} {metrics[key]} with the kernels, "
                  f"{ref[key]} with the plain versions (rtol {rtol})")
     worst = {k: abs(metrics[k] - ref[k]) / abs(ref[k]) for k in ref}
+    running_err = running_gap(torch, model, plain, port.SubsampledBatchNorm)
     say("8 train step", f"{spec.model_name} {spec.visual_name} "
         f"{spec.textual_name} {spec.dtype}, micro-batch {TRAIN_BATCH} x "
         f"accum {ACCUM}, dropout 0: kernels {json.dumps(metrics)}; plain "
-        f"{json.dumps(ref)}; relative gaps "
+        f"(attention, BatchNorm forward and backward) {json.dumps(ref)}; "
+        f"relative gaps "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; "
-        f"launches {first_counts}")
+        f"running statistics within {running_err:.2e} (tol "
+        f"{RUNNING_TOL:.1e}); launches {first_counts}, BatchNorm forward "
+        f"{first_fwd[0]} statistics + {first_fwd[2]} apply, all vector")
 
     # Five steps with dropout 0.1 and no warmup; Lookahead syncs at step 5.
     spec01 = port.ModelSpec.flagship()
@@ -1355,6 +1623,7 @@ def check_train(torch, port, device):
         if counts != LAUNCHES_PER_STEP:
             fail(f"train step {i} launched {counts}, expected "
                  f"{LAUNCHES_PER_STEP}")
+        check_fwd_counts(fwd_counts(BN), f"train step {i}")
         counts5 = {k: counts5[k] + counts[k] for k in counts}
         if not np.isfinite(loss):
             fail(f"train step {i}: loss {loss}")
@@ -2426,8 +2695,7 @@ def run_clf(torch, port, name, args, first_step):
                 twin, twin_opt = copy.deepcopy((model, optimizer))
                 for m in twin.modules():
                     if isinstance(m, port.SubsampledBatchNorm):
-                        m.sums_fn = BN.bn_backward_sums_reference
-                        m.dx_fn = BN.bn_backward_dx_reference
+                        plain_bn(m, BN)
                 plain_step = make(twin, twin_opt)
             before = launch_counts(A, BN)
             t0 = time.perf_counter()
@@ -5152,7 +5420,7 @@ def main() -> None:
         "MultiHeadAttention (B 128, 16 heads) made no host sync under "
         "torch.cuda.set_sync_debug_mode('error')")
 
-    # 5. K4 against the plain version
+    # 5. K4 and the BatchNorm forward against the plain versions
     k4_err, dx_err, summary = check_k4(torch, BN, device)
     say("5 K4", f"stage 1 and dx (with m_total 2M too) match their plain "
         f"versions (sums tol "
@@ -5160,6 +5428,13 @@ def main() -> None:
         f"{DX_TOL['bfloat16']:.1e} bf16, of |ref| + 1) and repeat their "
         f"bits, each in the variant k4_vector_width names (sums/dx errors):"
         f" {summary}")
+    fwd_stats_err, fwd_apply_err, summary = check_bn_forward(torch, BN,
+                                                             device)
+    say("5 BN forward", f"bf16 B{TRAIN_BATCH} at the 12 ResNet-50 shapes, "
+        f"vector variants: statistics within {FWD_STATS_TOL:.0e} of |ref| + "
+        f"1 of the plain version (max abs {fwd_stats_err:.2e}; per shape: "
+        f"{summary}); the running statistics and the apply (train and eval "
+        f"mode) bit-equal to the torch ops; two launches, equal bits")
 
     # 6. eval step, flagship at full width
     spec = port.ModelSpec.flagship()
@@ -5242,6 +5517,13 @@ def main() -> None:
     bn_times = time_bn(torch, BN, device)
     bn_step = {key: per_step(bn_times, bn_shapes, key)
                for key in ("sums", "dx", "bwd")}
+    bn_fwd_times = time_bn_forward(torch, BN, device, FWD_TIMING_BATCH)
+    # One update of FWD_TIMING_BATCH in one micro-step: each BatchNorm
+    # once (the first step ran each ACCUM times).
+    update_shapes = {s: n // ACCUM for s, n in bn_shapes.items()}
+    fwd_calls = sum(update_shapes.values())
+    bn_fwd_step = {key: per_step(bn_fwd_times, update_shapes, key)
+                   for key in ("stats", "apply")}
     bn_calls = sum(bn_shapes.values())
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
@@ -5276,6 +5558,9 @@ def main() -> None:
         say("9 timings", bn_timing_line(
             card, {k: t[key] for k, t in bn_times.items()}, bn_step[key],
             bn_calls, title, library))
+    for line in bn_forward_lines(card, bn_fwd_times, update_shapes,
+                                 FWD_TIMING_BATCH):
+        say("9 timings", line)
     say("9 timings", f"{card} | dy copied to rows before K4 in {dy_copies} "
         f"of the first train step's {bn_calls} BatchNorm backwards")
     say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "
@@ -5447,6 +5732,24 @@ def main() -> None:
         "max_abs_err": max(dx_err, zoo_errs[3], proxy_errs[3]),
         **row([tuple(t / bn_calls for t in bn_step["dx"])
                + (next(iter(bn_times.values()))["dx"][4],)]),
+    }, {
+        "name": "bn_forward_stats",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/bn_forward.cu",
+        "replaces": "virtex_tpu/ops/batchnorm.py:216",
+        "launches": FWD_LAUNCHES["stats"],
+        "max_abs_err": fwd_stats_err,
+        **row([tuple(t / fwd_calls for t in bn_fwd_step["stats"])
+               + (next(iter(bn_fwd_times.values()))["stats"][4],)]),
+    }, {
+        "name": "bn_forward_apply",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/bn_forward.cu",
+        "replaces": "virtex_tpu/ops/batchnorm.py:222",
+        "launches": FWD_LAUNCHES["apply"],
+        "max_abs_err": fwd_apply_err,
+        **row([tuple(t / fwd_calls for t in bn_fwd_step["apply"])
+               + (next(iter(bn_fwd_times.values()))["apply"][4],)]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

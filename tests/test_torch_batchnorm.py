@@ -272,6 +272,185 @@ def test_cpu_tensor_takes_plain_dx_and_counts_no_launch():
         BN.bn_backward_dx(_nchw(dy), _nchw(x), mean, rstd, w[:4], sums)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_stats_reference_matches_jax_op(shape, dtype,
+                                                interpret_mode):
+    """The forward's plain statistics against the JAX ``bn_train``'s mean
+    and var, per element |a − b| / (|ref| + 1) (O(1) quantities): fp32
+    means of the same inputs in other orders, measured ~1e-7, bound 1e-5
+    in both dtypes (bf16 x is read exactly on both sides). E[x²] is held to
+    var + mean² and rstd to 1 / sqrt(var + ε) of the JAX side."""
+    import jax.numpy as jnp
+    from virtex_tpu.ops.batchnorm import bn_train as jax_bn_train
+    x, scale, bias, _ = _inputs(shape, 14)
+    jdt = getattr(jnp, dtype)
+    _, jmean, jvar = jax_bn_train(jnp.asarray(x, jdt), jnp.asarray(scale),
+                                  jnp.asarray(bias), EPS, jdt, True)
+    jmean, jvar = (np.asarray(a, np.float64) for a in (jmean, jvar))
+    stats = BN.bn_forward_stats_reference(_nchw(x, getattr(torch, dtype)),
+                                          EPS)
+    assert stats.shape == (4, shape[-1]) and stats.dtype == torch.float32
+    for name, a, r in zip(("mean", "mean2", "var", "rstd"), stats,
+                          (jmean, jvar + jmean ** 2, jvar,
+                           1.0 / np.sqrt(jvar + EPS))):
+        assert rel_err(a, r, 1.0) <= 1e-5, name
+    means = BN.bn_forward_stats_reference(_nchw(x, getattr(torch, dtype)))
+    assert torch.equal(means, stats[:2])
+
+
+def test_cpu_tensor_takes_plain_forward_and_counts_no_launch():
+    """On the CPU the statistics, the apply and a SubsampledBatchNorm in
+    both modes run the plain versions and count no forward launch."""
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    x, scale, bias, _ = _inputs((2, 3, 3, 8), 15)
+    xt = _nchw(x, torch.bfloat16)
+    w, b = torch.from_numpy(scale), torch.from_numpy(bias)
+    counters = ("fwd_stats_launch_count", "fwd_stats_vector_launch_count",
+                "fwd_apply_launch_count", "fwd_apply_vector_launch_count")
+    before = [getattr(BN, c) for c in counters]
+    stats = BN.bn_forward_stats(xt, EPS)
+    assert torch.equal(stats, BN.bn_forward_stats_reference(xt, EPS))
+    assert torch.equal(BN.bn_forward_stats(xt), stats[:2])
+    mean, _, _, rstd = stats
+    y = BN.bn_apply(xt, mean, rstd, w, b, torch.bfloat16)
+    assert torch.equal(y, BN.bn_apply_reference(xt, mean, rstd, w, b,
+                                                torch.bfloat16))
+    bn = SubsampledBatchNorm(8, dtype=torch.bfloat16)
+    bn(xt)
+    with torch.no_grad():
+        bn.eval()(xt)
+    assert [getattr(BN, c) for c in counters] == before
+    with pytest.raises(ValueError, match="bias"):
+        BN.bn_apply(xt, mean, rstd, w, b[:4], torch.bfloat16)
+
+
+def test_bn_apply_with_grad_needed_differentiates():
+    """The "batch" sampler (``stat_stride`` > 1) differentiates through
+    ``bn_apply`` with plain autograd: with gradients on and an operand
+    that needs one, bn_apply is the torch ops, on the graph; x's, γ's and
+    β's gradients equal those of ``bn_apply_reference`` bit for bit, and
+    the sampler's layer backpropagates into x and both parameters."""
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    x, scale, bias, w = _inputs((16, 3, 3, 8), 16)
+    grads = []
+    for fn in (BN.bn_apply, BN.bn_apply_reference):
+        xt = _nchw(x).requires_grad_()
+        st, bt = (torch.from_numpy(a).requires_grad_() for a in (scale, bias))
+        mean, rstd = xt.mean((0, 2, 3)), xt.var((0, 2, 3)).add(EPS).rsqrt()
+        y = fn(xt, mean, rstd, st, bt, torch.float32)
+        assert y.grad_fn is not None
+        (y * _nchw(w)).sum().backward()
+        grads.append([xt.grad, st.grad, bt.grad])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    bn = SubsampledBatchNorm(8, stat_stride=4).train()
+    xt = _nchw(x).requires_grad_()
+    (bn(xt) * _nchw(w)).sum().backward()
+    assert all(g is not None and torch.isfinite(g).all()
+               for g in (xt.grad, bn.weight.grad, bn.bias.grad))
+
+
+def _layouts():
+    """(N, C, *S) tensors in several memory layouts: channels_last and
+    NCHW, size-1 spatial dims, (N, C) and (N, C, L), a channel slice."""
+    base = torch.arange(2 * 6 * 3 * 4, dtype=torch.float32)
+    nhwc = base.view(2, 3, 4, 6).permute(0, 3, 1, 2)
+    return {"channels_last": nhwc, "nchw": nhwc.contiguous(),
+            "hw1": torch.zeros(2, 1, 1, 6).permute(0, 3, 1, 2),
+            "nc": torch.zeros(5, 6),
+            "ncl": torch.zeros(2, 7, 6).transpose(1, 2),
+            "ncl_contiguous": torch.zeros(2, 6, 7),
+            "channel_slice": nhwc[:, :3]}
+
+
+@pytest.mark.parametrize("layout", list(_layouts()))
+def test_kernels_read_rows_in_place_and_copy_other_layouts(layout):
+    """The kernels' operands (``_as_rows``): a tensor whose memory is
+    row-major (M, C) (``_is_rows``, a stride test with no tensor op: the
+    layouts ``movedim(1, -1)`` leaves contiguous) is read in place, any
+    other is copied to rows; either way the memory is x's (M, C) rows."""
+    t = _layouts()[layout]
+    rows = t.movedim(1, -1).is_contiguous()
+    assert BN._is_rows(t) == rows
+    (x2,), M, C = BN._as_rows("test", t)
+    assert (x2 is t) == rows
+    assert (M, C) == (t.numel() // t.shape[1], t.shape[1])
+    expect = t.movedim(1, -1).reshape(M, C)
+    got = torch.as_strided(x2, (M, C), (C, 1)) if rows else x2
+    assert torch.equal(got, expect)
+    y = BN._empty_rows(t, torch.bfloat16)
+    assert y.shape == t.shape and y.dtype == torch.bfloat16
+    assert BN._is_rows(y)
+
+
+def test_running_statistics_swap_and_update_by_name():
+    """A SubsampledBatchNorm in training calls ``stats_fn`` with its
+    running statistics and ``apply_fn`` once each (a plain copy swaps them
+    by name); in eval mode ``apply_fn`` alone. The plain statistics update
+    the running statistics as the torch formula does, bit for bit:
+    ``m·old + (1 − m)·μ`` and ``m·old + (1 − m)·σ²·n/(n − 1)``, the count
+    by one."""
+    import copy
+
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    bn = SubsampledBatchNorm(8, dtype=torch.bfloat16).train()
+    assert bn.stats_fn is BN.bn_forward_stats
+    assert bn.apply_fn is BN.bn_apply
+    twin = copy.deepcopy(bn)
+    calls = []
+
+    def stats_fn(x, eps=None, running=None):
+        calls.append(("stats", running.n))
+        return BN.bn_forward_stats_reference(x, eps, running)
+
+    def apply_fn(*args):
+        calls.append(("apply",))
+        return BN.bn_apply_reference(*args)
+
+    twin.stats_fn, twin.apply_fn = stats_fn, apply_fn
+    x, _, _, _ = _inputs((2, 5, 5, 8), 25)
+    xt = _nchw(x, torch.bfloat16)
+    with torch.no_grad():
+        for module in (bn, twin):
+            module.running_mean.uniform_(-1.0, 1.0, generator=torch.Generator(
+                ).manual_seed(1))
+            module.running_var.uniform_(0.5, 2.0, generator=torch.Generator(
+                ).manual_seed(2))
+    old_mean, old_var = bn.running_mean.clone(), bn.running_var.clone()
+    assert torch.equal(bn(xt), twin(xt))
+    assert calls == [("stats", 50), ("apply",)]
+    stats = BN.bn_forward_stats_reference(xt, EPS)
+    m = bn.momentum
+    want_mean = m * old_mean + (1.0 - m) * stats[0]
+    want_var = m * old_var + (1.0 - m) * stats[2] * (50 / 49)
+    for module in (bn, twin):
+        assert torch.equal(module.running_mean, want_mean)
+        assert torch.equal(module.running_var, want_var)
+        assert int(module.num_batches_tracked) == 1
+    with torch.no_grad():
+        assert torch.equal(bn.eval()(xt), twin.eval()(xt))
+    assert calls[2:] == [("apply",)]
+
+
+def test_build_table_names_both_forward_entry_points():
+    """ctypes passes every argument as the table says: the forward's two
+    entry points are there, with one argtype per C parameter
+    (``csrc/bn_forward.cu``) and an int return (the CUDA error)."""
+    import ctypes
+
+    from virtex_tpu_torch.ops import _build
+    P, I, LL, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    assert _build.SIGNATURES["virtex_bn_forward_stats"] == (
+        I, [P, P, P, P, P, P, P, LL, I, I, I, F, I, F, F, F, I, P])
+    assert _build.SIGNATURES["virtex_bn_forward_apply"] == (
+        I, [P, P, P, P, P, P, LL, I, I, I, I, I, P])
+    source = (_build.CSRC / "bn_forward.cu").read_text()
+    for name in ("virtex_bn_forward_stats", "virtex_bn_forward_apply"):
+        assert f"int {name}(" in source
+
+
 def test_subsampled_batchnorm_swaps_both_backward_stages_by_name():
     """chip_smoke.py's plain copy sets ``sums_fn`` and ``dx_fn`` on every
     SubsampledBatchNorm: the backward then calls each once, in order, and
@@ -513,3 +692,250 @@ def test_bn_train_backward_through_kernel_on_card(cuda, dtype):
     for name, a, r, atol in zip(("dx", "dscale", "dbias"), *grads,
                                 (1.0, 16.0, 16.0)):
         assert rel_err(a, r, atol) <= tol, name
+
+
+# -- the forward's kernels on the card ---------------------------------------
+# The statistics kernel and its plain version read x exactly and sum in fp32
+# in other orders: per element |a − b| / (|ref| + 1) on the O(1) means, var
+# and rstd, at most 1e-5. The apply kernel rounds as the torch ops do, so it
+# is held to them bit for bit.
+FWD_COUNTERS = ("fwd_stats_launch_count", "fwd_stats_vector_launch_count",
+                "fwd_apply_launch_count", "fwd_apply_vector_launch_count")
+
+
+def _fwd_counts():
+    return tuple(getattr(BN, c) for c in FWD_COUNTERS)
+
+
+def _card_x(shape, dtype, device, seed, aligned=True):
+    """x ~ 2·N(0, 1) + 0.5 as an NCHW view of NHWC memory (one element into
+    its buffer unless ``aligned``), and fp32 scale and bias."""
+    x, scale, bias, _ = _inputs(shape, seed)
+    xt = _nchw(x, dtype).to(device) if aligned else _offset_view(
+        x, dtype, device)
+    return xt, torch.from_numpy(scale).to(device), torch.from_numpy(
+        bias).to(device)
+
+
+def _fwd_stats(x, eps, vector, running=None):
+    """The statistics kernel, checked to launch once in the variant asked."""
+    before = _fwd_counts()
+    out = BN.bn_forward_stats(x, eps, running)
+    torch.cuda.synchronize()
+    after = _fwd_counts()
+    assert after[0] == before[0] + 1
+    assert after[1] == before[1] + int(vector)
+    return out
+
+
+def _fwd_apply(x, mean, rstd, weight, bias, dtype, vector):
+    """The apply kernel under no_grad, checked likewise."""
+    before = _fwd_counts()
+    with torch.no_grad():
+        y = BN.bn_apply(x, mean, rstd, weight, bias, dtype)
+    torch.cuda.synchronize()
+    after = _fwd_counts()
+    assert after[2:] == (before[2] + 1, before[3] + int(vector))
+    assert y.shape == x.shape and y.dtype == dtype
+    return y
+
+
+def _check_forward_kernels(x, weight, bias, dtype, vector):
+    """Both forward kernels against their plain versions, each launched
+    twice for equal bits; the apply bit-equal to the torch ops on the
+    kernel's own statistics, in ``dtype``."""
+    stats = _fwd_stats(x, EPS, vector)
+    assert torch.equal(stats, _fwd_stats(x, EPS, vector))
+    ref = BN.bn_forward_stats_reference(x, EPS)
+    assert stats.shape == ref.shape == (4, x.shape[1])
+    for name, a, r in zip(("mean", "mean2", "var", "rstd"), stats, ref):
+        assert rel_err(a, r, 1.0) <= 1e-5, name
+    means = _fwd_stats(x, None, vector)
+    assert torch.equal(means, stats[:2])
+    mean, _, _, rstd = stats
+    y = _fwd_apply(x, mean, rstd, weight, bias, dtype, vector)
+    assert torch.equal(y, _fwd_apply(x, mean, rstd, weight, bias, dtype,
+                                     vector))
+    assert torch.equal(y, BN.bn_apply_reference(x, mean, rstd, weight, bias,
+                                                dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("hw,C", R50_SHAPES)
+def test_forward_kernels_at_resnet50_shapes_on_card(cuda, hw, C, variant):
+    """bf16, batch 8; the scalar variants through a view one element into
+    its buffer."""
+    vector = variant == "vector"
+    x, w, b = _card_x((8, hw, hw, C), torch.bfloat16, cuda, 17,
+                      aligned=vector)
+    _check_forward_kernels(x, w, b, torch.bfloat16, vector)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("x_dtype,dtype", DTYPE_PAIRS)
+def test_forward_kernels_every_dtype_on_card(cuda, x_dtype, dtype, variant):
+    """All four (x, output) dtype pairs at an odd M (3·7·7 × 64); the
+    statistics in x's dtype."""
+    vector = variant == "vector"
+    x, w, b = _card_x((3, 7, 7, 64), x_dtype, cuda, 18, aligned=vector)
+    _check_forward_kernels(x, w, b, dtype, vector)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernels_for_c_not_a_multiple_of_8_on_card(cuda, dtype):
+    """C 60: bf16 takes the scalar variants, fp32 the 4-wide vector ones."""
+    x, w, b = _card_x((3, 7, 7, 60), dtype, cuda, 19)
+    _check_forward_kernels(x, w, b, dtype, dtype == torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_statistics_kernel_updates_running_statistics_on_card(cuda, dtype,
+                                                              variant):
+    """Finalising, the statistics kernel updates the running statistics in
+    the same launch, bit-equal to ``update_running_reference`` of its own
+    mean and var, and the count by one; running statistics it cannot write
+    (a strided view) get the same bits from the torch ops; without eps
+    they are left alone. The statistics are the bits of a launch without
+    running statistics."""
+    vector = variant == "vector"
+    x, _, _ = _card_x((8, 14, 14, 256), dtype, cuda, 26, aligned=vector)
+    M = 8 * 14 * 14
+    rng = np.random.RandomState(27)
+    mean0 = torch.from_numpy((0.3 * rng.randn(256)).astype(np.float32))
+    var0 = torch.from_numpy(rng.uniform(0.5, 2.0, 256).astype(np.float32))
+
+    def running(strided=False):
+        mean, var = mean0.to(cuda), var0.to(cuda)
+        if strided:
+            mean = torch.stack([mean, mean], 1)[:, 0]
+            assert not mean.is_contiguous()
+        return BN.Running(mean, var, torch.zeros((), dtype=torch.int64,
+                                                 device=cuda), 0.9, M)
+
+    stats = _fwd_stats(x, EPS, vector)
+    want = running()
+    BN.update_running_reference(want, stats[0], stats[2])
+    for strided in (False, True):
+        got = running(strided)
+        assert torch.equal(_fwd_stats(x, EPS, vector, got), stats)
+        assert torch.equal(got.mean, want.mean)
+        assert torch.equal(got.var, want.var)
+        assert int(got.count) == 1
+    untouched = running()
+    _fwd_stats(x, None, vector, untouched)
+    assert torch.equal(untouched.mean.cpu(), mean0)
+    assert torch.equal(untouched.var.cpu(), var0)
+    assert int(untouched.count) == 0
+
+
+@pytest.mark.cuda
+def test_forward_kernels_read_an_nchw_contiguous_x_on_card(cuda):
+    """An NCHW-contiguous x is copied to rows: the same bits as its
+    channels_last twin."""
+    x, w, b = _card_x((4, 8, 8, 64), torch.bfloat16, cuda, 20)
+    nchw = x.contiguous()
+    assert not nchw.is_contiguous(memory_format=torch.channels_last)
+    stats = _fwd_stats(nchw, EPS, True)
+    assert torch.equal(stats, _fwd_stats(x, EPS, True))
+    mean, _, _, rstd = stats
+    assert torch.equal(
+        _fwd_apply(nchw, mean, rstd, w, b, torch.bfloat16, True),
+        _fwd_apply(x, mean, rstd, w, b, torch.bfloat16, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_mode_apply_is_bit_equal_on_card(cuda, dtype):
+    """An eval-mode SubsampledBatchNorm under no_grad: one apply launch and
+    no statistics, the bits of the torch ops on its running statistics;
+    with gradients on and x needing one, the torch ops and no launch."""
+    from virtex_tpu_torch.modules.normalization import SubsampledBatchNorm
+    x, w, b = _card_x((4, 14, 14, 256), dtype, cuda, 21)
+    rng = np.random.RandomState(22)
+    bn = SubsampledBatchNorm(256, dtype=dtype).to(cuda).eval()
+    with torch.no_grad():
+        bn.weight.copy_(w)
+        bn.bias.copy_(b)
+        bn.running_mean.copy_(torch.from_numpy(
+            (0.5 + 0.3 * rng.randn(256)).astype(np.float32)))
+        bn.running_var.copy_(torch.from_numpy(
+            rng.uniform(0.5, 4.0, 256).astype(np.float32)))
+    before = _fwd_counts()
+    with torch.no_grad():
+        y = bn(x)
+    torch.cuda.synchronize()
+    assert _fwd_counts() == (before[0], before[1], before[2] + 1,
+                             before[3] + 1)
+    rstd = 1.0 / torch.sqrt(bn.running_var + bn.eps)
+    ref = BN.bn_apply_reference(x, bn.running_mean, rstd, bn.weight,
+                                bn.bias, dtype)
+    assert torch.equal(y, ref)
+    before = _fwd_counts()
+    y_grad = bn(x.detach().requires_grad_())
+    assert y_grad.grad_fn is not None and _fwd_counts() == before
+    assert torch.equal(y_grad.detach(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_forward_and_backward_through_kernels_on_card(cuda, dtype):
+    """``bn_train`` with every kernel (two forward launches and two of K4)
+    against the plain versions of all four: y within one rounding of
+    ``dtype`` (the statistics differ in their last bits), the statistics
+    within 1e-5, dx, dγ, dβ as the K4 test above holds them."""
+    x, scale, bias, w = _inputs((4, 8, 8, 128), 23)
+    xt = _nchw(x, dtype).to(cuda).requires_grad_()
+    st, bt = (torch.from_numpy(a).to(cuda).requires_grad_()
+              for a in (scale, bias))
+    before = (_fwd_counts(), BN.launch_count, BN.dx_launch_count)
+    y, mean, var = BN.bn_train(xt, st, bt, EPS, dtype)
+    (y.float() * _nchw(w).to(cuda)).sum().backward()
+    counts = _fwd_counts()
+    assert counts[0] == before[0][0] + 1 and counts[2] == before[0][2] + 1
+    assert (BN.launch_count, BN.dx_launch_count) == (before[1] + 1,
+                                                     before[2] + 1)
+    xr = xt.detach()
+    stats = BN.bn_forward_stats_reference(xr, EPS)
+    y_ref = BN.bn_apply_reference(xr, stats[0], stats[3], st.detach(),
+                                  bt.detach(), dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert rel_err(y.float(), y_ref.float(), 1.0) <= tol
+    assert rel_err(mean, stats[0], 1.0) <= 1e-5
+    assert rel_err(var, stats[2], 1.0) <= 1e-5
+    dy = _nchw(w).to(cuda).to(dtype)
+    sums = BN.bn_backward_sums_reference(dy, xr, stats[0], stats[3])
+    dx = BN.bn_backward_dx_reference(dy, xr, stats[0], stats[3],
+                                     st.detach(), sums)
+    for name, a, r, atol in zip(("dx", "dscale", "dbias"),
+                                (xt.grad.float(), st.grad, bt.grad),
+                                (dx.float(), sums[1], sums[0]),
+                                (1.0, 16.0, 16.0)):
+        assert rel_err(a, r, atol) <= tol, name
+
+
+@pytest.mark.cuda
+def test_forward_counters_after_one_resnet50_forward_on_card(cuda):
+    """ResNet-50 (bf16, B 2 at 64²): 53 statistics and 53 apply launches in
+    train mode, all in the vector variants; 53 apply and no statistics in
+    eval mode under no_grad; none of either at stat stride 4, whose
+    sampler differentiates through the torch ops."""
+    from virtex_tpu_torch.modules.resnet import make_resnet
+    image = torch.from_numpy(np.random.RandomState(24).rand(
+        2, 64, 64, 3).astype(np.float32)).to(cuda)
+    model = make_resnet("resnet50").to(cuda)
+    sampler = make_resnet("resnet50", bn_stat_stride=4).to(cuda)
+    cases = ((model, True, torch.enable_grad, (53, 53, 53, 53)),
+             (model, False, torch.no_grad, (0, 0, 53, 53)),
+             (sampler, True, torch.enable_grad, (0, 0, 0, 0)))
+    for net, training, mode, want in cases:
+        net.train(training)
+        BN.reset_launch_count()
+        with mode():
+            net(image)
+        torch.cuda.synchronize()
+        assert _fwd_counts() == want

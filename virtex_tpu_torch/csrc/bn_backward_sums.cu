@@ -52,138 +52,17 @@
 
 #include <type_traits>
 
+#include "bn_common.cuh"
+
 namespace {
 
-constexpr int kCols = 32;      // scalar stage 1: channels per block, one per lane
-constexpr int kRows = 8;       // scalar stage 1: warps per block, each on every 8th row
-constexpr int kThreads = 256;  // vector variants and scalar stage 2: threads per block
-constexpr int kTileCols = 8;   // vector columns per block tile (ops/batchnorm.py _TILE_COLS)
+using namespace virtex_bn;
+
 constexpr int kUnroll = 4;     // rows of loads a thread keeps in flight
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(v);
-}
-
-// bf16 is the upper half of an fp32: widening is a shift.
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-// Two floats rounded to nearest even, as torch's .to(torch.bfloat16);
-// lo at the lower address.
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// VEC elements of T moved as one load or store.
-template <typename T, int VEC>
-struct Vec;
-
-template <>
-struct Vec<float, 4> {
-  using Raw = float4;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[4]) {
-    f[0] = r.x;
-    f[1] = r.y;
-    f[2] = r.z;
-    f[3] = r.w;
-  }
-  static __device__ __forceinline__ Raw pack(const float (&f)[4]) {
-    return make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 4> {
-  using Raw = uint2;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[4]) {
-    f[0] = bf16_lo(r.x);
-    f[1] = bf16_hi(r.x);
-    f[2] = bf16_lo(r.y);
-    f[3] = bf16_hi(r.y);
-  }
-  static __device__ __forceinline__ Raw pack(const float (&f)[4]) {
-    return make_uint2(bf16x2(f[0], f[1]), bf16x2(f[2], f[3]));
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16, 8> {
-  using Raw = uint4;
-  static __device__ __forceinline__ void unpack(const Raw& r, float (&f)[8]) {
-    f[0] = bf16_lo(r.x);
-    f[1] = bf16_hi(r.x);
-    f[2] = bf16_lo(r.y);
-    f[3] = bf16_hi(r.y);
-    f[4] = bf16_lo(r.z);
-    f[5] = bf16_hi(r.z);
-    f[6] = bf16_lo(r.w);
-    f[7] = bf16_hi(r.w);
-  }
-  static __device__ __forceinline__ Raw pack(const float (&f)[8]) {
-    return make_uint4(bf16x2(f[0], f[1]), bf16x2(f[2], f[3]),
-                      bf16x2(f[4], f[5]), bf16x2(f[6], f[7]));
-  }
-};
-
-template <typename V, typename T>
-__device__ __forceinline__ typename V::Raw load_vec(const T* p) {
-  return *reinterpret_cast<const typename V::Raw*>(p);
-}
-
-// 8 channels per vector where both operands are bf16, else 4 (16 bytes of
-// fp32); ops/batchnorm.py k4_vector_width.
-template <typename TDY, typename TX>
-constexpr int vec_width() {
-  return std::is_same<TDY, __nv_bfloat16>::value &&
-                 std::is_same<TX, __nv_bfloat16>::value
-             ? 8
-             : 4;
-}
-
-// A vector variant's block: a tile of tc vector columns by rpb row lanes.
-struct Tile {
-  int tc;       // vector columns in a tile
-  int rpb;      // row lanes: rows the block reads at once
-  int nch;      // channels of a full tile, tc * VEC
-  int col;      // this thread's vector column in the tile
-  int lane;     // this thread's row lane
-  int c0;       // this thread's first channel
-  int tile_c0;  // the tile's first channel
-  int tile_n;   // the tile's channels (fewer in a ragged last tile)
-  bool active;  // whether this thread reads any channel
-};
-
-template <int VEC>
-__device__ __forceinline__ Tile tile_of(int C) {
-  Tile t;
-  const int cv = C / VEC;
-  t.tc = cv < kTileCols ? cv : kTileCols;
-  t.rpb = kThreads / t.tc;
-  t.nch = t.tc * VEC;
-  t.col = threadIdx.x % t.tc;
-  t.lane = threadIdx.x / t.tc;
-  const int vcol = blockIdx.x * t.tc + t.col;
-  t.c0 = vcol * VEC;
-  t.tile_c0 = blockIdx.x * t.nch;
-  t.tile_n = C - t.tile_c0 < t.nch ? C - t.tile_c0 : t.nch;
-  t.active = t.lane < t.rpb && vcol < cv;
-  return t;
-}
-
-// The rows [r0, r1) of the block's chunk.
-__device__ __forceinline__ void chunk_rows(long long M, long long rows_per_chunk,
-                                           long long* r0, long long* r1) {
-  *r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
-  *r1 = *r0 + rows_per_chunk < M ? *r0 + rows_per_chunk : M;
 }
 
 // ---------------------------------------------------------------------------
@@ -481,10 +360,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Host side.
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // Whether the vector variants take these operands (else the launch is
 // refused): the wrapper's variant rule, k4_vector_width.
 template <typename TDY, typename TX>
@@ -492,12 +367,6 @@ bool vector_ok(int vec, int C, const void* dy, const void* x,
                const void* extra) {
   return vec == vec_width<TDY, TX>() && C % vec == 0 && aligned16(dy) &&
          aligned16(x) && aligned16(extra);
-}
-
-int tile_columns(int C, int vec) {
-  const int cv = C / vec;
-  const int tc = cv < kTileCols ? cv : kTileCols;
-  return (cv + tc - 1) / tc;
 }
 
 template <typename TDY, typename TX>

@@ -66,7 +66,10 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
     model_group = None if mesh is None else mesh.model_group
     world = 1 if mesh is None else mesh.data
 
-    where = next(model.parameters())  # the stream the spans time
+    # Taken once: walking the module tree for them costs host time every
+    # update, and the optimizer holds these same tensors.
+    params = list(model.parameters())
+    where = params[0]  # the stream the spans time
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         with span("train_step", where):
@@ -74,7 +77,8 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
 
     def _step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.train()
-        model.zero_grad(set_to_none=True)
+        for p in params:
+            p.grad = None
         losses, comps = [], {}
         with kernel_group(group, model_group):
             for i in range(accum_steps):
@@ -86,7 +90,7 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
                 losses.append(out["loss"].detach().float())
                 for k, v in out["loss_components"].items():
                     comps.setdefault(k, []).append(v.detach().float())
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        grads = [p.grad for p in params if p.grad is not None]
         if group is not None:  # summed over the ranks in one flat buffer
             with span("grad_all_reduce", where):
                 flat = all_reduce_sum(_flatten_dense_tensors(grads), "grads",

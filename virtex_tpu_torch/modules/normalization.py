@@ -13,9 +13,16 @@ Counterpart of ``virtex_tpu/modules/normalization.py``
   with the fp32 factor cast to ``dtype``, then ``+ β``;
 - in training at ``stat_stride`` 1 (exact BatchNorm) the forward and
   backward are :func:`virtex_tpu_torch.ops.batchnorm.bn_train`, whose
-  backward takes its channel sums from ``sums_fn`` and dx from ``dx_fn``
-  (kernel K4's two stages on CUDA; a comparison against the plain versions
-  swaps them by name);
+  forward takes its statistics from ``stats_fn`` (the statistics kernel on
+  CUDA, which updates the running statistics in the same launch) and y
+  from ``apply_fn`` (the apply kernel), and whose backward takes its
+  channel sums from ``sums_fn`` and dx from ``dx_fn`` (kernel K4's two
+  stages on CUDA); a comparison against the plain versions swaps the four
+  by name;
+- in eval mode the output is ``apply_fn``
+  (:func:`~virtex_tpu_torch.ops.batchnorm.bn_apply`) of the running
+  statistics: the apply kernel on CUDA when no gradient is taken through it
+  (``no_grad``, a frozen CNN), the torch ops otherwise;
 - at ``stat_stride`` > 1 the statistics come from the "batch" sample: the
   first ``B // div`` images, ``div = max(1, min(stat_stride, B // 8))``, so
   a batch under 16 stays exact. The whole batch is normalised with them,
@@ -48,10 +55,13 @@ from virtex_tpu_torch.ops._mesh import (
     world_of,
 )
 from virtex_tpu_torch.ops.batchnorm import (
+    Running,
     bn_apply,
     bn_backward_dx,
     bn_backward_sums,
+    bn_forward_stats,
     bn_train,
+    update_running_reference,
 )
 from virtex_tpu_torch.utils.tracing import span
 
@@ -70,16 +80,13 @@ class SubsampledBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
-        self.sums_fn = bn_backward_sums
-        self.dx_fn = bn_backward_dx
+        self.stats_fn, self.apply_fn = bn_forward_stats, bn_apply
+        self.sums_fn, self.dx_fn = bn_backward_sums, bn_backward_dx
 
-    def _update_running(self, mean, var, n: int) -> None:
-        m = self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var
-                                   + (1.0 - m) * var * (n / max(n - 1, 1)))
-            self.num_batches_tracked.add_(1)
+    def _running(self, n: int) -> Running:
+        """The running statistics, updated from ``n`` elements a channel."""
+        return Running(self.running_mean, self.running_var,
+                       self.num_batches_tracked, self.momentum, n)
 
     def _sampled(self, x: torch.Tensor) -> torch.Tensor:
         """Train-mode forward on the "batch" sample's statistics."""
@@ -104,10 +111,10 @@ class SubsampledBatchNorm(nn.Module):
             stats = all_reduce_sum_with_grad(stats, group, "bn_stats")
         mean, mean2 = stats
         var = torch.clamp(mean2 - mean.square(), min=0.0)
-        self._update_running(mean.detach(), var.detach(),
-                             prefix * (x[0].numel() // C))
-        return bn_apply(x, mean, 1.0 / torch.sqrt(var + self.eps),
-                        self.weight, self.bias, self.dtype)
+        update_running_reference(self._running(prefix * (x[0].numel() // C)),
+                                 mean.detach(), var.detach())
+        return self.apply_fn(x, mean, 1.0 / torch.sqrt(var + self.eps),
+                             self.weight, self.bias, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("bn_fwd", x):
@@ -115,11 +122,11 @@ class SubsampledBatchNorm(nn.Module):
             if self.training and self.stat_stride > 1:
                 return self._sampled(x)
             if self.training:
-                y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                        self.dtype, self.sums_fn, self.dx_fn)
                 n = x.numel() // C * world_of(active_group())
-                self._update_running(mean, var, n)
-                return y
+                return bn_train(x, self.weight, self.bias, self.eps,
+                                self.dtype, self.sums_fn, self.dx_fn,
+                                self._running(n), self.stats_fn,
+                                self.apply_fn)[0]
             rstd = 1.0 / torch.sqrt(self.running_var + self.eps)
-            return bn_apply(x, self.running_mean, rstd, self.weight,
-                            self.bias, self.dtype)
+            return self.apply_fn(x, self.running_mean, rstd, self.weight,
+                                 self.bias, self.dtype)

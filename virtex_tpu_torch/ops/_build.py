@@ -69,6 +69,19 @@ SIGNATURES = {
              _LL, _I, _LL, _I, _I,          # M, C, m_total, chunks, vec
              _I, _I,                        # dy_is_bf16, x_is_bf16
              _P]),                          # stream
+    "virtex_bn_forward_stats": (
+        _I, [_P, _P, _P, _P,                # x, partial (chunks, 2, C),
+                                            # tickets, out
+             _P, _P, _P,                    # running mean, var, count
+             _LL, _I, _I, _I,               # M, C, chunks, vec
+             _F, _I,                        # eps, finalise
+             _F, _F, _F,                    # momentum, 1 − momentum, bessel
+             _I, _P]),                      # x_is_bf16, stream
+    "virtex_bn_forward_apply": (
+        _I, [_P, _P, _P, _P, _P, _P,        # x, mean, rstd, weight, bias, y
+             _LL, _I, _I, _I,               # M, C, chunks, vec
+             _I, _I,                        # x_is_bf16, y_is_bf16
+             _P]),                          # stream
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,17 +1,17 @@
 r"""
-Train-mode BatchNorm with a hand-written backward: kernel K4 (two stages)
-and its plain versions.
+BatchNorm with hand-written kernels: the forward's statistics and apply,
+the train-mode backward (kernel K4, two stages), and their plain versions.
 
 Counterpart of ``virtex_tpu/ops/batchnorm.py``. :func:`bn_train` is a
 :class:`torch.autograd.Function` whose forward is the math of
 ``SubsampledBatchNorm`` at ``stat_stride = 1`` (statistics in fp32, the
-output computed in ``dtype``) and whose backward is the analytic BN
-gradient ``dx = γ·rstd·(dy − dβ/M − x̂·dγ/M)`` in two launches: the channel
-sums (dβ, dγ) = (Σ dy, Σ dy·x̂) from :func:`bn_backward_sums` (stage 1),
-then dx from :func:`bn_backward_dx` (stage 2), which on the TPU is the jnp
-stage that XLA fuses into one pass. The mean and variance it returns feed
-the running statistics, which are updated under ``no_grad``, so their
-cotangents are zero.
+output computed in ``dtype``; two launches, below) and whose backward is
+the analytic BN gradient ``dx = γ·rstd·(dy − dβ/M − x̂·dγ/M)`` in two
+launches: the channel sums (dβ, dγ) = (Σ dy, Σ dy·x̂) from
+:func:`bn_backward_sums` (stage 1), then dx from :func:`bn_backward_dx`
+(stage 2), which on the TPU is the jnp stage that XLA fuses into one pass.
+The mean and variance it returns feed the running statistics, which are
+updated under ``no_grad``, so their cotangents are zero.
 
 Under data parallelism (a group published by the train step,
 ``ops/_mesh.py``) the statistics and the sums are those of the global
@@ -36,19 +36,34 @@ a vector variant (16-byte loads) and a scalar one, chosen by
 :data:`dy_copy_count`, the stage-1 launches whose dy had to be copied to
 rows first.
 
+The forward is two kernels of its own (``csrc/bn_forward.cu``), with no
+TPU kernel behind them: the JAX package leaves the forward to XLA's fusion.
+:func:`bn_forward_stats` reads x once for the fp32 means of x and x² (and,
+outside data parallelism, finalises var and rstd and updates the running
+statistics, :class:`Running`, in the same launch);
+:func:`bn_apply` writes y in one pass whenever no gradient is taken through
+it (inside :class:`_BNTrain`'s forward, and an eval-mode BatchNorm under
+``no_grad`` or frozen), bit-equal to its torch ops. Both take K4's variant
+rule and grid; on a CPU tensor both run their plain versions
+(:func:`bn_forward_stats_reference`, :func:`bn_apply_reference`).
+Counters: :data:`fwd_stats_launch_count`, :data:`fwd_apply_launch_count`
+and their vector variants'.
+
 Layout: channels on dim 1, as torch's ``BatchNorm2d`` has them; the
-ResNet's activations are ``channels_last`` (NHWC memory), which K4 reads as
-row-major (M, C). A tensor in another memory format is copied to that
-layout first, explicitly, never read in the wrong one. dx comes back as an
-NCHW view of NHWC memory.
+ResNet's activations are ``channels_last`` (NHWC memory), which the kernels
+read as row-major (M, C). A tensor in another memory format is copied to
+that layout first, explicitly, never read in the wrong one. dx and y come
+back as NCHW views of NHWC memory.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from virtex_tpu_torch.ops import _build
 from virtex_tpu_torch.ops._mesh import active_group, world_of
 from virtex_tpu_torch.utils.distributed import all_reduce_sum
 
@@ -72,6 +87,10 @@ vector_launch_count = 0     # of those, the vector variant's
 dx_launch_count = 0         # stage-2 (dx) launches
 dx_vector_launch_count = 0  # of those, the vector variant's
 dy_copy_count = 0           # stage-1 launches whose dy was copied to rows
+fwd_stats_launch_count = 0          # forward statistics launches
+fwd_stats_vector_launch_count = 0   # of those, the vector variant's
+fwd_apply_launch_count = 0          # forward apply launches
+fwd_apply_vector_launch_count = 0   # of those, the vector variant's
 
 SumsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                   torch.Tensor]
@@ -82,8 +101,12 @@ DxFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 def reset_launch_count() -> None:
     global launch_count, vector_launch_count, dx_launch_count
     global dx_vector_launch_count, dy_copy_count
+    global fwd_stats_launch_count, fwd_stats_vector_launch_count
+    global fwd_apply_launch_count, fwd_apply_vector_launch_count
     launch_count = vector_launch_count = dy_copy_count = 0
     dx_launch_count = dx_vector_launch_count = 0
+    fwd_stats_launch_count = fwd_stats_vector_launch_count = 0
+    fwd_apply_launch_count = fwd_apply_vector_launch_count = 0
 
 
 def _stat_shape(x: torch.Tensor) -> Tuple[int, ...]:
@@ -149,6 +172,7 @@ class K4Plan(NamedTuple):
     rows_per_chunk: int
 
 
+@functools.lru_cache(maxsize=4096)
 def k4_plan(M: int, C: int, vec: int) -> K4Plan:
     """K4's grid over row-major (M, C) operands, for both stages: column
     tiles by row chunks. The vector variants take one wave of
@@ -172,8 +196,21 @@ def k4_plan(M: int, C: int, vec: int) -> K4Plan:
 
 
 def _is_rows(t: torch.Tensor) -> bool:
-    """Whether ``t`` (N, C, *S) is already row-major (M, C) memory."""
-    return t.movedim(1, -1).is_contiguous()
+    """Whether ``t`` (N, C, *S) already lies as row-major (M, C) memory:
+    channels minor, then the spatial dims, then N, with no gaps (size-1
+    dims aside). Read from the strides, with no tensor op (for 4-d and 2-d
+    tensors torch's own contiguity flags say it): the wrappers run several
+    times a BatchNorm, so their host work per call counts."""
+    if t.dim() == 4:
+        return t.is_contiguous(memory_format=torch.channels_last)
+    if t.dim() == 2:
+        return t.is_contiguous()
+    expected = 1
+    for d in (1, *range(t.dim() - 1, 1, -1), 0):
+        if t.shape[d] != 1 and t.stride(d) != expected:
+            return False
+        expected *= t.shape[d]
+    return True
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -183,62 +220,121 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous fp32 for a kernel to read; itself, with no op,
+    where it already is."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
     return t.detach().to(torch.float32).contiguous()
 
 
-# Stage 1's ticket counters, one per column tile, zeroed once per device;
-# the kernel leaves them zeroed.
+# The reductions' ticket counters, one per column tile, zeroed once per
+# device; the kernels leave them zeroed.
 _tickets: Dict[torch.device, torch.Tensor] = {}
+# The reductions' fp32 partial sums, (chunks, 2, C), one buffer per device
+# that each launch overwrites before it reads it back.
+_partials: Dict[torch.device, torch.Tensor] = {}
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    buf = _tickets.get(device)
+def _buffer(store: Dict[torch.device, torch.Tensor], device: torch.device,
+            n: int, make) -> torch.Tensor:
+    buf = store.get(device)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _tickets[device] = buf
+        buf = make(max(n, 64), device=device)
+        store[device] = buf
     return buf
 
 
-def _operands(dy: torch.Tensor, x: torch.Tensor):
-    """dy and x as row-major (M, C), and the plan of both stages."""
-    for name, t in (("dy", dy), ("x", x)):
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    return _buffer(_tickets, device, n,
+                   lambda k, device: torch.zeros(k, dtype=torch.int32,
+                                                 device=device))
+
+
+def _partial_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """Room for ``n`` fp32 partial sums. Like the tickets, it is shared by
+    every launch on the device, so they must run in order (one stream)."""
+    return _buffer(_partials, device, n,
+                   lambda k, device: torch.empty(k, dtype=torch.float32,
+                                                 device=device))
+
+
+def _on_device(launch):
+    """``launch(t, ...)`` with t's device current: the kernels launch on the
+    current device, and switching it costs host time, so only where it is
+    another."""
+    @functools.wraps(launch)
+    def on_device(t, *args):
+        if t.device.index == torch.cuda.current_device():
+            return launch(t, *args)
+        with torch.cuda.device(t.device):
+            return launch(t, *args)
+    return on_device
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream of t's device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _empty_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised tensor of x's (N, C, *S) shape whose memory is
+    row-major (M, C) (an NCHW view of NHWC memory), in one op."""
+    strides, step = [0] * x.dim(), x.shape[1]
+    strides[1] = 1
+    for d in range(x.dim() - 1, 1, -1):
+        strides[d] = step
+        step *= x.shape[d]
+    strides[0] = step
+    return torch.empty_strided(x.shape, strides, dtype=dtype,
+                               device=x.device)
+
+
+def _as_rows(name: str, *tensors: torch.Tensor):
+    """Each (N, C, *S) operand as row-major (M, C) memory for a kernel to
+    read: itself where it already lies so (a channels_last activation),
+    else a copy (``_rows``); and M, C."""
+    for t in tensors:
         if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"K4 takes float32 or bfloat16 {name}, got "
-                            f"{t.dtype}")
-    dy2, x2 = _rows(dy), _rows(x)
-    M, C = x2.shape
-    if M == 0 or C == 0:
-        raise ValueError(f"K4 needs a non-empty input, got {tuple(x.shape)}")
+            raise TypeError(f"{name} takes float32 or bfloat16 operands, "
+                            f"got {t.dtype}")
+    x = tensors[-1]
+    if x.numel() == 0:
+        raise ValueError(f"{name} needs a non-empty input, got "
+                         f"{tuple(x.shape)}")
+    C = x.shape[1]
     if C >= 2**31:
-        raise ValueError(f"K4: C = {C} channels is too many")
+        raise ValueError(f"{name}: C = {C} channels is too many")
+    return ([t if _is_rows(t) else _rows(t) for t in tensors],
+            x.numel() // C, C)
+
+
+def _operands(dy: torch.Tensor, x: torch.Tensor):
+    """dy and x as row-major memory, and the plan of both stages."""
+    (dy2, x2), M, C = _as_rows("K4", dy, x)
     wide = torch.float32 if torch.float32 in (dy2.dtype, x2.dtype) \
         else torch.bfloat16
     aligned = dy2.data_ptr() % 16 == 0 and x2.data_ptr() % 16 == 0
     return dy2, x2, k4_plan(M, C, k4_vector_width(wide, C, aligned))
 
 
+@_on_device
 def _launch(dy, x, mean, rstd) -> torch.Tensor:
     global launch_count, vector_launch_count, dy_copy_count
-    from virtex_tpu_torch.ops import _build
-
     dy_copied = not _is_rows(dy)
     dy2, x2, plan = _operands(dy, x)
-    M, C = x2.shape
+    C = x.shape[1]
+    M = x.numel() // C
     mean, rstd = _f32(mean), _f32(rstd)
-    partial = torch.empty((plan.chunks, 2, C), dtype=torch.float32,
-                          device=x.device)
+    partial = _partial_buffer(x.device, plan.chunks * 2 * C)
     tickets = _ticket_buffer(x.device, plan.col_tiles) if plan.vec > 1 \
         else None
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.virtex_bn_backward_sums(
-            dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            partial.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), out.data_ptr(),
-            M, C, plan.chunks, plan.vec, int(dy2.dtype == torch.bfloat16),
-            int(x2.dtype == torch.bfloat16), stream)
+    err = _build.library().virtex_bn_backward_sums(
+        dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        partial.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        out.data_ptr(), M, C, plan.chunks, plan.vec,
+        int(dy2.dtype == torch.bfloat16), int(x2.dtype == torch.bfloat16),
+        _stream(x))
     _build.check(err, "K4 bn_backward_sums launch")
     launch_count += 1
     vector_launch_count += int(plan.vec > 1)
@@ -246,27 +342,24 @@ def _launch(dy, x, mean, rstd) -> torch.Tensor:
     return out
 
 
+@_on_device
 def _launch_dx(dy, x, mean, rstd, weight, sums, m_total) -> torch.Tensor:
     global dx_launch_count, dx_vector_launch_count
-    from virtex_tpu_torch.ops import _build
-
     dy2, x2, plan = _operands(dy, x)
-    M, C = x2.shape
+    C = x.shape[1]
+    M = x.numel() // C
     mean, rstd, weight, sums = (_f32(t) for t in (mean, rstd, weight, sums))
-    dx = torch.empty((M, C), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.virtex_bn_backward_dx(
-            dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            weight.data_ptr(), sums.data_ptr(), dx.data_ptr(), M, C,
-            _count(x, m_total), plan.chunks, plan.vec,
-            int(dy2.dtype == torch.bfloat16),
-            int(x2.dtype == torch.bfloat16), stream)
+    dx = _empty_rows(x, x.dtype)
+    err = _build.library().virtex_bn_backward_dx(
+        dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        weight.data_ptr(), sums.data_ptr(), dx.data_ptr(), M, C,
+        _count(x, m_total), plan.chunks, plan.vec,
+        int(dy2.dtype == torch.bfloat16), int(x2.dtype == torch.bfloat16),
+        _stream(x))
     _build.check(err, "K4 bn_backward_dx launch")
     dx_launch_count += 1
     dx_vector_launch_count += int(plan.vec > 1)
-    return dx.view(x.shape[0], *x.shape[2:], C).movedim(-1, 1)
+    return dx
 
 
 def _check_operands(name: str, dy: torch.Tensor, x: torch.Tensor,
@@ -312,11 +405,63 @@ def bn_backward_dx(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     return _launch_dx(dy, x, mean, rstd, weight, sums, m_total)
 
 
-def bn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
-             weight: torch.Tensor, bias: torch.Tensor,
-             dtype: torch.dtype) -> torch.Tensor:
+def _finalise(mean: torch.Tensor, mean2: torch.Tensor, eps: float):
+    """var = max(E[x²] − E[x]², 0) and rstd = 1 / sqrt(var + eps) from the
+    fp32 means; the forward kernel's finalisation makes the same roundings."""
+    var = torch.clamp(mean2 - mean.square(), min=0.0)
+    return var, 1.0 / torch.sqrt(var + eps)
+
+
+class Running(NamedTuple):
+    """A BatchNorm's running statistics, which a train-mode forward updates
+    in place (flax's momentum convention; ``n`` the statistics' elements per
+    channel, the global count under data parallelism):
+    ``mean ← m·mean + (1 − m)·μ``, ``var ← m·var + (1 − m)·σ²·n/(n − 1)``
+    with σ² the biased variance, and ``count += 1``."""
+    mean: torch.Tensor   # (C,) fp32
+    var: torch.Tensor    # (C,) fp32
+    count: torch.Tensor  # int64 scalar (num_batches_tracked)
+    momentum: float
+    n: int
+
+
+def update_running_reference(running: Running, mean: torch.Tensor,
+                             var: torch.Tensor) -> None:
+    """The running statistics' update in torch ops, each rounding to fp32;
+    the statistics kernel's update makes the same roundings."""
+    m, n = running.momentum, running.n
+    with torch.no_grad():
+        running.mean.copy_(m * running.mean + (1.0 - m) * mean)
+        running.var.copy_(m * running.var
+                          + (1.0 - m) * var * (n / max(n - 1, 1)))
+        running.count.add_(1)
+
+
+def bn_forward_stats_reference(x: torch.Tensor, eps: Optional[float] = None,
+                               running: Optional[Running] = None
+                               ) -> torch.Tensor:
+    """Plain version of the forward's statistics: (2, C) fp32
+    ``[E[x] ; E[x²]]`` over every dim but 1, and given ``eps`` two more
+    rows, var and rstd (:func:`_finalise`), (4, C) in all; given ``eps``
+    and ``running`` too, the running statistics updated from mean and
+    var (:func:`update_running_reference`)."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    xf = x.float()
+    means = torch.stack([xf.mean(dims), xf.square().mean(dims)])
+    if eps is None:
+        return means
+    out = torch.cat([means, torch.stack(_finalise(means[0], means[1], eps))])
+    if running is not None:
+        update_running_reference(running, out[0], out[2])
+    return out
+
+
+def bn_apply_reference(x: torch.Tensor, mean: torch.Tensor,
+                       rstd: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``(x − μ)·(γ·rstd) + β`` in ``dtype``, the fp32 factors cast to it
-    (the JAX package's dtype staging)."""
+    (the JAX package's dtype staging): three torch ops, each rounding to
+    ``dtype``."""
     shape = _stat_shape(x)
     mul = rstd * weight
     y = (x.to(dtype) - mean.reshape(shape).to(dtype)) \
@@ -324,35 +469,158 @@ def bn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     return y + bias.reshape(shape).to(dtype)
 
 
+def _running_in_kernel(running: Optional[Running], x: torch.Tensor) -> bool:
+    """Whether the statistics kernel can update ``running`` itself: fp32
+    vectors and an int64 count, contiguous, on x's device."""
+    if running is None:
+        return False
+    mean, var, count = running.mean, running.var, running.count
+    return (mean.dtype == var.dtype == torch.float32
+            and count.dtype == torch.int64 and mean.is_contiguous()
+            and var.is_contiguous() and mean.device == x.device
+            and var.device == x.device and count.device == x.device)
+
+
+@_on_device
+def _launch_stats(x: torch.Tensor, eps: Optional[float],
+                  running: Optional[Running]) -> torch.Tensor:
+    global fwd_stats_launch_count, fwd_stats_vector_launch_count
+    (x2,), M, C = _as_rows("bn_forward_stats", x)
+    plan = k4_plan(M, C, k4_vector_width(x2.dtype, C,
+                                         x2.data_ptr() % 16 == 0))
+    partial = _partial_buffer(x.device, plan.chunks * 2 * C)
+    tickets = _ticket_buffer(x.device, plan.col_tiles) if plan.vec > 1 \
+        else None
+    out = torch.empty((2 if eps is None else 4, C), dtype=torch.float32,
+                      device=x.device)
+    # The running statistics' update rides on the finalisation, with
+    # torch's scalars: the momentum and the Bessel factor rounded to fp32.
+    fused = eps is not None and _running_in_kernel(running, x)
+    m = running.momentum if fused else 0.0
+    n = running.n if fused else 2
+    err = _build.library().virtex_bn_forward_stats(
+        x2.data_ptr(), partial.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+        running.mean.data_ptr() if fused else None,
+        running.var.data_ptr() if fused else None,
+        running.count.data_ptr() if fused else None,
+        M, C, plan.chunks, plan.vec, 0.0 if eps is None else eps,
+        int(eps is not None), m, 1.0 - m, n / max(n - 1, 1),
+        int(x2.dtype == torch.bfloat16), _stream(x))
+    _build.check(err, "bn_forward_stats launch")
+    fwd_stats_launch_count += 1
+    fwd_stats_vector_launch_count += int(plan.vec > 1)
+    if eps is not None and running is not None and not fused:
+        update_running_reference(running, out[0], out[2])
+    return out
+
+
+@_on_device
+def _launch_apply(x, mean, rstd, weight, bias, dtype) -> torch.Tensor:
+    global fwd_apply_launch_count, fwd_apply_vector_launch_count
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bn_apply computes in float32 or bfloat16, got "
+                        f"{dtype}")
+    (x2,), M, C = _as_rows("bn_apply", x)
+    mean, rstd, weight, bias = (_f32(t) for t in (mean, rstd, weight, bias))
+    wide = torch.float32 if torch.float32 in (x2.dtype, dtype) \
+        else torch.bfloat16
+    plan = k4_plan(M, C, k4_vector_width(wide, C, x2.data_ptr() % 16 == 0))
+    y = _empty_rows(x, dtype)
+    err = _build.library().virtex_bn_forward_apply(
+        x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), M, C, plan.chunks, plan.vec,
+        int(x2.dtype == torch.bfloat16), int(dtype == torch.bfloat16),
+        _stream(x))
+    _build.check(err, "bn_apply launch")
+    fwd_apply_launch_count += 1
+    fwd_apply_vector_launch_count += int(plan.vec > 1)
+    return y
+
+
+def _check_forward(name: str, x: torch.Tensor, *per_channel: torch.Tensor
+                   ) -> None:
+    if x.dim() < 2:
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be (N, C, ...)")
+    C = x.shape[1]
+    if any(t.shape != (C,) for t in per_channel):
+        raise ValueError(f"{name}: mean, rstd, weight and bias must be "
+                         f"({C},)")
+    if len({t.device for t in (x,) + per_channel}) != 1:
+        raise ValueError(f"{name}: operands on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {x.device}")
+
+
+def bn_forward_stats(x: torch.Tensor, eps: Optional[float] = None,
+                     running: Optional[Running] = None) -> torch.Tensor:
+    """fp32 statistics of x per channel over every dim but 1: the (2, C)
+    means ``[E[x] ; E[x²]]``, and given ``eps`` var and rstd as two more
+    rows; given ``eps`` and ``running`` too, the running statistics updated
+    from them. The forward's statistics kernel on CUDA (which updates
+    ``running`` in the same launch); the plain version on the CPU."""
+    _check_forward("bn_forward_stats", x)
+    if x.device.type == "cpu":
+        return bn_forward_stats_reference(x, eps, running)
+    return _launch_stats(x, eps, running)
+
+
+def bn_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+             weight: torch.Tensor, bias: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``(x − μ)·(γ·rstd) + β`` in ``dtype``, as :func:`bn_apply_reference`
+    computes it. On CUDA, where no gradient is taken through it, one launch
+    of the apply kernel, bit-equal to the torch ops; else those ops, which
+    autograd differentiates (the "batch" sampler's path)."""
+    _check_forward("bn_apply", x, mean, rstd, weight, bias)
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or mean.requires_grad or rstd.requires_grad
+        or weight.requires_grad or bias.requires_grad)
+    if x.device.type == "cpu" or grad:
+        return bn_apply_reference(x, mean, rstd, weight, bias, dtype)
+    return _launch_apply(x, mean, rstd, weight, bias, dtype)
+
+
+StatsFn = Callable[..., torch.Tensor]
+ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                    torch.Tensor, torch.dtype], torch.Tensor]
+
+
 def bn_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float, dtype: torch.dtype, group=None):
+               eps: float, dtype: torch.dtype, group=None,
+               running: Optional[Running] = None,
+               stats_fn: StatsFn = bn_forward_stats,
+               apply_fn: ApplyFn = bn_apply):
     """The exact train-mode forward: fp32 statistics (variance E[x²] −
-    E[x]² clamped at 0), over the global batch of ``group`` when one is
-    given, then :func:`bn_apply`. Returns y, mean, var, rstd."""
-    dims = [d for d in range(x.dim()) if d != 1]
-    xf = x.float()
-    mean, mean2 = xf.mean(dims), xf.square().mean(dims)
-    if group is not None:
+    E[x]² clamped at 0) from ``stats_fn``, over the global batch of
+    ``group`` when one is given, the running statistics updated, then
+    ``apply_fn``. Returns y, mean, var, rstd."""
+    if group is None:
+        mean, _, var, rstd = stats_fn(x, eps, running).unbind()
+    else:
         # Equal shards: each rank's means weigh 1/world (none at world 1,
         # whose bits stay the single-process ones).
-        stats = torch.stack([mean, mean2])
+        stats = stats_fn(x)
         world = world_of(group)
         if world > 1:
             stats.mul_(1.0 / world)
         mean, mean2 = all_reduce_sum(stats, "bn_stats", group)
-    var = torch.clamp(mean2 - mean.square(), min=0.0)
-    rstd = 1.0 / torch.sqrt(var + eps)
-    return bn_apply(x, mean, rstd, weight, bias, dtype), mean, var, rstd
+        var, rstd = _finalise(mean, mean2, eps)
+        if running is not None:
+            update_running_reference(running, mean, var)
+    return apply_fn(x, mean, rstd, weight, bias, dtype), mean, var, rstd
 
 
 class _BNTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, dtype, sums_fn, dx_fn):
+    def forward(ctx, x, weight, bias, eps, dtype, running, fns):
         group = active_group()
-        y, mean, var, rstd = bn_forward(x, weight, bias, eps, dtype, group)
+        stats_fn, apply_fn, ctx.sums_fn, ctx.dx_fn = fns
+        y, mean, var, rstd = bn_forward(x, weight, bias, eps, dtype, group,
+                                        running, stats_fn, apply_fn)
         ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.sums_fn, ctx.dx_fn, ctx.group = sums_fn, dx_fn, group
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -370,16 +638,24 @@ class _BNTrain(torch.autograd.Function):
             m = x.numel() // x.shape[1]
             dx = ctx.dx_fn(dy, x, mean, rstd, weight, total,
                            m_total=m * world_of(ctx.group))
-        return (dx, sums[1].to(weight.dtype), sums[0].to(weight.dtype),
-                None, None, None, None)
+        dbeta, dgamma = sums.unbind()
+        if weight.dtype != torch.float32:
+            dbeta, dgamma = dbeta.to(weight.dtype), dgamma.to(weight.dtype)
+        return dx, dgamma, dbeta, None, None, None, None
 
 
 def bn_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float, dtype: torch.dtype,
              sums_fn: SumsFn = bn_backward_sums,
-             dx_fn: DxFn = bn_backward_dx):
-    """Train-mode BatchNorm over every dim but 1 → ``(y, mean, var)``.
-    ``mean`` and ``var`` (fp32, not differentiable) are for the running
-    statistics; the backward takes its channel sums from ``sums_fn`` and
-    dx from ``dx_fn`` (given ``m_total`` under data parallelism)."""
-    return _BNTrain.apply(x, weight, bias, eps, dtype, sums_fn, dx_fn)
+             dx_fn: DxFn = bn_backward_dx,
+             running: Optional[Running] = None,
+             stats_fn: StatsFn = bn_forward_stats,
+             apply_fn: ApplyFn = bn_apply):
+    """Train-mode BatchNorm over every dim but 1 → ``(y, mean, var)``, with
+    ``running`` (if given) updated in place. ``mean`` and ``var`` (fp32, not
+    differentiable) are the batch's statistics. The forward takes them
+    from ``stats_fn`` and y from ``apply_fn``; the backward takes its
+    channel sums from ``sums_fn`` and dx from ``dx_fn`` (given ``m_total``
+    under data parallelism). A comparison swaps in the plain versions."""
+    return _BNTrain.apply(x, weight, bias, eps, dtype, running,
+                          (stats_fn, apply_fn, sums_fn, dx_fn))
