@@ -9,9 +9,9 @@ Run from the repository root, on a machine with a CUDA card, ``nvcc``
 prints no result, when there is no card or when any phase fails:
 
 1. device: the card's name and power limit; TF32 off for every comparison.
-2. build: kernels K1, K2, K4's two stages and the BatchNorm forward's two
-   (``virtex_tpu_torch/csrc/*.cu``) are built with ``nvcc`` for ``sm_90a``,
-   one process per source, in parallel.
+2. build: kernels K1, K2, K4's two stages, the BatchNorm forward's two and
+   the decode attention (``virtex_tpu_torch/csrc/*.cu``) are built with
+   ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. K1 against its plain PyTorch version on the card: the flagship's
    attention shapes (batch 128, 16 heads of 64; self 30×30 causal + pad,
    cross 30×49), a per-head mask, the wide gate shape (640, 30, 79, 32, 64),
@@ -45,7 +45,17 @@ prints no result, when there is no card or when any phase fails:
    length.
    Finite losses, exactly 4 K1 launches, and the same losses from a copy
    of the model whose attention calls the plain version.
-7. captioning: beam search (K = 5, 30 steps) on 32 images.
+7. captioning: beam search (K = 5, 30 steps) on 32 images, its decode
+   attention launched twice per layer and step (self and cross), in no
+   other kernel than the eval step's; then the decode attention against
+   its plain version at the caption cell's shapes (1280 query rows, 256
+   images' 49 visual tokens shared by 5 beams each; the self cache at every
+   n_valid 1..30 of 30 positions) at 32 and 16 heads, within
+   TOL["bfloat16"], one launch a call, equal bits twice, positions past
+   n_valid never read; the flagship's teacher-forced decode along the
+   captions (cross K/V per image) within LOSS_RTOL of a copy whose decode
+   attention is the plain version; and its device time beside its bound,
+   the plain version and ``scaled_dot_product_attention`` (SDPA_BACKEND).
 8. train step: the flagship in bf16, micro-batch 128 × accumulation 2 as
    ``bench.py`` runs it, captions of varied length, the optimizer of
    ``OPTIM.*``. With dropout 0 the first step's losses and ``grad_norm``
@@ -88,8 +98,9 @@ prints no result, when there is no card or when any phase fails:
     batch 32 gives finite losses and well-formed predictions. Host ms per
     step with the kernels and with the plain versions.
 12. nucleus captioning (p 0.9, 30 steps) with the flagship model of phase
-    6 on 32 images: tokens in range, seeded draws, no kernel launch, and
-    the first step's drop set on the card equal to the CPU's.
+    6 on 32 images: tokens in range, seeded draws, no K1, K2 or K4 launch
+    and two decode attention launches per layer and step, and the first
+    step's drop set on the card equal to the CPU's.
 13. pretraining: the JPEG codecs on the machine, and the data plane's
     decoder for the card (nvJPEG) round-tripping quality-95 images within
     DECODE_MEAN_TOL; a synthetic COCO-2017 directory (512 train and 64 val
@@ -1021,15 +1032,170 @@ def plain_bn(m, BN) -> None:
 
 def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
     """A copy of ``model`` whose attention (forward and, through autograd,
-    backward) and BatchNorm (forward and backward) call the plain
-    versions."""
+    backward; and the decode path's) and BatchNorm (forward and backward)
+    call the plain versions."""
+    from virtex_tpu_torch.ops.decode_attention import (
+        decode_attention_reference,
+    )
     twin = copy.deepcopy(model)
     for m in twin.modules():
         if isinstance(m, MultiHeadAttention):
             m.attention_fn = A.attention_reference
+            m.decode_attention_fn = decode_attention_reference
         elif isinstance(m, SubsampledBatchNorm):
             plain_bn(m, BN)
     return twin
+
+
+# -- phase 7 -----------------------------------------------------------------
+# The decode attention at the caption cell's shapes (the benchmark's
+# caption.r50h2048.beam): 256 images x 5 beams, 64 dims a head, cross to
+# the 49 visual tokens of 224², self over a 30-position cache; at 32 heads
+# (H2048) and 16 (the flagship's H1024). Held to its plain version per
+# element at TOL["bfloat16"] and ATOL, as K1 is: both read the bf16 operands
+# exactly and sum in fp32 in other orders, and a probability or an output
+# whose bf16 rounding falls the other way moves by 2^-8.
+DECODE_IMAGES, DECODE_BEAMS = 256, 5
+DECODE_TOKENS, DECODE_POSITIONS = 49, 30
+DECODE_HEADS = (32, 16)
+
+
+def decode_out(torch, DA, q, k, v, n_valid, rows_per_kv):
+    """The op on the card, checked to launch its kernel once and to give
+    equal bits twice."""
+    before = DA.decode_launch_count
+    out = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
+    again = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
+    torch.cuda.synchronize()
+    if DA.decode_launch_count != before + 2 or not torch.equal(out, again):
+        fail(f"decode attention {tuple(q.shape)} x {tuple(k.shape)}, n_valid "
+             f"{n_valid}: not one launch a call, or other bits the second "
+             "time")
+    return out
+
+
+def decode_error(torch, DA, q, k, v, n_valid, rows_per_kv=1) -> float:
+    got = decode_out(torch, DA, q, k, v, n_valid, rows_per_kv)
+    err = rel_err(got, DA.decode_attention_reference(q, k, v, n_valid,
+                                                     rows_per_kv), ATOL)
+    if not err <= TOL["bfloat16"]:
+        fail(f"decode attention {tuple(q.shape)} x {tuple(k.shape)}, n_valid "
+             f"{n_valid}: {err:.2e} > {TOL['bfloat16']} of the plain version")
+    return err
+
+
+def decode_inputs(torch, heads, device, seed):
+    """q (1280, 1, N, 64), the cross K/V (256, 49, N, 64) and the self cache
+    (1280, 30, N, 64), bf16 ~ N(0, 1)."""
+    rows = DECODE_IMAGES * DECODE_BEAMS
+    rng = np.random.RandomState(seed)
+    draw = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
+    return (draw(rows, 1, heads, 64),
+            [draw(DECODE_IMAGES, DECODE_TOKENS, heads, 64) for _ in "kv"],
+            [draw(rows, DECODE_POSITIONS, heads, 64) for _ in "kv"])
+
+
+def check_decode_attention(torch, DA, device) -> float:
+    """Phase 7: the kernel against its plain version; the largest error."""
+    errs = []
+    for heads in DECODE_HEADS:
+        q, (ck, cv), (k, v) = decode_inputs(torch, heads, device, SEED)
+        errs.append(decode_error(torch, DA, q, ck, cv, DECODE_TOKENS,
+                               DECODE_BEAMS))
+        for n_valid in range(1, DECODE_POSITIONS + 1):
+            errs.append(decode_error(torch, DA, q, k, v, n_valid))
+        half = DECODE_POSITIONS // 2
+        kn, vn = k.clone(), v.clone()
+        kn[:, half:], vn[:, half:] = float("nan"), float("nan")
+        if not torch.equal(decode_out(torch, DA, q, kn, vn, half, 1),
+                           decode_out(torch, DA, q, k, v, half, 1)):
+            fail("decode attention: positions past n_valid moved the output")
+    return max(errs)
+
+
+def teacher_forced(torch, model, images, tokens, beams, sos):
+    """Log-probabilities of ``tokens`` (B·beams, T) fed to the decode step
+    one position at a time from the start token, each image's cross K/V
+    held once for its beams, as the caption loop holds them."""
+    with torch.inference_mode():
+        caches = model.init_decode(model.encode_visual(images),
+                                   tokens.shape[1])
+        caches = [{"k": c["k"].repeat_interleave(beams, dim=0),
+                   "v": c["v"].repeat_interleave(beams, dim=0),
+                   "ck": c["ck"], "cv": c["cv"]} for c in caches]
+        prev = torch.full((tokens.shape[0],), sos, dtype=torch.long,
+                          device=tokens.device)
+        out = []
+        for t in range(tokens.shape[1]):
+            logits, caches = model.decode_step(prev, t, caches)
+            out.append(torch.log_softmax(logits.float(), dim=-1).gather(
+                1, tokens[:, t:t + 1]))
+            prev = tokens[:, t]
+        return torch.cat(out, dim=1)
+
+
+def check_decode_model(torch, model, plain_model, images, captions, beams,
+                       sos):
+    """The flagship's decode along the captions, beam b of image i fed the
+    captions of image i + b: the decode attention model against the plain
+    one, the mean log-probability within LOSS_RTOL (the models differ only
+    in where bf16 attention outputs round). Returns both means and the
+    largest gap of one token."""
+    B = captions.shape[0]
+    rows = torch.arange(B, device=captions.device)
+    tokens = torch.stack([captions[(rows + b) % B] for b in range(beams)],
+                         dim=1).reshape(B * beams, -1)
+    got = teacher_forced(torch, model, images, tokens, beams, sos)
+    want = teacher_forced(torch, plain_model, images, tokens, beams, sos)
+    mean, ref = float(got.mean()), float(want.mean())
+    if not abs(mean - ref) <= LOSS_RTOL * abs(ref):
+        fail(f"teacher-forced decode: mean log-probability {mean:.5f} with "
+             f"the decode attention kernel, {ref:.5f} plain")
+    return mean, ref, float((got - want).abs().max())
+
+
+def decode_sdpa_call(torch, q, k, v, n_valid, rows_per_kv):
+    """The decode attention's library call: one
+    ``scaled_dot_product_attention`` pinned to SDPA_BACKEND on (B, N, T, D)
+    views, an image's beams as its query rows."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rows, _, N, D = k.shape
+    qt = q.view(rows, rows_per_kv, N, D).transpose(1, 2)
+    kt, vt = (t[:, :n_valid].transpose(1, 2) for t in (k, v))
+
+    def call():
+        with sdpa_kernel(getattr(SDPBackend, SDPA_BACKEND)):
+            return F.scaled_dot_product_attention(qt, kt, vt)
+    return call
+
+
+def time_decode_attention(torch, DA, device) -> dict:
+    """Device ms per call at 32 heads, cross and self at 30 and 15 valid
+    positions: {case: (kernel, plain, library, bound ms, bound_by)}; the
+    kernel and the library call by CUDA-graph replay in turns (library,
+    kernel, kernel, library), the plain version, milliseconds a call, by
+    back-to-back calls."""
+    q, (ck, cv), (k, v) = decode_inputs(torch, DECODE_HEADS[0], device,
+                                        SEED + 1)
+    out = {}
+    for name, kk, vv, n, per in (
+            ("cross", ck, cv, DECODE_TOKENS, DECODE_BEAMS),
+            ("self 30", k, v, DECODE_POSITIONS, 1),
+            ("self 15", k, v, DECODE_POSITIONS // 2, 1)):
+        R, _, N, D = q.shape
+        kernel = lambda: DA.decode_attention(q, kk, vv, n, per)  # noqa: E731
+        library = decode_sdpa_call(torch, q, kk, vv, n, per)
+        l1, k1, k2, l2 = (graph_ms(torch, f, 20, 5)
+                          for f in (library, kernel, kernel, library))
+        plain = cuda_ms(torch, lambda: DA.decode_attention_reference(
+            q, kk, vv, n, per), 10)
+        moved = 2 * nbytes(q) + 2 * kk.shape[0] * n * N * D * 2
+        out[name] = ((k1 + k2) / 2, plain, (l1 + l2) / 2) + bound(
+            moved, 4 * R * N * n * D)
+    return out
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -1037,6 +1203,9 @@ def plain_copy(model, A, BN, MultiHeadAttention, SubsampledBatchNorm):
 # (read by launch_counts, summed over the run), for the kernels line.
 FWD_LAUNCHES = {"stats": 0, "apply": 0}
 _fwd_seen = {"stats": 0, "apply": 0}  # the counters at the last reading
+# The decode attention's, likewise (ops/decode_attention.py).
+DECODE_LAUNCHES = {"decode": 0}
+_decode_seen = {"decode": 0}
 
 
 def fwd_counts(BN):
@@ -1049,7 +1218,9 @@ def launch_counts(A, BN) -> dict:
     bf16, so each of its K1 and K2 launches must have taken the
     tensor-core variant, and each of K4's (stage 1 and dx) and of the
     BatchNorm forward's (statistics and apply) the vector one. The
-    forward's launches since the last reading join FWD_LAUNCHES."""
+    forward's launches since the last reading join FWD_LAUNCHES, and the
+    decode attention's DECODE_LAUNCHES."""
+    from virtex_tpu_torch.ops import decode_attention as DA
     fwd = fwd_counts(BN)
     scalar = (A.launch_count - A.mma_launch_count,
               A.bwd_launch_count - A.mma_bwd_launch_count,
@@ -1064,14 +1235,20 @@ def launch_counts(A, BN) -> dict:
     for key, now in (("stats", fwd[0]), ("apply", fwd[2])):
         FWD_LAUNCHES[key] += now - _fwd_seen[key]
         _fwd_seen[key] = now
+    DECODE_LAUNCHES["decode"] += DA.decode_launch_count - _decode_seen[
+        "decode"]
+    _decode_seen["decode"] = DA.decode_launch_count
     return {"K1": A.launch_count, "K2": A.bwd_launch_count,
             "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
 
 
 def reset_counts(A, BN) -> None:
+    from virtex_tpu_torch.ops import decode_attention as DA
     A.reset_launch_count()
     BN.reset_launch_count()
+    DA.reset_launch_count()
     _fwd_seen.update(stats=0, apply=0)
+    _decode_seen.update(decode=0)
 
 
 def train_batch(torch, spec, device, seed):
@@ -1937,9 +2114,15 @@ def check_nucleus(torch, port, model, spec, images, device):
     tokens = draw(SEED)
     torch.cuda.synchronize()
     counts = launch_counts(A, BN)   # ... and ends here
+    decodes = port.DA.decode_launch_count
     if any(counts.values()):
-        fail(f"nucleus captioning launched {counts}; its decode path uses "
-             "plain attention")
+        fail(f"nucleus captioning launched {counts}; its decode path "
+             "launches no K1, K2 or K4")
+    step_decodes = 2 * spec.textual["num_layers"]  # self and cross
+    if not (0 < decodes <= step_decodes * spec.max_decoding_steps
+            and decodes % step_decodes == 0):
+        fail(f"nucleus captioning launched the decode attention {decodes} "
+             f"times, not {step_decodes} per step")
     B = images.shape[0]
     if tuple(tokens.shape) != (B, spec.max_decoding_steps):
         fail(f"nucleus captions have shape {tuple(tokens.shape)}")
@@ -1971,7 +2154,8 @@ def check_nucleus(torch, port, model, spec, images, device):
     ms = host_ms(torch, lambda: draw(SEED), 3, warmup=1)
     say("12 nucleus", f"p {NUCLEUS_P}, {spec.max_decoding_steps} steps, "
         f"B{B}: tokens {tuple(tokens.shape)}, ids in [{lo}, {hi}], seeded; "
-        f"no kernel launch; first-step drop set equal on the card and the "
+        f"no K1, K2 or K4 launch, {decodes} decode attention launches; "
+        f"first-step drop set equal on the card and the "
         f"CPU in {B - int(skip.sum())} of {B} rows (nucleus of "
         f"{int(kept.min())}..{int(kept.max())} tokens); first caption "
         f"{tokens[0, :10].tolist()} | {card_line()} | {ms:.1f} ms per batch")
@@ -5332,6 +5516,7 @@ def import_port():
     from virtex_tpu_torch.ops import _build
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
+    from virtex_tpu_torch.ops import decode_attention as DA
     from virtex_tpu_torch.optim.optimizer import build_optimizer
     from virtex_tpu_torch.scripts import (
         clf_linear,
@@ -5464,6 +5649,7 @@ def main() -> None:
     captions = caption_fn(images)
     torch.cuda.synchronize()
     serve_counts = launch_counts(A, BN)  # ... and ends here
+    serve_decodes = port.DA.decode_launch_count
 
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in losses.values()):
@@ -5492,10 +5678,34 @@ def main() -> None:
         fail(f"caption ids outside [0, {spec.vocab_size}): {lo}..{hi}")
     if serve_counts != eval_counts:
         fail(f"beam search launched kernels ({serve_counts} after the eval "
-             f"step's {eval_counts}); its decode path uses plain attention")
+             f"step's {eval_counts}); its decode path launches no K1, K2 or "
+             "K4")
+    step_decodes = 2 * spec.textual["num_layers"]  # self and cross
+    if not (0 < serve_decodes <= step_decodes * spec.max_decoding_steps
+            and serve_decodes % step_decodes == 0):
+        fail(f"beam search launched the decode attention {serve_decodes} "
+             f"times, not {step_decodes} per step")
     say("7 captioning", f"beam K={spec.beam_size}, {spec.max_decoding_steps}"
         f" steps: tokens {tuple(captions.shape)} {captions.dtype}, ids in "
-        f"[{lo}, {hi}]; first caption {captions[0, :10].tolist()}")
+        f"[{lo}, {hi}]; first caption {captions[0, :10].tolist()}; "
+        f"{serve_decodes} decode attention launches "
+        f"({serve_decodes // step_decodes} steps)")
+    decode_err_max = check_decode_attention(torch, port.DA, device)
+    say("7 decode attention", f"matches the plain version (bf16 tol "
+        f"{TOL['bfloat16']:.0e}, atol {ATOL}; max {decode_err_max:.2e}) at "
+        f"{DECODE_IMAGES * DECODE_BEAMS} query rows and {DECODE_HEADS} heads "
+        f"of 64: cross to {DECODE_IMAGES} x {DECODE_TOKENS} K/V rows, "
+        f"{DECODE_BEAMS} rows each; self at n_valid 1..{DECODE_POSITIONS} "
+        f"of {DECODE_POSITIONS}; one launch a call, equal bits twice, "
+        f"positions past n_valid never read")
+    tf_mean, tf_ref, tf_gap = check_decode_model(
+        torch, model, plain_model, images, captions, spec.beam_size,
+        spec.sos_index)
+    say("7 decode attention", f"teacher-forced decode along the captions, "
+        f"{EVAL_BATCH} images x {spec.beam_size} beams, cross K/V per "
+        f"image: mean log-probability {tf_mean:.5f} against {tf_ref:.5f} "
+        f"plain (rel {abs(tf_mean - tf_ref) / abs(tf_ref):.2e} <= "
+        f"{LOSS_RTOL}); largest gap of one token {tf_gap:.3e}")
 
     # 8. train step
     (train_step, plain_train_step, tbatch, bn_shapes, train_launches,
@@ -5525,6 +5735,7 @@ def main() -> None:
     bn_fwd_step = {key: per_step(bn_fwd_times, update_shapes, key)
                    for key in ("stats", "apply")}
     bn_calls = sum(bn_shapes.values())
+    decode_times = time_decode_attention(torch, port.DA, device)
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
     step_ms = [host_ms(torch, lambda f=f: f(tbatch), 2, warmup=1)
@@ -5561,6 +5772,11 @@ def main() -> None:
     for line in bn_forward_lines(card, bn_fwd_times, update_shapes,
                                  FWD_TIMING_BATCH):
         say("9 timings", line)
+    say("9 timings", f"{card} | decode attention, bf16, {DECODE_HEADS[0]} "
+        f"heads of 64, {DECODE_IMAGES * DECODE_BEAMS} query rows, device ms "
+        f"per call (library: scaled_dot_product_attention, {SDPA_BACKEND}, "
+        f"an image's beams as its query rows): " + "; ".join(
+            f"{name} {timing_text(t)}" for name, t in decode_times.items()))
     say("9 timings", f"{card} | dy copied to rows before K4 in {dy_copies} "
         f"of the first train step's {bn_calls} BatchNorm backwards")
     say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "
@@ -5750,6 +5966,15 @@ def main() -> None:
         "max_abs_err": fwd_apply_err,
         **row([tuple(t / fwd_calls for t in bn_fwd_step["apply"])
                + (next(iter(bn_fwd_times.values()))["apply"][4],)]),
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "virtex_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "none (virtex_tpu/modules/transformer.py:110, :131: "
+                    "einsum attention)",
+        "launches": DECODE_LAUNCHES["decode"],
+        "max_abs_err": decode_err_max,
+        **row([decode_times["cross"], decode_times["self 30"]]),
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

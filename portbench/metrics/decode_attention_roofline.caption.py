@@ -1,0 +1,29 @@
+"""The decode attention kernel (``ops/decode_attention.py``) over the
+traced caption batches: the bound of every launch of the stretch, from the
+shapes the program noted in its tracing store
+(``portbench/decode_yardstick.py``), over the device time of the kernel's
+launches, in percent. Nothing to read for a program that notes no shapes
+or launches no such kernel, or where the launches and the notes differ in
+number."""
+import importlib
+
+from portbench.decode_yardstick import decode_attention_bound_s
+
+NAME = "decode_attention"
+
+
+def read(trace):
+    if trace.kind != "caption":
+        return None
+    try:
+        tracing = importlib.import_module("virtex_tpu_torch.utils.tracing")
+    except ImportError:
+        return None
+    notes = getattr(tracing, "notes", None)
+    shapes = notes(NAME) if notes is not None else []
+    launches = [(a, b) for name, a, b, _ in trace.kernels
+                if NAME in name.lower()]
+    spent = sum(b - a for a, b in launches) / 1e6
+    if not shapes or len(launches) != len(shapes) or spent <= 0:
+        return None
+    return 100.0 * decode_attention_bound_s(shapes) / spent

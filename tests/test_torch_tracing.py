@@ -1,7 +1,8 @@
 """The port's spans (virtex_tpu_torch.utils.tracing) on the CPU: free and
 silent with no profiler; under ``torch.profiler`` one record per layer
 boundary of a train update and of a caption batch, nested as they ran, on
-the exported trace's clock; one store per profiler session.
+the exported trace's clock; one store per profiler session, which holds
+the notes (a kernel's launch shapes) beside the records.
 
 A tiny bicaptioning model (resnet18 at 64², L1_H32_A2_F64, a vocabulary
 of 50, captions of 8 tokens), fp32, one torch thread.
@@ -232,3 +233,40 @@ def test_the_pretraining_cli_logs_each_span_per_iteration(parts, caplog):
                  "backward_textual", "backward", "optimizer"):
         assert f" {name} " in line
     assert line.endswith("/-")  # no card: no device ms
+
+
+def test_notes_keep_values_of_a_session_and_reset_with_it(parts):
+    shape = (1280, 256, 49, 32, 64)
+    tracing.note("decode_attention", shape)  # off: kept nowhere
+    assert tracing.notes("decode_attention") == []
+
+    def launches():
+        with tracing.span("caption"):
+            tracing.note("decode_attention", shape)
+            tracing.note("decode_attention", (1280, 1280, 1, 32, 64))
+    _profiled(launches)
+    assert tracing.notes("decode_attention") == [shape,
+                                                 (1280, 1280, 1, 32, 64)]
+    assert tracing.notes("other") == []
+    assert tracing.summary()["caption"]["count"] == 1
+    tracing.note("decode_attention", shape)  # off: the session stays
+    assert len(tracing.notes("decode_attention")) == 2
+    _profiled(_caption(parts))  # a new session: no note in it on the CPU
+    assert tracing.notes("decode_attention") == []
+    assert tracing.summary()["caption"]["count"] == 1
+
+
+def test_a_note_starts_a_session_afresh_as_a_span_does():
+    with tracing.span("between sessions"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.note("decode_attention", (1, 1, 1, 1, 8))
+        with tracing.span("caption"):
+            pass
+    assert tracing.notes("decode_attention") == [(1, 1, 1, 1, 8)]
+    assert [r.name for r in tracing.records()] == ["caption"]
+    tracing.note("decode_attention", (2, 2, 2, 2, 8))  # off: marks it stale
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.note("decode_attention", (3, 3, 3, 3, 8))
+    assert tracing.notes("decode_attention") == [(3, 3, 3, 3, 8)]
+    assert tracing.records() == []

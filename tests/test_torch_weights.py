@@ -104,6 +104,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.ops._build",
     "virtex_tpu_torch.ops.attention",
     "virtex_tpu_torch.ops.batchnorm",
+    "virtex_tpu_torch.ops.decode_attention",
     "virtex_tpu_torch.modules.normalization",
     "virtex_tpu_torch.modules.resnet",
     "virtex_tpu_torch.modules.visual_backbones",

@@ -3,9 +3,11 @@ End-to-end caption generation: visual encode → KV-cache init → beam search
 or nucleus sampling.
 
 Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`
-and :func:`decode_predictions`. The visual grid is encoded once and the cross-attention K/V are projected
-once per image. Beam search holds them outside the search state (they do
-not differ between an image's beams, so the per-step beam reorder never
+and :func:`decode_predictions`. The visual grid is encoded once and the
+cross-attention K/V are projected once per image and kept so: one row per
+image serves all of its beams (the decode attention reads it once per
+image). Beam search holds them outside the search state (they do not
+differ between an image's beams, so the per-step beam reorder never
 gathers them) and reorders the self-attention caches with the beams.
 Nucleus sampling keeps one row per image, so its state is the whole cache.
 """
@@ -68,11 +70,10 @@ def make_caption_fn(model, decoder, sos_index: int = 1,
             model.eval()
             grid = model.encode_visual(images)
             B = images.shape[0]
-            # Cross K/V from the untiled grid: projected once per image.
+            # Cross K/V from the untiled grid: projected, and kept, once
+            # per image; row i serves beams [i·K, (i + 1)·K).
             caches = model.init_decode(grid, decoder.max_steps)
-            cross = [{"ck": c["ck"].repeat_interleave(K, dim=0),
-                      "cv": c["cv"].repeat_interleave(K, dim=0)}
-                     for c in caches]
+            cross = [{"ck": c["ck"], "cv": c["cv"]} for c in caches]
             self_caches = [{"k": c["k"].repeat_interleave(K, dim=0),
                             "v": c["v"].repeat_interleave(K, dim=0)}
                            for c in caches]

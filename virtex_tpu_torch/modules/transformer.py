@@ -4,8 +4,11 @@ gelu FFN) with a KV-cache decode path.
 
 Counterpart of ``virtex_tpu/modules/transformer.py``. The full-sequence
 attention goes through :func:`virtex_tpu_torch.ops.attention.fused_attention`
-(kernel K1 on CUDA); the single-token decode path uses plain attention, as
-the JAX package does. Module and parameter names are those of torch's
+(kernel K1 on CUDA); the single-token decode path goes through
+:func:`virtex_tpu_torch.ops.decode_attention.decode_attention` (its kernel
+on CUDA in bf16, the JAX package's plain einsum attention on the CPU and in
+fp32), which reads the caches where they lie: the self cache's valid
+positions only, and cross K/V held once per image for all of its beams. Module and parameter names are those of torch's
 ``nn.TransformerDecoderLayer`` (``self_attn``/``multihead_attn`` with a
 packed ``in_proj_weight``, ``linear1``/``linear2``, ``norm1..3``), so the
 reference's state dicts load unchanged.
@@ -43,7 +46,6 @@ The decode path is never rematerialised.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -57,7 +59,8 @@ from virtex_tpu_torch.ops._mesh import (
     reduce_from_model_group,
     world_of,
 )
-from virtex_tpu_torch.ops.attention import NEG_INF, fused_attention
+from virtex_tpu_torch.ops.attention import fused_attention
+from virtex_tpu_torch.ops.decode_attention import decode_attention
 from virtex_tpu_torch.utils.remat import remat as remat_call
 
 Cache = Dict[str, torch.Tensor]
@@ -138,25 +141,13 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         norm.bias, norm.eps)
 
 
-def attention_weights(q, k, mask, dtype):
-    """(B,Tq,N,D)×(B,Tk,N,D) → fp32 softmax → (B,N,Tq,Tk) in ``dtype``."""
-    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
-    logits = logits / math.sqrt(q.shape[-1])
-    if mask is not None:
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-    return torch.softmax(logits, dim=-1).to(dtype)
-
-
-def _context(probs, v, dtype):
-    return torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float()).to(dtype)
-
-
 class MultiHeadAttention(nn.Module):
     """q/k/v projections (packed in ``in_proj_weight`` as torch packs them)
     + scaled dot-product attention + output projection.
 
-    ``attention_fn`` is the attention core, :func:`fused_attention`; a
-    comparison against the plain version swaps it by name. ``shards`` > 1:
+    ``attention_fn`` is the attention core, :func:`fused_attention`, and
+    ``decode_attention_fn`` the decode path's, :func:`decode_attention`; a
+    comparison against the plain versions swaps them by name. ``shards`` > 1:
     the packed projection holds this rank's heads of q, k and v, and
     ``out_proj.weight`` their input columns (see the module docstring)."""
 
@@ -170,6 +161,7 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden_size))
         self.out_proj = Linear(hidden_size, hidden_size, dtype)
         self.attention_fn = fused_attention
+        self.decode_attention_fn = decode_attention
         self.shards = 1
 
     def _project(self, x, part: slice):
@@ -243,18 +235,18 @@ class MultiHeadAttention(nn.Module):
         q, k_new, v_new = self._qkv(q_in, q_in)
         k_cache[:, position] = k_new[:, 0]
         v_cache[:, position] = v_new[:, 0]
-        Tmax = k_cache.shape[1]
-        valid = (torch.arange(Tmax, device=q.device) <= position)
-        probs = attention_weights(q, k_cache, valid[None, None, None, :],
-                                  self.dtype)
-        return self._out(_context(probs, v_cache, self.dtype)), k_cache, v_cache
+        ctx = self.decode_attention_fn(q, k_cache, v_cache, position + 1)
+        return self._out(ctx), k_cache, v_cache
 
     def attend_kv(self, q_in, k, v):
-        """Attention with precomputed K/V (cross-attention at decode)."""
+        """Attention with precomputed K/V (cross-attention at decode). q_in
+        (R, 1, H); k, v (R / n, Tk, N, D): the K/V of row b serve query
+        rows [b·n, (b + 1)·n), an image's beams."""
         _refuse_sharded(self)
         (q,) = self._split(self._project(q_in, slice(0, self.hidden_size)), 1)
-        probs = attention_weights(q, k, None, self.dtype)
-        return self._out(_context(probs, v, self.dtype))
+        ctx = self.decode_attention_fn(q, k, v, k.shape[1],
+                                       q.shape[0] // k.shape[0])
+        return self._out(ctx)
 
 
 class DecoderLayer(nn.Module):
@@ -326,7 +318,8 @@ class DecoderLayer(nn.Module):
 
     def decode(self, x, cache: Cache, position: int) -> Tuple[torch.Tensor,
                                                                 Cache]:
-        """One-token step. x: (B, 1, H)."""
+        """One-token step. x: (B, 1, H); the self cache holds B rows, the
+        cross K/V B / n rows, each serving n consecutive rows of x."""
         dt = self.dtype
         if self.norm_type == "pre":
             y, k, v = self.self_attn.decode_self(

@@ -82,6 +82,14 @@ SIGNATURES = {
              _LL, _I, _I, _I,               # M, C, chunks, vec
              _I, _I,                        # x_is_bf16, y_is_bf16
              _P]),                          # stream
+    "virtex_decode_attention": (
+        _I, [_P, _P, _P, _P,                # q, k, v, out
+             _I, _I, _I, _I, _I,            # kv rows, rows per kv, n valid,
+                                            # N, D
+             _LL, _LL,                      # q strides (row, head)
+             _LL, _LL, _LL, _LL, _LL, _LL,  # k and v strides (row, t, head)
+             _F, _P]),                      # sqrt(D), stream
+    "virtex_decode_attention_smem_bytes": (ctypes.c_ulonglong, [_I, _I]),
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -19,10 +19,15 @@ kernels and whatever idle the host left between them, which is its busy
 time while the launch queue stays full. They are read lazily, after the
 end events have completed, by :func:`summary`.
 
-One profiler session is one store: the first span recorded after a span
-that ran with the profiler off starts the records afresh. A reader that
-calls :func:`summary` once the profiler has stopped reads the last
-session, as long as no span has run since with the profiler on.
+``note("decode_attention", shape)`` keeps a value beside the records
+(a kernel's launch shape), under a recording profiler only; :func:`notes`
+returns a name's values in the order they were noted.
+
+One profiler session is one store: the first span or note recorded after
+a span or note that came with the profiler off starts the records and the
+notes afresh. A reader that calls :func:`summary` or :func:`notes` once
+the profiler has stopped reads the last session, as long as no span or
+note has come since with the profiler on.
 """
 from __future__ import annotations
 
@@ -38,7 +43,8 @@ PREFIX = "virtex::"
 _profiling = torch.autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _records: List["Record"] = []
-_stale = False  # a span ran with the profiler off since the last record
+_notes: Dict[str, list] = {}
+_stale = False  # a span or note came unprofiled since the last record
 _local = threading.local()  # .stack: this thread's open records
 _unit: Optional["Record"] = None  # the outermost open record, any thread
 _streams: Dict[tuple, "torch.cuda.Stream"] = {}  # by (id, device, type)
@@ -83,9 +89,7 @@ class _Span:
     __slots__ = ("record", "function", "stream")
 
     def __init__(self, name: str, where):
-        global _records, _stale
-        if _stale:
-            _records, _stale = [], False
+        _fresh()
         stack = _stack()
         parent = stack[-1] if stack else None
         self.record = Record(name, parent, parent.unit if parent else _unit)
@@ -119,6 +123,14 @@ class _Span:
         if _unit is r:
             _unit = None
         return False
+
+
+def _fresh() -> None:
+    """Start the store afresh if a span or note came with the profiler off
+    since the last record."""
+    global _records, _notes, _stale
+    if _stale:
+        _records, _notes, _stale = [], {}, False
 
 
 def _stack() -> list:
@@ -158,6 +170,22 @@ def span(name: str, where=None):
         _stale = True
         return _OFF
     return _Span(name, where)
+
+
+def note(name: str, value) -> None:
+    """Keep ``value`` under ``name`` in the session's store; a no-op unless
+    a profiler records."""
+    global _stale
+    if not _profiling():
+        _stale = True
+        return
+    _fresh()
+    _notes.setdefault(name, []).append(value)
+
+
+def notes(name: str) -> list:
+    """The values noted under ``name`` in the last profiler session."""
+    return list(_notes.get(name, ()))
 
 
 def records() -> List[Record]:
