@@ -11,6 +11,8 @@ float32 (resnet18, L1_H128_A4_F256, captions of 8 tokens, 10k vocab).
 Weights reach the port only through ``state_dict_from_flax``. Every
 comparison is |a − b| / (|ref| + atol) with its bound stated.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,6 +153,111 @@ def test_beam_search_matches_jax(only_best):
     # sums of quarters: exact in fp32
     assert np.array_equal(scores.numpy(), np.asarray(jscores))
     assert (preds == EOS).any()        # some beams finished early
+
+
+def _in_place_step_fn(table, seen, spare):
+    """The torch step of :func:`_step_fn` updating its state in place, as
+    the decode step writes its caches, with ``spare`` its state's twin;
+    ``seen`` collects where each step's state lay."""
+    def step(last, position, state):
+        seen.append(state["acc"].data_ptr())
+        lp = table[position][last] + (state["acc"] / 8.0)[:, None]
+        state["acc"].add_(last)
+        return lp, state
+    step.spare = spare
+    return step
+
+
+@pytest.mark.parametrize("only_best", [True, False])
+@pytest.mark.parametrize("ends", ["some beams", "every beam"])
+def test_beam_search_with_a_spare_matches_jax_over_two_states(only_best,
+                                                              ends):
+    table = _table()
+    if ends == "every beam":  # EOS first from step 2: an early stop
+        table[2:, :, EOS] += 20.0
+    start = np.array([1, 5, 9], np.int32)
+    acc0 = np.zeros(B * K, np.float32)
+    jsearch = JaxBeamSearch(EOS, max_steps=STEPS, beam_size=K)
+    jpreds, jscores = jsearch.search(
+        jnp.asarray(start), _step_fn(jnp.asarray(table)),
+        {"acc": jnp.asarray(acc0)}, only_return_best=only_best)
+
+    search = AutoRegressiveBeamSearch(EOS, max_steps=STEPS, beam_size=K)
+    table_t = torch.from_numpy(table)
+    plain = search.search(torch.from_numpy(start), _step_fn(table_t),
+                          {"acc": torch.from_numpy(acc0)},
+                          only_return_best=only_best)
+    state, spare = {"acc": torch.zeros(B * K)}, {"acc": torch.empty(B * K)}
+    for _ in range(2):  # two calls over the same two states
+        seen = []
+        state["acc"].zero_()
+        preds, scores = search.search(
+            torch.from_numpy(start), _in_place_step_fn(table_t, seen, spare),
+            state, only_return_best=only_best)
+        assert np.array_equal(preds.numpy(), np.asarray(jpreds))
+        assert np.array_equal(scores.numpy(), np.asarray(jscores))
+        assert torch.equal(preds, plain[0]) and torch.equal(scores, plain[1])
+        # steps 0 and 1 on the caller's state, then one and the other
+        a, b = state["acc"].data_ptr(), spare["acc"].data_ptr()
+        assert seen == [a, a] + [b if i % 2 == 0 else a
+                                 for i in range(len(seen) - 2)]
+    assert (len(seen) < STEPS) == (ends == "every beam")
+
+
+@pytest.mark.parametrize("prefix_mode", ["reference", "sos"])
+def test_captions_with_and_without_a_spare_match_jax(tiny, prefix_mode):
+    cfg, jm, variables, model, batch = tiny
+    steps = cfg.MODEL.DECODER.MAX_DECODING_STEPS
+    jdecoder = JaxBeamSearch(cfg.DATA.EOS_INDEX, steps,
+                             cfg.MODEL.DECODER.BEAM_SIZE)
+    ref = jax_caption_fn(jm, jdecoder, cfg.DATA.SOS_INDEX,
+                         prefix_mode)(variables, jnp.asarray(batch["image"]))
+    decoder = AutoRegressiveBeamSearch(cfg.DATA.EOS_INDEX, steps,
+                                       cfg.MODEL.DECODER.BEAM_SIZE)
+    fn = make_caption_fn(model, decoder, cfg.DATA.SOS_INDEX, prefix_mode)
+    images = torch.from_numpy(batch["image"])
+    search, spares = decoder.search, []
+
+    def without_spare(start, step_fn, state, **kwargs):
+        spares.append(step_fn.spare)
+        return search(start, lambda *a: step_fn(*a), state, **kwargs)
+    with_spare = fn(images)
+    decoder.search = without_spare
+    without = fn(images)
+    assert spares[0] is not None
+    assert torch.equal(with_spare, without)
+    assert np.array_equal(with_spare.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("prefix_mode", ["reference", "sos"])
+def test_captions_stop_early_alike_with_and_without_a_spare(tiny,
+                                                            prefix_mode):
+    cfg, _, _, model, batch = tiny
+    model = copy.deepcopy(model)
+    with torch.no_grad():  # EOS first for every beam from the second step
+        model.textual.output.bias[cfg.DATA.EOS_INDEX] += 30.0
+    steps = cfg.MODEL.DECODER.MAX_DECODING_STEPS
+    decoder = AutoRegressiveBeamSearch(cfg.DATA.EOS_INDEX, steps,
+                                       cfg.MODEL.DECODER.BEAM_SIZE)
+    fn = make_caption_fn(model, decoder, cfg.DATA.SOS_INDEX, prefix_mode)
+    images = torch.from_numpy(batch["image"])
+    search, calls = decoder.search, []
+
+    def counted(start, step_fn, state, keep_spare):
+        def step(*args):
+            calls[-1] += 1
+            return step_fn(*args)
+        calls.append(0)
+        if keep_spare:
+            step.spare = step_fn.spare
+        return search(start, step, state)
+    decoder.search = lambda *a: counted(*a, keep_spare=True)
+    with_spare = fn(images)
+    decoder.search = lambda *a: counted(*a, keep_spare=False)
+    without = fn(images)
+    assert torch.equal(with_spare, without)
+    assert (with_spare == cfg.DATA.EOS_INDEX).all()
+    assert calls[0] == calls[1] < steps
 
 
 def test_topk_breaks_ties_toward_the_lowest_index():

@@ -8,16 +8,29 @@ cross-attention K/V are projected once per image and kept so: one row per
 image serves all of its beams (the decode attention reads it once per
 image). Beam search holds them outside the search state (they do not
 differ between an image's beams, so the per-step beam reorder never
-gathers them) and reorders the self-attention caches with the beams.
+gathers them) and reorders the self-attention caches with the beams, from
+one of two fixed sets of caches into the other.
 Nucleus sampling keeps one row per image, so its state is the whole cache.
+
+On CUDA the decode steps run as CUDA graph replays (:class:`DecodeGraphs`):
+one graph per step index and call shape, in place of the step's ~70
+launches.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import collections
+import contextlib
+import gc
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
+from virtex_tpu_torch.ops import decode_attention as DA
+from virtex_tpu_torch.utils import tracing
+from virtex_tpu_torch.utils.beam_search import (
+    AutoRegressiveBeamSearch,
+    tree_map,
+)
 from virtex_tpu_torch.utils.nucleus_sampling import (
     AutoRegressiveNucleusSampling,
 )
@@ -25,13 +38,164 @@ from virtex_tpu_torch.utils.tracing import span
 
 CaptionFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
+KEPT_SHAPES = 2  # call shapes whose graphs and buffers stay
+decode_graph_replays = 0   # decode steps replayed, since import or a reset
+decode_graph_captures = 0  # decode steps captured into a graph, likewise
+
+
+def reset_graph_counts() -> None:
+    global decode_graph_replays, decode_graph_captures
+    decode_graph_replays = decode_graph_captures = 0
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested lists, tuples and dicts, in order."""
+    out = []
+    tree_map(lambda x: out.append(x) if torch.is_tensor(x) else None, tree)
+    return out
+
+
+def _layout(tree) -> tuple:
+    """Where each tensor of ``tree`` lies: what a graph reads and writes."""
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for t in _leaves(tree))
+
+
+class _Graph(NamedTuple):
+    """One captured step: the graph, what its capture returned (its
+    outputs, at fixed addresses), the layout of the state it was captured
+    on, and the decode attention's launches inside it."""
+
+    graph: Any
+    result: Any
+    layout: tuple
+    launches: tuple
+
+
+class _Shape:
+    """The graphs and fixed buffers of one call shape. ``buffers`` holds
+    the step's inputs besides the tokens (the state, the constant K/V),
+    which each call copies its own into; ``calls`` counts the calls.
+    ``graph_type``: see :class:`DecodeGraphs`."""
+
+    def __init__(self, buffers: dict, device: torch.device, graph_type):
+        self.buffers, self.device = buffers, device
+        self.graph_type = graph_type
+        self.calls = 0
+        self.graphs: Dict[int, _Graph] = {}
+        self.tokens: Optional[torch.Tensor] = None
+        self.pool = None  # the memory pool every graph of the shape shares
+        self.stream = None
+        self._owned = {t.data_ptr() for t in _leaves(buffers)}
+
+    def steps(self, step_fn):
+        """``step_fn`` as the search calls it, ``(tokens, t, state) →
+        (out, state)``, each step a replay where it can be: step ``t`` is
+        captured the first time it comes in a later call than the shape's
+        first, with no profiler recording and the state in this shape's
+        buffers; then replayed while the state lies where it lay."""
+        def step(tokens: torch.Tensor, t: int, state):
+            global decode_graph_replays
+            with span("decode_step", tokens):
+                g = self.graphs.get(t)
+                if g is None and self._may_capture(state):
+                    g = self._capture(step_fn, tokens, t, state)
+                if g is None or g.layout != _layout(state):
+                    tracing.note("decode_graph", "eager")
+                    return step_fn(tokens, t, state)
+                self.tokens.copy_(tokens)
+                g.graph.replay()
+                decode_graph_replays += 1
+                DA.count_launches(g.launches)
+                tracing.note("decode_graph", "replay")
+                return g.result
+        return step
+
+    def _may_capture(self, state) -> bool:
+        return (self.calls > 1 and not tracing.recording()
+                and (self.graph_type is not None
+                     or self.device.type == "cuda")
+                and all(t.data_ptr() in self._owned for t in _leaves(state)))
+
+    def _capture(self, step_fn, tokens, t: int, state) -> _Graph:
+        global decode_graph_captures
+        if self.tokens is None:
+            self.tokens = torch.empty_like(tokens)
+        self.tokens.copy_(tokens)
+        graph = (self.graph_type or torch.cuda.CUDAGraph)()
+        on_stream = contextlib.nullcontext()
+        if self.device.type == "cuda":  # captured on a side stream
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            on_stream = torch.cuda.stream(self.stream)
+        # No garbage collection inside: it could destroy another graph, a
+        # call the capture would not survive.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with on_stream, DA.capture_launches() as launches:
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    result = step_fn(self.tokens, t, state)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.graphs[t] = g = _Graph(graph, result, _layout(state),
+                                    tuple(launches))
+        decode_graph_captures += 1
+        return g
+
+
+class DecodeGraphs:
+    r"""The decode steps of a caption function's calls as CUDA graph
+    replays, one graph per step index (the position is a host int the step
+    bakes in) and call shape (the shapes, dtypes and device of its caches).
+
+    The first call at a shape runs eagerly, which is also the warm-up a
+    capture needs; from the second call on each step is captured once and
+    then replayed. The graphs of a shape share one memory pool, captured
+    and replayed in step order. A call under a recording profiler captures
+    nothing (its uncaptured steps run eagerly); a step whose state does
+    not lie where its graph's did runs eagerly. The last ``KEPT_SHAPES``
+    shapes keep their graphs and buffers. Graphs are made on CUDA devices
+    only, unless ``graph_type`` stands in for ``torch.cuda.CUDAGraph``.
+    """
+
+    def __init__(self, graph_type=None):
+        self.graph_type = graph_type
+        self._shapes: "collections.OrderedDict[tuple, _Shape]" = \
+            collections.OrderedDict()
+
+    def shape(self, caches, make_buffers: Callable[[], dict]) -> _Shape:
+        """The :class:`_Shape` of a call whose caches are ``caches``, its
+        buffers made by ``make_buffers`` on the shape's first call."""
+        leaves = _leaves(caches)
+        key = (leaves[0].device,) + tuple((t.shape, t.dtype) for t in leaves)
+        entry = self._shapes.pop(key, None)
+        if entry is None:
+            entry = _Shape(make_buffers(), leaves[0].device, self.graph_type)
+        self._shapes[key] = entry
+        while len(self._shapes) > KEPT_SHAPES:
+            self._shapes.popitem(last=False)
+        entry.calls += 1
+        return entry
+
 
 def make_caption_fn(model, decoder, sos_index: int = 1,
                     prefix_mode: str = "reference") -> CaptionFn:
     r"""Build ``(images, generator=None) → predictions`` (B, max_steps)
     token ids, the start token excluded. Nucleus sampling draws from
     ``generator`` (on the images' device) and raises without one; beam
-    search takes none.
+    search takes none. The function's :class:`DecodeGraphs` is its
+    ``decode_graphs``.
 
     ``prefix_mode`` (config ``MODEL.DECODER.PREFIX_MODE``), beam search
     only:
@@ -57,10 +221,25 @@ def make_caption_fn(model, decoder, sos_index: int = 1,
             f"decoder.max_steps={decoder.max_steps} exceeds the positional "
             f"table ({max_pos} rows); raise DATA.MAX_CAPTION_LENGTH or "
             "lower MODEL.DECODER.MAX_DECODING_STEPS")
+    graphs = DecodeGraphs()
     if isinstance(decoder, AutoRegressiveNucleusSampling):
-        return _nucleus_caption_fn(model, decoder, sos_index)
+        caption_fn = _nucleus_caption_fn(model, decoder, sos_index, graphs)
+        caption_fn.decode_graphs = graphs
+        return caption_fn
     rebase = prefix_mode == "reference"
     K = decoder.beam_size
+
+    def beam_buffers(caches) -> dict:
+        """Two sets of self caches, B·K rows each (the search reorders
+        from one into the other), and the per-image cross K/V."""
+        def rows(t):
+            return t.new_empty((t.shape[0] * K, *t.shape[1:]))
+        return {"self": [[{"k": rows(c["k"]), "v": rows(c["v"])}
+                          for c in caches] for _ in range(2)],
+                "cross": [{"ck": torch.empty_like(c["ck"]),
+                           "cv": torch.empty_like(c["cv"])}
+                          for c in caches],
+                "logprobs": None}
 
     @torch.inference_mode()
     def caption_fn(images: torch.Tensor,
@@ -70,33 +249,45 @@ def make_caption_fn(model, decoder, sos_index: int = 1,
             model.eval()
             grid = model.encode_visual(images)
             B = images.shape[0]
-            # Cross K/V from the untiled grid: projected, and kept, once
-            # per image; row i serves beams [i·K, (i + 1)·K).
             caches = model.init_decode(grid, decoder.max_steps)
-            cross = [{"ck": c["ck"], "cv": c["cv"]} for c in caches]
-            self_caches = [{"k": c["k"].repeat_interleave(K, dim=0),
-                            "v": c["v"].repeat_interleave(K, dim=0)}
-                           for c in caches]
+            shape = graphs.shape(caches, lambda: beam_buffers(caches))
+            buf = shape.buffers
+            state, spare = buf["self"]
+            # Row i of the cross K/V serves beams [i·K, (i + 1)·K); each
+            # image's self cache is repeated to its beams.
+            for c, sc, cx in zip(caches, state, buf["cross"]):
+                for name in ("k", "v"):
+                    sc[name].view(B, K, *c[name].shape[1:]).copy_(
+                        c[name][:, None])
+                cx["ck"].copy_(c["ck"])
+                cx["cv"].copy_(c["cv"])
+            del caches
 
             def step_fn(tokens, position: int, state):
                 if rebase:
                     position = max(position - 1, 0)
-                with span("decode_step", tokens):
-                    full = [{**sc, **cx} for sc, cx in zip(state, cross)]
-                    logits, full = model.decode_step(tokens, position, full)
-                    state = [{"k": c["k"], "v": c["v"]} for c in full]
-                    return torch.log_softmax(logits.float(), dim=-1), state
+                full = [{**sc, **cx} for sc, cx in zip(state, buf["cross"])]
+                logits, full = model.decode_step(tokens, position, full)
+                state = [{"k": c["k"], "v": c["v"]} for c in full]
+                if buf["logprobs"] is None:
+                    buf["logprobs"] = logits.new_empty(logits.shape,
+                                                       dtype=torch.float32)
+                return torch.log_softmax(logits.float(), dim=-1,
+                                         out=buf["logprobs"]), state
 
             start = torch.full((B,), sos_index, dtype=torch.long,
                                device=images.device)
-            preds, _ = decoder.search(start, step_fn, self_caches)
+            steps = shape.steps(step_fn)
+            steps.spare = spare
+            preds, _ = decoder.search(start, steps, state)
             return preds
 
+    caption_fn.decode_graphs = graphs
     return caption_fn
 
 
 def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
-                        sos_index: int) -> CaptionFn:
+                        sos_index: int, graphs: DecodeGraphs) -> CaptionFn:
     @torch.inference_mode()
     def caption_fn(images: torch.Tensor,
                    generator: Optional[torch.Generator] = None
@@ -110,14 +301,20 @@ def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
             model.eval()
             caches = model.init_decode(model.encode_visual(images),
                                        decoder.max_steps)
+            shape = graphs.shape(
+                caches, lambda: {"caches": tree_map(torch.empty_like,
+                                                    caches)})
+            state = shape.buffers["caches"]
+            tree_map(lambda buffer, c: buffer.copy_(c), state, caches)
+            del caches
             start = torch.full((images.shape[0],), sos_index,
                                dtype=torch.long, device=images.device)
-            preds, _ = decoder.search(start, step_fn, caches, generator)
+            preds, _ = decoder.search(start, shape.steps(step_fn), state,
+                                      generator)
             return preds
 
     def step_fn(tokens, position: int, caches):
-        with span("decode_step", tokens):
-            return model.decode_step(tokens, position, caches)
+        return model.decode_step(tokens, position, caches)
 
     return caption_fn
 

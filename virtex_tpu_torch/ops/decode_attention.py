@@ -15,7 +15,10 @@ per K/V row (once per image for the beams' cross-attention) and never the
 positions at or past ``n_valid``; :data:`decode_launch_count` counts its
 launches, and while a profiler records each launch notes its shape (R,
 K/V rows, n_valid, N, D) under ``"decode_attention"`` in the store of
-``utils/tracing.py``. On the CPU and in fp32 it computes
+``utils/tracing.py``. A launch made while a CUDA graph is captured runs
+only when the graph replays: inside :func:`capture_launches` it is neither
+counted nor noted but handed to the capturer, whose replays count and note
+it with :func:`count_launches`. On the CPU and in fp32 it computes
 :func:`decode_attention_reference`: fp32 logits scaled by 1/√D, −1e9 at
 the positions past ``n_valid``, an fp32 softmax, the probabilities
 rounded to q's dtype and P·V summed in fp32, each K/V row repeated to its
@@ -23,7 +26,9 @@ query rows, which are the decode path's einsum ops as they were.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -41,11 +46,37 @@ from virtex_tpu_torch.utils.tracing import note
 KERNEL_DIMS = (8, 16, 32, 64, 128, 256)
 
 decode_launch_count = 0  # kernel launches since import or the last reset
+_captured: Optional[list] = None  # shapes of the launches being captured
 
 
 def reset_launch_count() -> None:
     global decode_launch_count
     decode_launch_count = 0
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[List[tuple]]:
+    """Inside, launches are captured into a CUDA graph and not run: the
+    list yielded collects their shapes instead of the count and the
+    notes."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def count_launches(shapes) -> None:
+    """Count and note launches of these shapes that ran: one launch, or a
+    replay of the launches :func:`capture_launches` collected."""
+    global decode_launch_count
+    if _captured is not None:
+        _captured.extend(shapes)
+        return
+    decode_launch_count += len(shapes)
+    for shape in shapes:
+        note("decode_attention", shape)
 
 
 def _check(q, k, v, n_valid: int, rows_per_kv: int) -> None:
@@ -93,7 +124,6 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 @_on_device
 def _launch(q, k, v, n_valid: int, rows_per_kv: int) -> torch.Tensor:
-    global decode_launch_count
     R, _, N, D = q.shape
     rows = k.shape[0]
     if D not in KERNEL_DIMS:
@@ -114,8 +144,7 @@ def _launch(q, k, v, n_valid: int, rows_per_kv: int) -> torch.Tensor:
         rows_per_kv, n_valid, N, D, q.stride(0), q.stride(2), *k.stride()[:3],
         *v.stride()[:3], math.sqrt(D), _stream(q))
     _build.check(err, "decode_attention launch")
-    decode_launch_count += 1
-    note("decode_attention", (R, rows, n_valid, N, D))
+    count_launches(((R, rows, n_valid, N, D),))
     return out
 
 

@@ -12,8 +12,13 @@ Counterpart of ``virtex_tpu/utils/beam_search.py``
 - later steps: −10000 on each beam's last predicted token, EOS-absorbing
   finished beams (only EOS, at zero cost), per-node top-P, then the global
   top-K of the K·P candidates;
-- the search state (e.g. KV caches) is reordered to follow the winners;
-- early stop when every beam ends in EOS.
+- the search state (e.g. KV caches) is reordered to follow the winners,
+  gathered into a second state of the same shapes (the step function's
+  ``spare``, or one made once a call) and swapped with it, so that a
+  state its step updates in place lies in one of two fixed sets of
+  tensors at every step;
+- early stop when every beam ends in EOS (the step after the last is
+  launched before the host learns it, and its result dropped).
 
 Top-k takes the largest values first and breaks ties toward the lowest
 index, as ``lax.top_k`` does (a stable descending sort; ``torch.topk``
@@ -38,20 +43,39 @@ def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
-def all_equal(x: torch.Tensor, value) -> bool:
-    """Whether every element of ``x`` equals ``value``: the search loops'
-    host sync, a span of its own."""
-    with span("host_sync", x):
-        return bool((x == value).all())
+def all_equal_later(x: torch.Tensor, value) -> Callable[[], bool]:
+    """Start testing whether every element of ``x`` equals ``value``; the
+    function returned waits for the answer: the search loops' host sync,
+    a span of its own. On CUDA the answer is copied to pinned host memory
+    behind an event, so the work launched between the start and the wait
+    keeps the card busy while the host waits and turns round."""
+    equal = (x == value).all()
+    if x.device.type != "cuda":
+        host, done = equal, None
+    else:
+        host = torch.empty((), dtype=torch.bool, pin_memory=True)
+        host.copy_(equal, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+    def wait() -> bool:
+        with span("host_sync", x):
+            if done is not None:
+                done.synchronize()
+            return bool(host)
+    return wait
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor in nested lists / tuples / dicts."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor in nested lists / tuples / dicts, and
+    to the tensors at the same places in ``rest``, trees of one
+    structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 class AutoRegressiveBeamSearch:
@@ -78,7 +102,11 @@ class AutoRegressiveBeamSearch:
             start_tokens: (B,) int — usually ``[SOS]``.
             step_fn: ``(last_tokens (B·K,), position, state) →
                 (logprobs (B·K, V), state)``; ``state`` is nested
-                lists/dicts of tensors whose dim 0 is B·K.
+                lists/dicts of tensors whose dim 0 is B·K. Its attribute
+                ``spare``, where it has one, is a state of the same shapes
+                that the reorder gathers into, the state's twin (its
+                contents are overwritten); else one is made at the first
+                reorder.
             only_return_best: return the best beam (B, T) or all (B, K, T).
 
         Returns:
@@ -109,10 +137,17 @@ class AutoRegressiveBeamSearch:
         after_end[eos] = 0.0
         rows = torch.arange(B * K, device=device)
         base = (torch.arange(B, device=device) * K)[:, None]
+        spare = getattr(step_fn, "spare", None)
         t = 1
-        while t < self.max_steps and not all_equal(last, eos):
+        stop = all_equal_later(last, eos) if t < self.max_steps else None
+        while stop is not None:
             last_flat = last.reshape(B * K)
+            # Step t is launched before the wait for the stop test (is
+            # every beam at EOS after step t − 1?), and is wasted when it
+            # says stop: the card works while the host turns round.
             logprobs, state = step_fn(last_flat, t, state)
+            if stop():
+                break
             with span("beam_select", logprobs):
                 logprobs = logprobs.float().clone()
                 logprobs[rows, last_flat] += REPETITION_PENALTY
@@ -130,8 +165,14 @@ class AutoRegressiveBeamSearch:
             with span("beam_reorder", src):
                 preds = preds.reshape(B * K, -1)[src].reshape(B, K, -1)
                 preds[:, :, t] = last
-                state = tree_map(lambda x: x.index_select(0, src), state)
+                if spare is None:
+                    spare = tree_map(torch.empty_like, state)
+                tree_map(lambda x, out: torch.index_select(x, 0, src,
+                                                           out=out),
+                         state, spare)
+                state, spare = spare, state
             t += 1
+            stop = all_equal_later(last, eos) if t < self.max_steps else None
 
         if only_return_best:
             return preds[:, 0, :], scores[:, 0]

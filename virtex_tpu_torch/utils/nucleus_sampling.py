@@ -13,7 +13,8 @@ Counterpart of ``virtex_tpu/utils/nucleus_sampling.py``
   from an explicit :class:`torch.Generator`. Where the guard has left a row
   at −1e18 throughout, the noise vanishes in the rounding and the argmax
   takes token 0, as it does in the JAX package;
-- EOS latched once ``t > 0``; an early stop when every row is latched.
+- EOS latched once ``t > 0``; an early stop when every row is latched
+  (the step after the last is launched before the host learns it).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from virtex_tpu_torch.utils.beam_search import all_equal
+from virtex_tpu_torch.utils.beam_search import all_equal_later
 
 StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
 NEG_INF = -1e18
@@ -83,9 +84,13 @@ class AutoRegressiveNucleusSampling:
         preds = torch.full((B, self.max_steps), eos, dtype=torch.long,
                            device=start_tokens.device)
         last = start_tokens.long()
-        t = 0
-        while t < self.max_steps and not (t > 0 and all_equal(last, eos)):
+        t, stop = 0, None
+        while t < self.max_steps:
+            # As in beam search, step t is launched before the wait for
+            # the stop test of step t − 1.
             logits, state = step_fn(last, t, state)
+            if stop is not None and stop():
+                break
             logits = logits.float()
             filtered = logits.masked_fill(
                 topp_drop(logits, self.nucleus_size), NEG_INF)
@@ -96,4 +101,6 @@ class AutoRegressiveNucleusSampling:
             preds[:, t] = sampled
             last = sampled
             t += 1
+            if t < self.max_steps:
+                stop = all_equal_later(last, eos)
         return preds, None

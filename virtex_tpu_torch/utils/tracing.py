@@ -161,6 +161,11 @@ def _cuda_stream(where):
     return stream
 
 
+def recording() -> bool:
+    """Whether a profiler records, and spans and notes are kept."""
+    return _profiling()
+
+
 def span(name: str, where=None):
     """A context over one stretch of the program named ``name``; its
     device seconds are read on the CUDA stream of ``where`` (a tensor or a
