@@ -273,6 +273,7 @@ The line before the last is a JSON object on the kernels; the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -469,11 +470,10 @@ def k1_out(torch, A, name, q, k, v, mask, rate=0.0, seed=None):
     """fused_attention on the card, checked to launch K1 once, in the
     tensor-core variant exactly where the operands are bf16."""
     want = tensor_core_wanted(torch, A, q, k)
-    before = (A.launch_count, A.mma_launch_count)
+    before = launched()
     out = A.fused_attention(q, k, v, mask, rate, seed)
     torch.cuda.synchronize()
-    if (A.launch_count, A.mma_launch_count) != (before[0] + 1,
-                                                before[1] + int(want)):
+    if launched() - before != {("k1", "mma" if want else "scalar"): 1}:
         fail(f"K1 {name}: fused_attention did not launch K1's "
              f"{'tensor-core' if want else 'scalar'} variant once")
     return out
@@ -560,11 +560,12 @@ def k2_grads(torch, A, q, k, v, mask, g, rate=0.0, seed=None):
     tensor-core variant exactly where the operands are bf16)."""
     want = tensor_core_wanted(torch, A, q, k)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-    before = (A.bwd_launch_count, A.mma_bwd_launch_count)
+    before = launched()
     A.fused_attention(q, k, v, mask, rate, seed).backward(g)
     torch.cuda.synchronize()
-    if (A.bwd_launch_count, A.mma_bwd_launch_count) != (
-            before[0] + 1, before[1] + int(want)):
+    ran = launched() - before
+    if (ran[("k2", "mma")], ran[("k2", "scalar")]) != (int(want),
+                                                      int(not want)):
         fail(f"K2: the attention backward did not launch K2's "
              f"{'tensor-core' if want else 'scalar'} variant once")
     return q.grad, k.grad, v.grad
@@ -693,11 +694,12 @@ def check_edges(torch, A, device):
     """K1 and K2 against their plain versions at the edges of the
     tensor-core variants' tiling. Returns the largest absolute errors of
     K1 and K2 and a summary of the relative ones."""
+    from virtex_tpu_torch.ops._launch import aligned_16
     worst, abs_err = {}, {"K1": 0.0, "K2": 0.0}
     tol = TOL["bfloat16"]
     for i, name in enumerate(EDGE_CASES):
         q, k, v, g, mask = edge_case(torch, name, device, SEED + 60 + i)
-        if name.startswith("unaligned") and A.aligned_16(q):
+        if name.startswith("unaligned") and aligned_16(q):
             fail("the unaligned edge case is aligned")
         out = k1_out(torch, A, name, q, k, v, mask)
         pairs = [("out", out, A.attention_reference(q, k, v, mask))]
@@ -722,7 +724,6 @@ def check_no_sync_dropout(torch, port, device):
     flagship's width (B 128, 16 heads, causal + pad mask) under
     ``torch.cuda.set_sync_debug_mode("error")``: the seed is drawn on the
     card and K1 and K2 read it there, so nothing is read back."""
-    A = port.A
     mha = port.MultiHeadAttention(1024, 16, dropout=0.1).to(device).train()
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -730,15 +731,15 @@ def check_no_sync_dropout(torch, port, device):
                     dtype=torch.bfloat16)
     mask = self_mask(torch, TRAIN_BATCH, 30, device, SEED)
     torch.cuda.synchronize()
-    before = (A.mma_launch_count, A.mma_bwd_launch_count)
+    before = launched()
     torch.cuda.set_sync_debug_mode("error")
     try:
         mha(x, x, mask, generator=gen).float().sum().backward()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    if (A.mma_launch_count, A.mma_bwd_launch_count) != (before[0] + 1,
-                                                        before[1] + 1):
+    ran = launched() - before
+    if (ran[("k1", "mma")], ran[("k2", "mma")]) != (1, 1):
         fail("MultiHeadAttention with dropout did not launch the "
              "tensor-core K1 and K2 once each")
     grad = mha.in_proj_weight.grad
@@ -787,9 +788,8 @@ K4_CASES = [(f"{hw}x{hw}x{C}", TRAIN_BATCH, hw, C, "channels_last",
      for hw, C in FINETUNE_K4_SHAPES]
 
 
-def bn_counts(BN):
-    return (BN.launch_count, BN.vector_launch_count, BN.dx_launch_count,
-            BN.dx_vector_launch_count)
+def bn_counts():
+    return vector_counts("k4_sums", "k4_dx")
 
 
 def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
@@ -815,7 +815,7 @@ def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
         if vector == name.startswith("scalar"):
             fail(f"K4 {name}: k4_vector_width gives the "
                  f"{'vector' if vector else 'scalar'} variant")
-        before = bn_counts(BN)
+        before = bn_counts()
         out = BN.bn_backward_sums(dy, x, mean, rstd)
         again = BN.bn_backward_sums(dy, x, mean, rstd)
         ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
@@ -823,7 +823,7 @@ def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
         dx_again = BN.bn_backward_dx(dy, x, mean, rstd, weight, ref)
         dx_ref = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight, ref)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(bn_counts(BN), before))
+        launched = tuple(a - b for a, b in zip(bn_counts(), before))
         if launched != (2, 2 * vector, 2, 2 * vector):
             fail(f"K4 {name}: (stage 1, vector, dx, vector) launches "
                  f"{launched}, expected two of each stage in the "
@@ -863,14 +863,14 @@ def check_k4(torch, BN, device, cases=K4_CASES, m_total=True,
         weight = torch.rand(C, generator=gen, device=device) + 0.5
         total = 2.0 * BN.bn_backward_sums_reference(dy, x, mean, rstd)
         M = TRAIN_BATCH * hw * hw
-        before = bn_counts(BN)
+        before = bn_counts()
         dx = BN.bn_backward_dx(dy, x, mean, rstd, weight, total,
                                m_total=DP_WORLD * M)
         dx_ref = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight,
                                              total, m_total=DP_WORLD * M)
         local = BN.bn_backward_dx_reference(dy, x, mean, rstd, weight, total)
         torch.cuda.synchronize()
-        launched = tuple(a - b for a, b in zip(bn_counts(BN), before))
+        launched = tuple(a - b for a, b in zip(bn_counts(), before))
         err_dx = rel_err(dx, dx_ref, 1.0)
         name = f"m_total 2M {hw}x{hw}x{C}"
         worst[name] = (0.0, err_dx)
@@ -913,7 +913,7 @@ def check_bn_forward(torch, BN, device, batch=TRAIN_BATCH,
             torch.zeros((), dtype=torch.int64, device=device), 0.9, M)
         want = BN.Running(running.mean.clone(), running.var.clone(),
                           running.count.clone(), 0.9, M)
-        before = fwd_counts(BN)
+        before = fwd_counts()
         stats = BN.bn_forward_stats(x, BN_EPS, running)
         again = BN.bn_forward_stats(x, BN_EPS)
         ref = BN.bn_forward_stats_reference(x, BN_EPS)
@@ -932,7 +932,7 @@ def check_bn_forward(torch, BN, device, batch=TRAIN_BATCH,
                                            bias, torch.bfloat16)
         torch.cuda.synchronize()
         name = f"{hw}x{hw}x{C}"
-        launched = tuple(a - b for a, b in zip(fwd_counts(BN), before))
+        launched = tuple(a - b for a, b in zip(fwd_counts(), before))
         if launched != (2, 2, 3, 3):
             fail(f"BatchNorm forward {name}: (statistics, vector, apply, "
                  f"vector) launches {launched}, expected (2, 2, 3, 3)")
@@ -1063,11 +1063,11 @@ DECODE_HEADS = (32, 16)
 def decode_out(torch, DA, q, k, v, n_valid, rows_per_kv):
     """The op on the card, checked to launch its kernel once and to give
     equal bits twice."""
-    before = DA.decode_launch_count
+    before = launched()
     out = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
     again = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
     torch.cuda.synchronize()
-    if DA.decode_launch_count != before + 2 or not torch.equal(out, again):
+    if launched() - before != {DA.KEY: 2} or not torch.equal(out, again):
         fail(f"decode attention {tuple(q.shape)} x {tuple(k.shape)}, n_valid "
              f"{n_valid}: not one launch a call, or other bits the second "
              "time")
@@ -1199,56 +1199,65 @@ def time_decode_attention(torch, DA, device) -> dict:
 
 
 # -- phase 8 -----------------------------------------------------------------
-# The BatchNorm forward's launches on every main path of this process
-# (read by launch_counts, summed over the run), for the kernels line.
-FWD_LAUNCHES = {"stats": 0, "apply": 0}
-_fwd_seen = {"stats": 0, "apply": 0}  # the counters at the last reading
-# The decode attention's, likewise (ops/decode_attention.py).
-DECODE_LAUNCHES = {"decode": 0}
-_decode_seen = {"decode": 0}
+# The launches on every main path of this process by (kernel, variant)
+# (read by checked_counts, summed over the run), for the kernels line.
+MAIN_PATH_LAUNCHES = collections.Counter()
+_seen = collections.Counter()  # the count at the last reading
 
 
-def fwd_counts(BN):
-    return (BN.fwd_stats_launch_count, BN.fwd_stats_vector_launch_count,
-            BN.fwd_apply_launch_count, BN.fwd_apply_vector_launch_count)
+def launched():
+    """The port's launches since ``reset_counts`` by (kernel, variant), as
+    its launch seam counts them (``virtex_tpu_torch/ops/_launch.py``)."""
+    from virtex_tpu_torch.ops import _launch
+    return _launch.snapshot()
 
 
-def launch_counts(A, BN) -> dict:
+def total(counts, kernel: str) -> int:
+    """``kernel``'s launches in ``counts``, every variant."""
+    return sum(n for (name, _), n in counts.items() if name == kernel)
+
+
+def vector_counts(*kernels) -> tuple:
+    """Each kernel's launches since ``reset_counts`` and, of those, its
+    vector variant's."""
+    counts, out = launched(), []
+    for kernel in kernels:
+        out += [total(counts, kernel), counts[(kernel, "vector")]]
+    return tuple(out)
+
+
+def fwd_counts():
+    return vector_counts("bn_stats", "bn_apply")
+
+
+def raw_counts() -> dict:
+    """The launches since ``reset_counts``, whatever their variants."""
+    counts = launched()
+    return {"K1": total(counts, "k1"), "K2": total(counts, "k2"),
+            "K4": total(counts, "k4_sums"), "K4dx": total(counts, "k4_dx")}
+
+
+def checked_counts() -> dict:
     """The launches since ``reset_counts``. Every main path here runs in
-    bf16, so each of its K1 and K2 launches must have taken the
-    tensor-core variant, and each of K4's (stage 1 and dx) and of the
+    bf16, so none may have taken a scalar variant: each K1 and K2 launch
+    the tensor-core one, and each of K4's (stage 1 and dx) and of the
     BatchNorm forward's (statistics and apply) the vector one. The
-    forward's launches since the last reading join FWD_LAUNCHES, and the
-    decode attention's DECODE_LAUNCHES."""
-    from virtex_tpu_torch.ops import decode_attention as DA
-    fwd = fwd_counts(BN)
-    scalar = (A.launch_count - A.mma_launch_count,
-              A.bwd_launch_count - A.mma_bwd_launch_count,
-              BN.launch_count - BN.vector_launch_count,
-              BN.dx_launch_count - BN.dx_vector_launch_count,
-              fwd[0] - fwd[1], fwd[2] - fwd[3])
-    if any(scalar):
-        fail(f"{scalar[0]} K1, {scalar[1]} K2, {scalar[2]} K4, "
-             f"{scalar[3]} K4 dx, {scalar[4]} BatchNorm statistics and "
-             f"{scalar[5]} BatchNorm apply launches of a bf16 main path "
-             "took the scalar variant")
-    for key, now in (("stats", fwd[0]), ("apply", fwd[2])):
-        FWD_LAUNCHES[key] += now - _fwd_seen[key]
-        _fwd_seen[key] = now
-    DECODE_LAUNCHES["decode"] += DA.decode_launch_count - _decode_seen[
-        "decode"]
-    _decode_seen["decode"] = DA.decode_launch_count
-    return {"K1": A.launch_count, "K2": A.bwd_launch_count,
-            "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
+    launches since the last reading join MAIN_PATH_LAUNCHES."""
+    counts = launched()
+    scalar = {key: n for key, n in counts.items() if key[1] == "scalar"}
+    if scalar:
+        fail(f"launches of a bf16 main path took the scalar variant: "
+             f"{scalar}")
+    MAIN_PATH_LAUNCHES.update(counts - _seen)
+    _seen.clear()
+    _seen.update(counts)
+    return raw_counts()
 
 
-def reset_counts(A, BN) -> None:
-    from virtex_tpu_torch.ops import decode_attention as DA
-    A.reset_launch_count()
-    BN.reset_launch_count()
-    DA.reset_launch_count()
-    _fwd_seen.update(stats=0, apply=0)
-    _decode_seen.update(decode=0)
+def reset_counts() -> None:
+    from virtex_tpu_torch.ops import _launch
+    _launch.reset()
+    _seen.clear()
 
 
 def train_batch(torch, spec, device, seed):
@@ -1700,7 +1709,7 @@ def profile_step(torch, fn) -> str:
 def check_fwd_counts(fwd, what: str) -> None:
     """A train step's BatchNorm forward launches: one statistics and one
     apply launch for each K4 stage-1 launch, all in the vector variants
-    (``fwd_counts``, read right after the step's ``launch_counts``)."""
+    (``fwd_counts``, read right after the step's ``checked_counts``)."""
     want = LAUNCHES_PER_STEP["K4"]
     if fwd != (want, want, want, want):
         fail(f"{what}: BatchNorm forward (statistics, vector, apply, "
@@ -1747,12 +1756,12 @@ def check_train(torch, port, device):
 
     # First step, dropout 0: the kernels against the plain versions.
     shapes, unhook = bn_shape_counts(model, port.SubsampledBatchNorm)
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
-    first_counts = launch_counts(A, BN)  # ... and ends here
-    first_fwd = fwd_counts(BN)
-    dy_copies = BN.dy_copy_count
+    first_counts = checked_counts()  # ... and ends here
+    first_fwd = fwd_counts()
+    dy_copies = launched()[("k4_dy", "copy")]
     unhook()
     if first_counts != LAUNCHES_PER_STEP:
         fail(f"train step launched {first_counts}, expected "
@@ -1793,14 +1802,14 @@ def check_train(torch, port, device):
     losses, counts5 = [], {k: 0 for k in LAUNCHES_PER_STEP}
     for i in range(1, TRAIN_STEPS + 1):
         slow_before = opt5.slow[0].clone()
-        reset_counts(A, BN)         # a main path starts here
+        reset_counts()         # a main path starts here
         loss = float(step5(batch)["loss"])
         torch.cuda.synchronize()
-        counts = launch_counts(A, BN)  # ... and ends here
+        counts = checked_counts()  # ... and ends here
         if counts != LAUNCHES_PER_STEP:
             fail(f"train step {i} launched {counts}, expected "
                  f"{LAUNCHES_PER_STEP}")
-        check_fwd_counts(fwd_counts(BN), f"train step {i}")
+        check_fwd_counts(fwd_counts(), f"train step {i}")
         counts5 = {k: counts5[k] + counts[k] for k in counts}
         if not np.isfinite(loss):
             fail(f"train step {i}: loss {loss}")
@@ -1994,10 +2003,10 @@ def check_task(torch, port, device, stem):
     dropout_model = port.PretrainingModelFactory.from_spec(spec)
     dropout_model.load_state_dict(model.state_dict())
     dropout_model = dropout_model.to(device)
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
-    counts = launch_counts(A, BN)   # ... and ends here
+    counts = checked_counts()   # ... and ends here
     if counts != want:
         fail(f"{name} train step launched {counts}, expected {want}")
     ref = {k: float(v) for k, v in plain_step(batch).items()}
@@ -2020,10 +2029,10 @@ def check_task(torch, port, device, stem):
                                             optim), ACCUM, generator=gen)
     losses = []
     for i in range(TASK_DROPOUT_STEPS):
-        reset_counts(A, BN)         # a main path starts here
+        reset_counts()         # a main path starts here
         loss = float(dropout_step(batch)["loss"])
         torch.cuda.synchronize()
-        counts = launch_counts(A, BN)  # ... and ends here
+        counts = checked_counts()  # ... and ends here
         if counts != want:
             fail(f"{name} dropout step {i + 1} launched {counts}, expected "
                  f"{want}")
@@ -2035,13 +2044,13 @@ def check_task(torch, port, device, stem):
 
     # Eval step at batch 32, and the eval-mode predictions.
     eval_batch = task_batch(torch, spec, EVAL_BATCH, SEED + 7, device)
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     eval_losses = {k: float(v)
                    for k, v in port.make_eval_step(model)(eval_batch).items()}
     with torch.inference_mode():
         preds = model.eval()(eval_batch)["predictions"]
     torch.cuda.synchronize()
-    counts = launch_counts(A, BN)   # ... and ends here
+    counts = checked_counts()   # ... and ends here
     launches = {k: launches[k] + counts[k] for k in counts}
     # two forwards (the eval step's, the predictions'), each one micro-step
     # of the train step's forward: half its K1 launches
@@ -2098,7 +2107,6 @@ def boundary_rows(logits, p):
 
 def check_nucleus(torch, port, model, spec, images, device):
     """Phase 12. Returns the launches of its main path and ms per batch."""
-    A, BN = port.A, port.BN
     nspec = dataclasses.replace(spec, decoder_name="nucleus_sampling",
                                 nucleus_size=NUCLEUS_P)
     decoder = port.CaptionDecoderFactory.from_spec(nspec)
@@ -2110,11 +2118,11 @@ def check_nucleus(torch, port, model, spec, images, device):
         gen.manual_seed(seed)
         return caption_fn(images, gen)
 
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     tokens = draw(SEED)
     torch.cuda.synchronize()
-    counts = launch_counts(A, BN)   # ... and ends here
-    decodes = port.DA.decode_launch_count
+    counts = checked_counts()   # ... and ends here
+    decodes = launched()[port.DA.KEY]
     if any(counts.values()):
         fail(f"nucleus captioning launched {counts}; its decode path "
              "launches no K1, K2 or K4")
@@ -2408,9 +2416,9 @@ def counted_steps(port, module, per_step: list, per_eval: list):
             step = make(*a, **k)
 
             def wrapped(batch):
-                before = launch_counts(port.A, port.BN)
+                before = checked_counts()
                 out = step(batch)
-                after = launch_counts(port.A, port.BN)
+                after = checked_counts()
                 counts = {k: after[k] - before[k] for k in after}
                 if with_batch:
                     counts["B"] = int(batch["image"].shape[0])
@@ -2491,11 +2499,11 @@ def check_pretraining(torch, port, device):
             *[str(v) for v in PRETRAIN_OVERRIDES]]
     run = os.path.join(work, "run")
     steps, evals = [], []
-    reset_counts(port.A, port.BN)     # a main path starts here
+    reset_counts()     # a main path starts here
     result = run_pretrain(torch, port, base + ["--serialization-dir", run],
                           steps, evals)
     torch.cuda.synchronize()
-    launches = launch_counts(port.A, port.BN)  # ... and ends here
+    launches = checked_counts()  # ... and ends here
     losses = [result["losses"][i] for i in range(1, PRETRAIN_ITERS + 1)]
     if not all(np.isfinite(losses)):
         fail(f"pretraining: losses {losses}")
@@ -2673,12 +2681,12 @@ def check_eval_captioning(torch, port, device, run, root, tokenizer):
                                      "nucleus_sampling"])):
         out_dir = os.path.join(WORK, f"eval_{name}")
         out_json = os.path.join(out_dir, "predictions.json")
-        reset_counts(port.A, port.BN)   # a main path starts here
+        reset_counts()   # a main path starts here
         result, last = run_cli(port.eval_captioning, base + [
             "--serialization-dir", out_dir, "--output", out_json] + over
             + extra, os.path.join(WORK, f"eval_{name}.log"))
         torch.cuda.synchronize()
-        counts = launch_counts(port.A, port.BN)  # ... and ends here
+        counts = checked_counts()  # ... and ends here
         if counts != NO_LAUNCHES:
             fail(f"eval_captioning ({name}) launched {counts}; its decode "
                  "path runs no kernel")
@@ -2708,12 +2716,12 @@ def check_eval_captioning(torch, port, device, run, root, tokenizer):
     for stem, name in zip(stems, files):
         shutil.copyfile(os.path.join(root, "val2017", name),
                         os.path.join(directory, f"{stem}.jpg"))
-    reset_counts(port.A, port.BN)   # a main path starts here
+    reset_counts()   # a main path starts here
     result, _ = run_cli(port.eval_captioning, base[:-1] + [
         "--serialization-dir", os.path.join(WORK, "eval_images"),
         "--images", directory] + over, os.path.join(WORK, "eval_images.log"))
     torch.cuda.synchronize()
-    if launch_counts(port.A, port.BN) != NO_LAUNCHES:  # ... and ends here
+    if checked_counts() != NO_LAUNCHES:  # ... and ends here
         fail("eval_captioning --images launched a kernel")
     ids = [p["image_id"] for p in result["predictions"]]
     if ids != stems:
@@ -2866,7 +2874,7 @@ def run_clf(torch, port, name, args, first_step):
     backward calls the plain versions, and both steps' metrics are stored
     there. Returns the CLI's result, its last line, the per-step records,
     and the train step and the last batch for timing afterwards."""
-    cli, A, BN = port.clf_linear, port.A, port.BN
+    cli, BN = port.clf_linear, port.BN
     make = cli.make_train_step
     steps, kept = [], {}
 
@@ -2881,12 +2889,12 @@ def run_clf(torch, port, name, args, first_step):
                     if isinstance(m, port.SubsampledBatchNorm):
                         plain_bn(m, BN)
                 plain_step = make(twin, twin_opt)
-            before = launch_counts(A, BN)
+            before = checked_counts()
             t0 = time.perf_counter()
             out = step(batch)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            after = launch_counts(A, BN)
+            after = checked_counts()
             steps.append({**{key: after[key] - before[key] for key in after},
                           "ms": ms})
             if plain_step is not None:
@@ -2939,10 +2947,10 @@ def check_clf_linear(torch, port, device, run, flagship_step_ms):
                 "1", "--down-config-override", "DATA.ROOT", root,
                 "OPTIM.NUM_ITERATIONS", str(CLF_ITERS)]
         first = {} if name == "finetune" else None
-        reset_counts(port.A, port.BN)   # a main path starts here
+        reset_counts()   # a main path starts here
         result, last, steps, kept = run_clf(torch, port, name, args, first)
         torch.cuda.synchronize()
-        launches = launch_counts(port.A, port.BN)  # ... and ends here
+        launches = checked_counts()  # ... and ends here
         want = CLF_LAUNCHES[name]
         if len(steps) != CLF_ITERS or any(
                 {k: c[k] for k in want} != want for c in steps):
@@ -3151,11 +3159,11 @@ def check_clf_voc07(torch, port, device, run):
             "--serialization-dir", os.path.join(WORK, "voc07"),
             "--device", str(device), "--down-config-override", "DATA.ROOT",
             root]
-    reset_counts(port.A, port.BN)       # a main path starts here
+    reset_counts()       # a main path starts here
     result, last = run_cli(port.clf_voc07, args,
                            os.path.join(WORK, "clf_voc07.log"))
     torch.cuda.synchronize()
-    launches = launch_counts(port.A, port.BN)  # ... and ends here
+    launches = checked_counts()  # ... and ends here
     if launches != NO_LAUNCHES:
         fail(f"clf_voc07 launched {launches}; its backbone runs BatchNorm on "
              "running statistics")
@@ -3297,16 +3305,16 @@ def seeded_step(torch, port, spec, state: dict, seed: int):
 
 
 def counted_step(torch, port, step, batch):
-    """One train step between ``reset_counts`` and ``launch_counts``, with
+    """One train step between ``reset_counts`` and ``checked_counts``, with
     its metrics, host ms and peak GiB."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(port.A, port.BN)   # a main path starts here
+    reset_counts()   # a main path starts here
     t0 = time.perf_counter()
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = launch_counts(port.A, port.BN)  # ... and ends here
+    counts = checked_counts()  # ... and ends here
     return metrics, counts, ms, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -3486,12 +3494,6 @@ DP_STEP_COLLECTIVES = {"bn_stats": R50_BN_LAYERS * ACCUM,
 DP_TIMEOUT_S = 600
 
 
-def raw_counts(A, BN) -> dict:
-    """The launches since ``reset_counts``, whatever their variants."""
-    return {"K1": A.launch_count, "K2": A.bwd_launch_count,
-            "K4": BN.launch_count, "K4dx": BN.dx_launch_count}
-
-
 def check_dp_world_1(torch, port, device, base, run13, result13):
     """Phase 20(a). Returns its launches."""
     from virtex_tpu_torch.utils import distributed
@@ -3506,11 +3508,11 @@ def check_dp_world_1(torch, port, device, base, run13, result13):
     t0 = time.perf_counter()
     try:
         distributed.reset_all_reduce_counts()
-        reset_counts(port.A, port.BN)     # a main path starts here
+        reset_counts()     # a main path starts here
         result = run_pretrain(torch, port, base + ["--serialization-dir",
                                                    run], steps, evals)
         torch.cuda.synchronize()
-        launches = launch_counts(port.A, port.BN)  # ... and ends here
+        launches = checked_counts()  # ... and ends here
         backend = torch.distributed.get_backend()
         world = distributed.get_world_size()
         collectives = dict(distributed.all_reduce_counts)
@@ -3875,13 +3877,13 @@ def dp_worker(rank: int, work: str, url: str) -> None:
         step = fresh_step(model)
         distributed.reset_all_reduce_counts()
         torch.cuda.synchronize()
-        reset_counts(port.A, port.BN)   # a main path starts here
+        reset_counts()   # a main path starts here
         t0 = time.perf_counter()
         metrics = {k: float(v) for k, v in step(batch).items()}
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        counts = (raw_counts if name == "float32" else launch_counts)(
-            port.A, port.BN)             # ... and ends here
+        counts = (raw_counts if name == "float32"
+                  else checked_counts)()  # ... and ends here
         res = {"metrics": metrics, "launches": counts,
                "collectives": dict(distributed.all_reduce_counts),
                "first_ms": first_ms}
@@ -4121,10 +4123,10 @@ def zoo_train_step(torch, port, device, rel, model, cfg, n_bn):
         plain, port.build_optimizer(plain.named_parameters(), optim), ACCUM)
     batch = train_batch(torch, spec, device, SEED)
     shapes, unhook = bn_shape_counts(model, port.SubsampledBatchNorm)
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
-    counts = launch_counts(A, BN)   # ... and ends here
+    counts = checked_counts()   # ... and ends here
     unhook()
     if counts != want:
         fail(f"zoo {rel} train step launched {counts}, expected {want}")
@@ -4141,11 +4143,11 @@ def zoo_train_step(torch, port, device, rel, model, cfg, n_bn):
     del plain, plain_step
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     ms = host_ms(torch, lambda: step(batch), 2, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     profile = profile_step(torch, lambda: step(batch))
-    timed = launch_counts(A, BN)    # ... and ends here
+    timed = checked_counts()    # ... and ends here
     if timed != {k: 3 * v for k, v in want.items()}:
         fail(f"zoo {rel}: three more steps launched {timed}")
     say("21 zoo train", f"{rel}: {spec.visual_name} {spec.textual_name} "
@@ -4166,7 +4168,7 @@ def check_zoo(torch, port, device, zoo_dir):
     through a train step. Keeps the flagship's and R-101's files in
     ``zoo_dir``. Returns the launches, the BatchNorm shapes of the trained
     ResNets, and {entry: (ms, peak GiB)}."""
-    A, BN, zoo = port.A, port.BN, port.model_zoo
+    zoo = port.model_zoo
     entries = sorted(zoo._MODEL_ZOO_CONFIGS.items(), key=lambda e: e[::-1])
     names = sorted(set(zoo._MODEL_ZOO_CONFIGS.values()))
     keep = {zoo._MODEL_ZOO_CONFIGS[r] for r in (ZOO_FLAGSHIP, ZOO_R101)}
@@ -4207,11 +4209,11 @@ def check_zoo(torch, port, device, zoo_dir):
             fail(f"zoo {rel}: DTYPE {spec.dtype}")
         batch = task_batch(torch, spec, EVAL_BATCH, SEED + i, device)
         want = zoo_eval_launches(spec)
-        reset_counts(A, BN)         # a main path starts here
+        reset_counts()         # a main path starts here
         losses = {k: float(v)
                   for k, v in port.make_eval_step(model)(batch).items()}
         torch.cuda.synchronize()
-        eval_counts = launch_counts(A, BN)  # ... and ends here
+        eval_counts = checked_counts()  # ... and ends here
         if eval_counts != want:
             fail(f"zoo {rel} eval step launched {eval_counts}, expected "
                  f"{want}")
@@ -4225,10 +4227,10 @@ def check_zoo(torch, port, device, zoo_dir):
             caption_fn = port.make_caption_fn(model, decoder,
                                               spec.sos_index,
                                               spec.prefix_mode)
-            reset_counts(A, BN)     # a main path starts here
+            reset_counts()     # a main path starts here
             captions = caption_fn(batch["image"])
             torch.cuda.synchronize()
-            counts = launch_counts(A, BN)  # ... and ends here
+            counts = checked_counts()  # ... and ends here
             if any(counts.values()):
                 fail(f"zoo {rel}: beam search launched {counts}")
             lo, hi = int(captions.min()), int(captions.max())
@@ -4652,10 +4654,10 @@ def tp_worker(rank: int, work: str, url: str) -> None:
     gen.manual_seed(step_seed(SEED, 0, mesh.data_rank))
     distributed.reset_all_reduce_counts()
     torch.cuda.synchronize()
-    reset_counts(port.A, port.BN)   # a main path starts here
+    reset_counts()   # a main path starts here
     metrics = {k: float(v) for k, v in step(batch).items()}
     torch.cuda.synchronize()
-    counts = raw_counts(port.A, port.BN)   # ... and ends here
+    counts = raw_counts()   # ... and ends here
     collectives = dict(distributed.all_reduce_counts)
     grads = {n: gather_tensor(n, p.grad, mesh, "check")
              for n, p in model.named_parameters()}
@@ -4694,10 +4696,10 @@ def tp_worker(rank: int, work: str, url: str) -> None:
         gen.manual_seed(step_seed(SEED, it, mesh.data_rank))
         distributed.reset_all_reduce_counts()
         torch.cuda.synchronize()
-        reset_counts(port.A, port.BN)   # a main path starts here
+        reset_counts()   # a main path starts here
         metrics = {k: float(v) for k, v in step(batch).items()}
         torch.cuda.synchronize()
-        b16["launches"].append(launch_counts(port.A, port.BN))  # ends here
+        b16["launches"].append(checked_counts())  # ends here
         if it == 1:
             b16["collectives"] = dict(distributed.all_reduce_counts)
         b16["metrics"].append(metrics)
@@ -4732,11 +4734,11 @@ def tp_worker(rank: int, work: str, url: str) -> None:
     del state
     gen.manual_seed(step_seed(SEED, 0, mesh.data_rank))
     torch.cuda.synchronize()
-    reset_counts(port.A, port.BN)   # a main path starts here
+    reset_counts()   # a main path starts here
     metrics = {k: float(v) for k, v in step(wbatch).items()}
     torch.cuda.synchronize()
     out["wide"] = {"metrics": metrics,
-                   "launches": launch_counts(port.A, port.BN)}  # ends here
+                   "launches": checked_counts()}  # ends here
     del model, step, wbatch
     torch.cuda.empty_cache()
     lap("c")
@@ -5021,12 +5023,12 @@ def check_bitcheck_full(torch, port, device, work):
         card_npz = os.path.join(work, f"{stem}_card.npz")
         cpu_npz = os.path.join(work, f"{stem}_cpu.npz")
         common = ["--config", config, "--checkpoint-path", pth]
-        reset_counts(port.A, port.BN)       # a main path starts here
+        reset_counts()       # a main path starts here
         rc, _ = bitcheck_run(port, common + ["--device", DEVICE, "--write",
                                              card_npz],
                              os.path.join(work, f"{stem}_card.log"))
         torch.cuda.synchronize()
-        counts = raw_counts(port.A, port.BN)  # ... and ends here
+        counts = raw_counts()  # ... and ends here
         if rc != 0:
             fail(f"feature_bitcheck on the card, {stem}: exit {rc} "
                  f"(log {work})")
@@ -5068,7 +5070,7 @@ def check_bitcheck_golden(torch, port, device, work):
             fail(f"the golden's {task} .pth drew another sha256 on this "
                  f"machine: {sha}")
         card_npz = os.path.join(work, f"golden_{task}_card.npz")
-        reset_counts(port.A, port.BN)       # a main path starts here
+        reset_counts()       # a main path starts here
         rc, sides = bitcheck_run(port, [
             "--config", config, "--config-override", *overrides,
             "--checkpoint-path", pth, "--seed", str(seed),
@@ -5076,7 +5078,7 @@ def check_bitcheck_golden(torch, port, device, work):
             "--write", card_npz, "--against", BITCHECK_GOLDEN],
             os.path.join(work, f"golden_{task}.log"))
         torch.cuda.synchronize()
-        counts = raw_counts(port.A, port.BN)  # ... and ends here
+        counts = raw_counts()  # ... and ends here
         if rc != 0:
             with open(os.path.join(work, f"golden_{task}.log")) as f:
                 fail(f"feature_bitcheck, the card held to the JAX package's "
@@ -5097,7 +5099,7 @@ def check_rehearsal(torch, port, device, work):
     """Phase 23(c). Returns its launches and the steps' seconds."""
     log = os.path.join(work, "rehearsal.log")
     out = io.StringIO()
-    reset_counts(port.A, port.BN)           # a main path starts here
+    reset_counts()           # a main path starts here
     try:
         with contextlib.redirect_stdout(out):
             summary = port.reproduce_parity.rehearse(
@@ -5109,7 +5111,7 @@ def check_rehearsal(torch, port, device, work):
         fail(f"the synthetic rehearsal failed: {e}:\n"
              f"{out.getvalue()[-3000:]}")
     torch.cuda.synchronize()
-    counts = raw_counts(port.A, port.BN)    # ... and ends here
+    counts = raw_counts()    # ... and ends here
     with open(log, "w") as f:
         f.write(out.getvalue())
     text = out.getvalue()
@@ -5332,13 +5334,13 @@ def proxy_run(torch, port, argv: list, log_path: str):
     """``quality_proxy.run`` on ``argv`` on the card, its output to
     ``log_path``; returns its summary and the launches of its window."""
     out = io.StringIO()
-    reset_counts(port.A, port.BN)           # a main path starts here
+    reset_counts()           # a main path starts here
     with contextlib.redirect_stdout(out):
         summary = port.quality_proxy.run(
             port.quality_proxy.build_parser().parse_args(
                 argv + ["--device", DEVICE]))
     torch.cuda.synchronize()
-    counts = launch_counts(port.A, port.BN)  # ... and ends here
+    counts = checked_counts()  # ... and ends here
     with open(log_path, "w") as f:
         f.write(out.getvalue())
     return summary, counts
@@ -5643,13 +5645,13 @@ def main() -> None:
                                       spec.prefix_mode)
     images = batch["image"]
 
-    reset_counts(A, BN)             # a main path starts here
+    reset_counts()             # a main path starts here
     metrics = eval_step(batch)
-    eval_counts = launch_counts(A, BN)
+    eval_counts = checked_counts()
     captions = caption_fn(images)
     torch.cuda.synchronize()
-    serve_counts = launch_counts(A, BN)  # ... and ends here
-    serve_decodes = port.DA.decode_launch_count
+    serve_counts = checked_counts()  # ... and ends here
+    serve_decodes = launched()[port.DA.KEY]
 
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in losses.values()):
@@ -5953,7 +5955,7 @@ def main() -> None:
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/bn_forward.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:216",
-        "launches": FWD_LAUNCHES["stats"],
+        "launches": total(MAIN_PATH_LAUNCHES, "bn_stats"),
         "max_abs_err": fwd_stats_err,
         **row([tuple(t / fwd_calls for t in bn_fwd_step["stats"])
                + (next(iter(bn_fwd_times.values()))["stats"][4],)]),
@@ -5962,7 +5964,7 @@ def main() -> None:
         "route": "cuda",
         "source": "virtex_tpu_torch/csrc/bn_forward.cu",
         "replaces": "virtex_tpu/ops/batchnorm.py:222",
-        "launches": FWD_LAUNCHES["apply"],
+        "launches": total(MAIN_PATH_LAUNCHES, "bn_apply"),
         "max_abs_err": fwd_apply_err,
         **row([tuple(t / fwd_calls for t in bn_fwd_step["apply"])
                + (next(iter(bn_fwd_times.values()))["apply"][4],)]),
@@ -5972,7 +5974,7 @@ def main() -> None:
         "source": "virtex_tpu_torch/csrc/decode_attention.cu",
         "replaces": "none (virtex_tpu/modules/transformer.py:110, :131: "
                     "einsum attention)",
-        "launches": DECODE_LAUNCHES["decode"],
+        "launches": total(MAIN_PATH_LAUNCHES, "decode_attention"),
         "max_abs_err": decode_err_max,
         **row([decode_times["cross"], decode_times["self 30"]]),
     }]}), flush=True)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from virtex_tpu_torch.ops import _launch as L
 from virtex_tpu_torch.ops import attention as A
 
 B, Tq, Tk, N, D = 2, 8, 12, 4, 16
@@ -26,6 +27,12 @@ def rel_err(a, ref, atol):
     a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
     assert a.shape == ref.shape, (a.shape, ref.shape)
     return float(np.max(np.abs(a - ref) / (np.abs(ref) + atol)))
+
+
+def _k1(q, k):
+    """The count key of K1's launch on these operands."""
+    mma = A.use_tensor_cores(q.dtype, q.shape[3], k.shape[1])
+    return ("k1", "mma" if mma else "scalar")
 
 
 @pytest.fixture
@@ -103,9 +110,9 @@ def test_matches_jax_pallas_kernel(kind, jax_attn, interpret_mode):
 
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     q, k, v = map(_torch, _qkv(3))
-    before = A.launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v)
-    assert A.launch_count == before
+    assert L.snapshot() == before
     assert torch.equal(out, A.attention_reference(q, k, v))
 
 
@@ -150,29 +157,29 @@ def _packed_views(extra, dtype=torch.bfloat16, b=2, t=5, n=4, d=16):
 
 def test_alignment_rule():
     q = torch.zeros(2, 5, 4, 16, dtype=torch.bfloat16)
-    assert A.aligned_16(q)
-    assert all(A.aligned_16(x) for x in _packed_views(0))
+    assert L.aligned_16(q)
+    assert all(L.aligned_16(x) for x in _packed_views(0))
     # one element in: base pointer 2 bytes off, row stride 193 elements
-    assert not any(A.aligned_16(x) for x in _packed_views(1))
+    assert not any(L.aligned_16(x) for x in _packed_views(1))
     # eight elements in: base 16 bytes in, row stride 200 elements = 400 B
-    assert all(A.aligned_16(x) for x in _packed_views(8))
+    assert all(L.aligned_16(x) for x in _packed_views(8))
     # a stride that is never used (a dimension of 1) does not count
     one = torch.zeros(1, 5, 4, 16, dtype=torch.bfloat16).as_strided(
         (1, 5, 4, 16), (3, 64, 16, 1))
-    assert A.aligned_16(one)
+    assert L.aligned_16(one)
     # fp32 rows of 4 are 16 bytes; heads of 3 elements are not
-    assert A.aligned_16(torch.zeros(2, 5, 4, 4))
-    assert not A.aligned_16(torch.zeros(2, 5, 4, 3)[..., :2])
+    assert L.aligned_16(torch.zeros(2, 5, 4, 4))
+    assert not L.aligned_16(torch.zeros(2, 5, 4, 3)[..., :2])
 
 
 def test_unaligned_operand_is_copied_aligned_and_equal():
     q, _, _ = _packed_views(1)
     q.copy_(torch.randn(q.shape).to(q.dtype))
-    got = A._mma_operand(q)
-    assert got.data_ptr() != q.data_ptr() and A.aligned_16(got)
+    got = L.aligned_operand(q)
+    assert got.data_ptr() != q.data_ptr() and L.aligned_16(got)
     assert got.is_contiguous() and torch.equal(got, q)
     aligned = _packed_views(0)[0]
-    assert A._mma_operand(aligned) is aligned
+    assert L.aligned_operand(aligned) is aligned
 
 
 def test_seed_tensor_is_an_int64_view_of_a_device_seed():
@@ -222,9 +229,9 @@ def test_kernel_matches_plain_on_card(cuda, dtype, kind):
                for x in _qkv(5, Tq if kind in SELF_KINDS else Tk))
     mask = _torch(_mask(kind))
     mask = None if mask is None else mask.to(cuda)
-    before = A.launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v, mask)
-    assert A.launch_count == before + 1
+    assert L.snapshot() - before == {_k1(q, k): 1}
     ref = A.attention_reference(q, k, v, mask)
     assert out.dtype == ref.dtype == dtype
     assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) <= CARD_TOL[dtype]
@@ -263,9 +270,9 @@ def _task_ablation_case(kind, dtype, device, seed):
 @pytest.mark.parametrize("kind", ["causal_pad", "pad_only", "cross"])
 def test_kernel_matches_plain_at_32_heads_on_card(cuda, dtype, kind):
     q, k, v, mask = _task_ablation_case(kind, dtype, cuda, 9)
-    before = A.launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v, mask)
-    assert A.launch_count == before + 1
+    assert L.snapshot() - before == {_k1(q, k): 1}
     ref = A.attention_reference(q, k, v, mask)
     assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) <= CARD_TOL[dtype]
 
@@ -370,10 +377,9 @@ def card_case(B, Tq, Tk, N, D, kind, device, seed=11, dtype=torch.bfloat16):
 @pytest.mark.parametrize("name", list(MMA_CASES))
 def test_tensor_core_variant_matches_plain_on_card(cuda, name):
     q, k, v, mask = card_case(*MMA_CASES[name], cuda)
-    before, before_mma = A.launch_count, A.mma_launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v, mask)
-    assert (A.launch_count, A.mma_launch_count) == (before + 1,
-                                                    before_mma + 1)
+    assert L.snapshot() - before == {("k1", "mma"): 1}
     ref = A.attention_reference(q, k, v, mask)
     assert out.dtype == ref.dtype == torch.bfloat16
     assert torch.isfinite(out.float()).all()
@@ -387,9 +393,9 @@ def test_tensor_core_variant_matches_plain_on_card(cuda, name):
                                         (torch.bfloat16, 64, 130)])
 def test_scalar_variant_takes_the_rest_on_card(cuda, dtype, D, Tk):
     q, k, v, mask = card_case(2, 30, Tk, 4, D, "per_head", cuda, dtype=dtype)
-    before, before_mma = A.launch_count, A.mma_launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v, mask)
-    assert (A.launch_count, A.mma_launch_count) == (before + 1, before_mma)
+    assert L.snapshot() - before == {("k1", "scalar"): 1}
     ref = A.attention_reference(q, k, v, mask)
     assert rel_err(out.float().cpu(), ref.float().cpu(), 1.0) \
         <= CARD_TOL[dtype]
@@ -407,11 +413,11 @@ def test_tensor_core_variant_reads_unaligned_views_on_card(cuda, extra):
     buf = torch.from_numpy(rng.randn(b, t, 3 * n * d + extra).astype(
         np.float32)).to(cuda, torch.bfloat16)
     q, k, v = (x.view(b, t, n, d) for x in buf[..., extra:].split(n * d, -1))
-    assert A.aligned_16(q) is (extra == 8)
+    assert L.aligned_16(q) is (extra == 8)
     mask = card_case(b, t, t, n, d, "causal_pad", cuda)[3]
-    before_mma = A.mma_launch_count
+    before = L.snapshot()
     out = A.fused_attention(q, k, v, mask)
-    assert A.mma_launch_count == before_mma + 1
+    assert L.snapshot() - before == {("k1", "mma"): 1}
     ref = A.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             mask)
     assert torch.equal(out, ref)

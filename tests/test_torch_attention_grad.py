@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from virtex_tpu_torch.ops import _launch as L
 from virtex_tpu_torch.ops import attention as A
 
 B, Tq, Tk, N, D = 2, 8, 12, 4, 16
@@ -214,10 +215,11 @@ def _card_case(kind, dtype, device, seed, tq=Tq, tk=Tk, d=D):
 
 def _k2(q, k, v, g, mask, rate=0.0, seed=0):
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
-    before = A.bwd_launch_count
+    before = L.snapshot()
     A.fused_attention(q, k, v, mask, rate, seed if rate else None).backward(g)
     torch.cuda.synchronize()
-    assert A.bwd_launch_count == before + 1
+    ran = L.snapshot() - before
+    assert ran[("k2", "mma")] + ran[("k2", "scalar")] == 1
     return q.grad, k.grad, v.grad
 
 
@@ -394,9 +396,9 @@ def test_tensor_core_gradients_match_plain_on_card(cuda, name, rate):
     B_, Tq_, Tk_, N_ = MMA_CASES[name][:4]
     q, k, v, g, mask = _mma_case(*MMA_CASES[name], cuda)
     seed = 31
-    before = A.mma_bwd_launch_count
+    before = L.snapshot()
     ours = _k2(q, k, v, g, mask, rate, seed)
-    assert A.mma_bwd_launch_count == before + 1
+    assert (L.snapshot() - before)[("k2", "mma")] == 1
     keep = (A.philox_keep_reference(seed, B_, N_, Tq_, Tk_, rate, device=cuda)
             if rate else None)
     ref = A.attention_backward_reference(q, k, v, mask, g, keep, rate)
@@ -419,13 +421,13 @@ def test_tensor_core_gradients_read_unaligned_views_on_card(cuda):
     q, k, v = (x.view(b, t, n, d) for x in buf[..., 1:].split(n * d, -1))
     g = torch.from_numpy(rng.randn(b, n, t, d).astype(np.float32)).to(
         cuda, torch.bfloat16).transpose(1, 2)
-    assert not A.aligned_16(q)
+    assert not L.aligned_16(q)
     mask = _mma_case(b, t, t, n, d, "causal_pad", cuda)[4]
-    before = A.mma_bwd_launch_count
+    before = L.snapshot()
     ours = _k2(q, k, v, g, mask)
     ref = _k2(q.contiguous(), k.contiguous(), v.contiguous(), g.contiguous(),
               mask)
-    assert A.mma_bwd_launch_count == before + 2
+    assert (L.snapshot() - before)[("k2", "mma")] == 2
     for a, r in zip(ours, ref):
         assert torch.equal(a, r)
 
@@ -443,10 +445,9 @@ def test_tensor_core_dropout_is_philox_bit_for_bit_on_card(cuda):
         return torch.eye(t, d, device=cuda, dtype=torch.bfloat16)[
             None, :, None, :].expand(B, t, N, d).contiguous()
     want = A.philox_keep_reference(seed, B, N, tq, tk, rate, device=cuda)
-    before = (A.mma_launch_count, A.mma_bwd_launch_count)
+    before = L.snapshot()
     out = A.fused_attention(z_q, z_k, eye(tk), None, rate, seed)
     assert torch.equal(out.permute(0, 2, 1, 3)[..., :tk] > 0, want)
     _, _, dv = _k2(z_q, z_k, eye(tk), eye(tq), None, rate, seed)
     assert torch.equal(dv.permute(0, 2, 3, 1)[:, :, :tq, :] > 0, want)
-    assert (A.mma_launch_count, A.mma_bwd_launch_count) == (
-        before[0] + 2, before[1] + 1)
+    assert L.snapshot() - before == {("k1", "mma"): 2, ("k2", "mma"): 1}

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from virtex_tpu_torch.ops import _launch as L
 from virtex_tpu_torch.ops import batchnorm as BN
 
 EPS = 1e-5
@@ -143,9 +144,9 @@ def test_sums_reference_matches_jax_kernel(shape, dtype):
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     x, _, _, dy = _inputs((2, 3, 3, 8), 3)
     mean, rstd = torch.zeros(8), torch.ones(8)
-    before = BN.launch_count
+    before = L.snapshot()
     out = BN.bn_backward_sums(_nchw(dy), _nchw(x), mean, rstd)
-    assert BN.launch_count == before
+    assert L.snapshot() == before
     assert torch.equal(out, BN.bn_backward_sums_reference(
         _nchw(dy), _nchw(x), mean, rstd))
     with pytest.raises(ValueError, match="one"):
@@ -260,10 +261,9 @@ def test_cpu_tensor_takes_plain_dx_and_counts_no_launch():
     mean, rstd = torch.full((8,), 0.5), torch.full((8,), 0.7)
     w = torch.from_numpy(scale)
     sums = BN.bn_backward_sums_reference(_nchw(dy), _nchw(x), mean, rstd)
-    before = (BN.dx_launch_count, BN.dx_vector_launch_count, BN.launch_count)
+    before = L.snapshot()
     out = BN.bn_backward_dx(_nchw(dy), _nchw(x), mean, rstd, w, sums)
-    assert (BN.dx_launch_count, BN.dx_vector_launch_count,
-            BN.launch_count) == before
+    assert L.snapshot() == before
     assert torch.equal(out, BN.bn_backward_dx_reference(
         _nchw(dy), _nchw(x), mean, rstd, w, sums))
     with pytest.raises(ValueError, match="sums"):
@@ -306,9 +306,7 @@ def test_cpu_tensor_takes_plain_forward_and_counts_no_launch():
     x, scale, bias, _ = _inputs((2, 3, 3, 8), 15)
     xt = _nchw(x, torch.bfloat16)
     w, b = torch.from_numpy(scale), torch.from_numpy(bias)
-    counters = ("fwd_stats_launch_count", "fwd_stats_vector_launch_count",
-                "fwd_apply_launch_count", "fwd_apply_vector_launch_count")
-    before = [getattr(BN, c) for c in counters]
+    before = L.snapshot()
     stats = BN.bn_forward_stats(xt, EPS)
     assert torch.equal(stats, BN.bn_forward_stats_reference(xt, EPS))
     assert torch.equal(BN.bn_forward_stats(xt), stats[:2])
@@ -320,7 +318,7 @@ def test_cpu_tensor_takes_plain_forward_and_counts_no_launch():
     bn(xt)
     with torch.no_grad():
         bn.eval()(xt)
-    assert [getattr(BN, c) for c in counters] == before
+    assert L.snapshot() == before
     with pytest.raises(ValueError, match="bias"):
         BN.bn_apply(xt, mean, rstd, w, b[:4], torch.bfloat16)
 
@@ -556,25 +554,31 @@ def _weight(C, device, seed):
     return torch.from_numpy((rng.rand(C) + 0.5).astype(np.float32)).to(device)
 
 
+def _launched(before, kernel):
+    """(launches of ``kernel`` since the snapshot ``before``, of them in the
+    vector variant)."""
+    ran = L.snapshot() - before
+    return (ran[(kernel, "vector")] + ran[(kernel, "scalar")],
+            ran[(kernel, "vector")])
+
+
 def _k4(dy, x, mean, rstd, vector=None):
     """Stage 1, checked to launch once (in the vector variant if asked)."""
-    before = (BN.launch_count, BN.vector_launch_count)
+    before = L.snapshot()
     out = BN.bn_backward_sums(dy, x, mean, rstd)
     torch.cuda.synchronize()
-    assert BN.launch_count == before[0] + 1
-    if vector is not None:
-        assert BN.vector_launch_count == before[1] + int(vector)
+    n, vec = _launched(before, "k4_sums")
+    assert n == 1 and (vector is None or vec == int(vector))
     return out
 
 
 def _k4_dx(dy, x, mean, rstd, weight, sums, vector=None):
     """Stage 2, checked likewise."""
-    before = (BN.dx_launch_count, BN.dx_vector_launch_count)
+    before = L.snapshot()
     out = BN.bn_backward_dx(dy, x, mean, rstd, weight, sums)
     torch.cuda.synchronize()
-    assert BN.dx_launch_count == before[0] + 1
-    if vector is not None:
-        assert BN.dx_vector_launch_count == before[1] + int(vector)
+    n, vec = _launched(before, "k4_dx")
+    assert n == 1 and (vector is None or vec == int(vector))
     assert out.shape == x.shape and out.dtype == x.dtype
     return out
 
@@ -645,12 +649,13 @@ def test_scalar_variant_for_c_not_a_multiple_of_8_on_card(cuda, dtype):
 def test_kernel_reads_an_nchw_contiguous_dy_on_card(cuda):
     dy, x, mean, rstd = _card_sums((4, 8, 8, 64), torch.bfloat16, cuda, 5,
                                    dy_layout="nchw")
-    before = BN.dy_copy_count
+    before = L.snapshot()
     out = _k4(dy, x, mean, rstd)
-    assert BN.dy_copy_count == before + 1
+    assert (L.snapshot() - before)[("k4_dy", "copy")] == 1
     cl = dy.contiguous(memory_format=torch.channels_last)
     same = _k4(cl, x, mean, rstd)
-    assert torch.equal(out, same) and BN.dy_copy_count == before + 1
+    assert torch.equal(out, same)
+    assert (L.snapshot() - before)[("k4_dy", "copy")] == 1
     ref = BN.bn_backward_sums_reference(dy, x, mean, rstd)
     assert rel_err(out, ref, math.sqrt(4 * 8 * 8)) <= CARD_TOL
     _check_both_stages(dy, x, mean, rstd, _weight(64, cuda, 5), True)
@@ -678,15 +683,15 @@ def test_bn_train_backward_through_kernel_on_card(cuda, dtype):
     grads = []
     for fns in ((BN.bn_backward_sums, BN.bn_backward_dx),
                 (BN.bn_backward_sums_reference, BN.bn_backward_dx_reference)):
-        before = (BN.launch_count, BN.dx_launch_count)
+        before = L.snapshot()
         xt = _nchw(x, dtype).to(cuda).requires_grad_()
         st, bt = (torch.from_numpy(a).to(cuda).requires_grad_()
                   for a in (scale, bias))
         y, _, _ = BN.bn_train(xt, st, bt, EPS, dtype, *fns)
         (y.float() * _nchw(w).to(cuda)).sum().backward()
         kernels = fns[0] is BN.bn_backward_sums
-        assert (BN.launch_count, BN.dx_launch_count) == (
-            before[0] + kernels, before[1] + kernels)
+        assert (_launched(before, "k4_sums")[0],
+                _launched(before, "k4_dx")[0]) == (int(kernels), int(kernels))
         grads.append([xt.grad.float(), st.grad, bt.grad])
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     for name, a, r, atol in zip(("dx", "dscale", "dbias"), *grads,
@@ -699,12 +704,13 @@ def test_bn_train_backward_through_kernel_on_card(cuda, dtype):
 # in other orders: per element |a − b| / (|ref| + 1) on the O(1) means, var
 # and rstd, at most 1e-5. The apply kernel rounds as the torch ops do, so it
 # is held to them bit for bit.
-FWD_COUNTERS = ("fwd_stats_launch_count", "fwd_stats_vector_launch_count",
-                "fwd_apply_launch_count", "fwd_apply_vector_launch_count")
-
-
 def _fwd_counts():
-    return tuple(getattr(BN, c) for c in FWD_COUNTERS)
+    """The forward's launches counted: (statistics, of them vector, apply,
+    of them vector)."""
+    n = L.snapshot()
+    stats, apply = n[("bn_stats", "vector")], n[("bn_apply", "vector")]
+    return (stats + n[("bn_stats", "scalar")], stats,
+            apply + n[("bn_apply", "scalar")], apply)
 
 
 def _card_x(shape, dtype, device, seed, aligned=True):
@@ -892,13 +898,13 @@ def test_bn_train_forward_and_backward_through_kernels_on_card(cuda, dtype):
     xt = _nchw(x, dtype).to(cuda).requires_grad_()
     st, bt = (torch.from_numpy(a).to(cuda).requires_grad_()
               for a in (scale, bias))
-    before = (_fwd_counts(), BN.launch_count, BN.dx_launch_count)
+    before = (_fwd_counts(), L.snapshot())
     y, mean, var = BN.bn_train(xt, st, bt, EPS, dtype)
     (y.float() * _nchw(w).to(cuda)).sum().backward()
     counts = _fwd_counts()
     assert counts[0] == before[0][0] + 1 and counts[2] == before[0][2] + 1
-    assert (BN.launch_count, BN.dx_launch_count) == (before[1] + 1,
-                                                     before[2] + 1)
+    assert (_launched(before[1], "k4_sums")[0],
+            _launched(before[1], "k4_dx")[0]) == (1, 1)
     xr = xt.detach()
     stats = BN.bn_forward_stats_reference(xr, EPS)
     y_ref = BN.bn_apply_reference(xr, stats[0], stats[3], st.detach(),
@@ -934,7 +940,7 @@ def test_forward_counters_after_one_resnet50_forward_on_card(cuda):
              (sampler, True, torch.enable_grad, (0, 0, 0, 0)))
     for net, training, mode, want in cases:
         net.train(training)
-        BN.reset_launch_count()
+        L.reset()
         with mode():
             net(image)
         torch.cuda.synchronize()

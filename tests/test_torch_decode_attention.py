@@ -32,6 +32,7 @@ from virtex_tpu_torch.factories import (
     PretrainingModelFactory,
 )
 from virtex_tpu_torch.modules.transformer import MultiHeadAttention
+from virtex_tpu_torch.ops import _launch as L
 from virtex_tpu_torch.ops import decode_attention as DA
 from virtex_tpu_torch.utils.beam_search import AutoRegressiveBeamSearch
 
@@ -274,11 +275,11 @@ def rel_err(a, ref):
 def _kernel(q, k, v, n_valid, rows_per_kv=1):
     """The op on the card, checked to launch the kernel once and to give
     equal bits twice."""
-    before = DA.decode_launch_count
+    before = L.snapshot()
     out = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
     again = DA.decode_attention(q, k, v, n_valid, rows_per_kv)
     torch.cuda.synchronize()
-    assert DA.decode_launch_count == before + 2
+    assert L.snapshot() - before == {DA.KEY: 2}
     assert out.shape == q.shape and out.dtype == q.dtype
     assert out.is_contiguous() and torch.equal(out, again)
     return out
@@ -366,7 +367,7 @@ def test_strided_and_unaligned_views_on_card(cuda):
 def test_fp32_on_card_takes_the_plain_path(cuda):
     q = draw((6, 1, 2, 64), torch.float32, 35, cuda)
     k = draw((2, 5, 2, 64), torch.float32, 36, cuda)
-    before = DA.decode_launch_count
+    before = L.snapshot()
     out = DA.decode_attention(q, k, k, 5, rows_per_kv=3)
-    assert DA.decode_launch_count == before
+    assert L.snapshot() == before
     assert torch.equal(out, DA.decode_attention_reference(q, k, k, 5, 3))

@@ -38,6 +38,7 @@ from virtex_tpu_torch.factories import (
     PretrainingModelFactory,
 )
 from virtex_tpu_torch.modules.transformer import MultiHeadAttention
+from virtex_tpu_torch.ops import _launch as L
 from virtex_tpu_torch.ops import decode_attention as DA
 from virtex_tpu_torch.utils import tracing
 
@@ -121,7 +122,7 @@ def model():
 
 @pytest.fixture(autouse=True)
 def fresh_counts():
-    C.reset_graph_counts()
+    L.reset()
     yield
 
 
@@ -157,7 +158,8 @@ def _caption_fn(model, decoder: str = "beam_search", graph_type=StubGraph):
 
 
 def _counts():
-    return C.decode_graph_captures, C.decode_graph_replays
+    n = L.snapshot()
+    return n[C.CAPTURE], n[C.REPLAY]
 
 
 def _equal(a, b):
@@ -267,8 +269,8 @@ def _counting_decode_attention(model):
     """Each decode attention a counted, noted launch of its shape, as on
     the card, computing the plain version."""
     def launch(q, k, v, n_valid, rows_per_kv=1):
-        DA.count_launches(((q.shape[0], k.shape[0], n_valid, q.shape[2],
-                            q.shape[3]),))
+        L.count(DA.KEY, (q.shape[0], k.shape[0], n_valid, q.shape[2],
+                         q.shape[3]))
         return DA.decode_attention_reference(q, k, v, n_valid, rows_per_kv)
     for m in model.modules():
         if isinstance(m, MultiHeadAttention):
@@ -286,9 +288,9 @@ def test_replays_count_and_note_launches_as_the_eager_steps_do(model,
         fn(images)
         seen = []
         for call in (eager, fn):
-            before = DA.decode_launch_count
+            before = L.snapshot()
             out = _profiled(lambda: call(images))
-            seen.append((out, DA.decode_launch_count - before,
+            seen.append((out, (L.snapshot() - before)[DA.KEY],
                          tracing.notes("decode_attention"),
                          tracing.notes("decode_graph")))
         (e_out, e_count, e_notes, e_kind), (r_out, r_count, r_notes,
@@ -383,7 +385,7 @@ def test_graphed_nucleus_draws_equal_the_eager_ones_on_card(cuda,
     eager = fn(images).clone()
     for _ in range(2):
         assert torch.equal(fn(images), eager)
-    assert C.decode_graph_replays > 0
+    assert _counts()[1] > 0
 
 
 @pytest.mark.cuda
@@ -396,7 +398,8 @@ def test_a_second_shape_and_a_return_to_the_first_on_card(cuda, card_model):
                          (b, want_b)):
         _same_beams(fn(images), want)
     # each shape: an eager call, a capturing call, a replaying call
-    assert C.decode_graph_replays == 2 * C.decode_graph_captures > 0
+    captures, replays = _counts()
+    assert replays == 2 * captures > 0
 
 
 @pytest.mark.cuda
@@ -408,10 +411,10 @@ def test_replays_count_and_note_launches_as_eager_ones_on_card(cuda,
     fn(images)
     seen = []
     for call in (eager, fn):
-        before = DA.decode_launch_count
+        before = L.snapshot()
         _profiled(lambda: call(images))
         torch.cuda.synchronize()
-        seen.append((DA.decode_launch_count - before,
+        seen.append(((L.snapshot() - before)[DA.KEY],
                      tracing.notes("decode_attention"),
                      set(tracing.notes("decode_graph"))))
     assert seen[0][2] == {"eager"} and seen[1][2] == {"replay"}

@@ -102,6 +102,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch",
     "virtex_tpu_torch.config",
     "virtex_tpu_torch.ops._build",
+    "virtex_tpu_torch.ops._launch",
     "virtex_tpu_torch.ops.attention",
     "virtex_tpu_torch.ops.batchnorm",
     "virtex_tpu_torch.ops.decode_attention",

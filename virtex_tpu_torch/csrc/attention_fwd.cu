@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "launch_common.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -160,16 +161,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            Strides sk, Strides sv, MaskStrides sm, float scale, float rate,
            uint32_t threshold, const long long* seed, cudaStream_t stream) {
   const size_t smem = smem_bytes(Tk, D);
-  // Above 48 KB a kernel must opt in; once per size reached, so a launch
-  // inside a CUDA-graph capture makes no attribute call.
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
+  const cudaError_t err = opt_in_smem(attention_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   attention_fwd_kernel<T><<<B * N, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(mask),
@@ -437,18 +430,11 @@ int launch_mma(const void* q, const void* k, const void* v, const void* mask,
                cudaStream_t stream) {
   const MmaShape s = mma_shape(Tq, Tk, D);
   auto* kernel = attention_fwd_mma_kernel<KMAX, DMAX>;
-  static size_t opted_in = 48 * 1024;  // as in launch()
-  if (s.smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(s.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = s.smem;
-  }
   // As many blocks as fit on the card at once, each walking its groups.
   const int threads = s.heads * s.warps * 32;
   int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = opt_in_smem(kernel, s.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);

@@ -54,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;    // warps per block, one (K/V row, head) each
@@ -271,16 +273,9 @@ int launch(const Args& a, cudaStream_t stream) {
   const long long pairs = static_cast<long long>(a.kv_rows) * a.N;
   const unsigned blocks = static_cast<unsigned>((pairs + kWarps - 1) / kWarps);
   const size_t smem = smem_bytes(a.rows_per_kv, a.n_valid);
-  // The opt-in for more than 48 KB, once per instance and size, so that a
-  // launch inside a CUDA-graph capture makes no attribute call.
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_kernel<D, Q>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
+  const cudaError_t err =
+      virtex::opt_in_smem(decode_attention_kernel<D, Q>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   decode_attention_kernel<D, Q><<<blocks, kWarps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from virtex_tpu_torch.ops import decode_attention as DA
+from virtex_tpu_torch.ops import _launch
 from virtex_tpu_torch.utils import tracing
 from virtex_tpu_torch.utils.beam_search import (
     AutoRegressiveBeamSearch,
@@ -39,13 +39,8 @@ from virtex_tpu_torch.utils.tracing import span
 CaptionFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
 KEPT_SHAPES = 2  # call shapes whose graphs and buffers stay
-decode_graph_replays = 0   # decode steps replayed, since import or a reset
-decode_graph_captures = 0  # decode steps captured into a graph, likewise
-
-
-def reset_graph_counts() -> None:
-    global decode_graph_replays, decode_graph_captures
-    decode_graph_replays = decode_graph_captures = 0
+# The count keys (ops/_launch.py) of a decode step replayed and captured.
+REPLAY, CAPTURE = ("decode_graph", "replay"), ("decode_graph", "capture")
 
 
 def _leaves(tree) -> list:
@@ -64,7 +59,7 @@ def _layout(tree) -> tuple:
 class _Graph(NamedTuple):
     """One captured step: the graph, what its capture returned (its
     outputs, at fixed addresses), the layout of the state it was captured
-    on, and the decode attention's launches inside it."""
+    on, and the kernel launches recorded inside it."""
 
     graph: Any
     result: Any
@@ -95,7 +90,6 @@ class _Shape:
         first, with no profiler recording and the state in this shape's
         buffers; then replayed while the state lies where it lay."""
         def step(tokens: torch.Tensor, t: int, state):
-            global decode_graph_replays
             with span("decode_step", tokens):
                 g = self.graphs.get(t)
                 if g is None and self._may_capture(state):
@@ -105,8 +99,8 @@ class _Shape:
                     return step_fn(tokens, t, state)
                 self.tokens.copy_(tokens)
                 g.graph.replay()
-                decode_graph_replays += 1
-                DA.count_launches(g.launches)
+                _launch.count(REPLAY)
+                _launch.replayed(g.launches)
                 tracing.note("decode_graph", "replay")
                 return g.result
         return step
@@ -118,7 +112,6 @@ class _Shape:
                 and all(t.data_ptr() in self._owned for t in _leaves(state)))
 
     def _capture(self, step_fn, tokens, t: int, state) -> _Graph:
-        global decode_graph_captures
         if self.tokens is None:
             self.tokens = torch.empty_like(tokens)
         self.tokens.copy_(tokens)
@@ -134,7 +127,7 @@ class _Shape:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with on_stream, DA.capture_launches() as launches:
+            with on_stream, _launch.capturing() as launches:
                 graph.capture_begin(pool=self.pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -150,7 +143,7 @@ class _Shape:
             self.pool = graph.pool()
         self.graphs[t] = g = _Graph(graph, result, _layout(state),
                                     tuple(launches))
-        decode_graph_captures += 1
+        _launch.count(CAPTURE)
         return g
 
 

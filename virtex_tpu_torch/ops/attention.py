@@ -16,10 +16,9 @@ autograd differentiates it. On a CUDA tensor it launches K1
 has two variants, chosen by :func:`use_tensor_cores`: bf16 operands with D
 a multiple of 16 up to 128 and at most 128 keys take the tensor-core
 variant (``mma.sync``), everything else the scalar one. An operand the
-tensor-core variant cannot read with 16-byte loads (:func:`aligned_16`) is
-copied first. :data:`launch_count` and :data:`bwd_launch_count` count K1's
-and K2's launches, :data:`mma_launch_count` and
-:data:`mma_bwd_launch_count` those of their tensor-core variants.
+tensor-core variant cannot read with 16-byte loads (``ops/_launch.py
+aligned_16``) is copied first. ``ops/_launch.py`` counts the launches under
+``("k1" | "k2", "mma" | "scalar")``.
 
 Dropout on the card draws from Philox4x32-10 (``csrc/philox.cuh``), keyed
 on (seed, b) and counted on (head, q, k), so K2 regenerates K1's keep
@@ -37,23 +36,16 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from virtex_tpu_torch.ops import _build
+from virtex_tpu_torch.ops._launch import (
+    MAX_SMEM_BYTES,
+    aligned_operand,
+    launch,
+)
+
 NEG_INF = -1e9  # masked logit, as in the JAX package (not -inf)
-MAX_SMEM_BYTES = 227 * 1024  # shared memory one Hopper block can use
 
 Seed = Union[int, torch.Tensor, None]
-
-launch_count = 0          # K1 launches since import or the last reset
-bwd_launch_count = 0      # K2 launches
-mma_launch_count = 0      # of those, K1's tensor-core variant
-mma_bwd_launch_count = 0  # and K2's
-
-
-def reset_launch_count() -> None:
-    """Zero the K1 and K2 launch counts, both variants."""
-    global launch_count, bwd_launch_count
-    global mma_launch_count, mma_bwd_launch_count
-    launch_count = bwd_launch_count = 0
-    mma_launch_count = mma_bwd_launch_count = 0
 
 
 def _seed_int(seed: Seed) -> int:
@@ -248,23 +240,6 @@ def use_tensor_cores(dtype: torch.dtype, D: int, Tk: int) -> bool:
             and Tk <= 128)
 
 
-def aligned_16(t: torch.Tensor) -> bool:
-    """Whether the tensor-core variants can stage ``t`` (B, T, N, D), unit
-    stride along D, with 16-byte loads: its base pointer and the strides of
-    its B, T and N dimensions longer than 1 are multiples of 16 bytes."""
-    size = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(
-        stride * size % 16 == 0
-        for n, stride in zip(t.shape[:3], t.stride()[:3]) if n > 1)
-
-
-def _mma_operand(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a fresh contiguous copy where it is not aligned_16 (a
-    contiguous view at an odd offset stays one under ``contiguous()``)."""
-    return t if aligned_16(t) else t.clone(
-        memory_format=torch.contiguous_format)
-
-
 class _AttentionFwd(torch.autograd.Function):
     """K1 launch; its gradient is a K2 launch, which recomputes P from the
     saved operands and regenerates the dropout mask from the seed (a
@@ -293,18 +268,14 @@ def _launch(q, k, v, mask, rate: float,
             seed: Optional[torch.Tensor]) -> torch.Tensor:
     """K1 on the card; ``seed`` is one int64 on q's device (or None when
     ``rate`` is 0)."""
-    global launch_count, mma_launch_count
-    from virtex_tpu_torch.ops import _build
-
     _check_kernel_operands("K1", q, k, v)
     B, Tq, N, D = q.shape
     Tk = k.shape[1]
-    lib = _build.library()
     mma = use_tensor_cores(q.dtype, D, Tk)
     if mma:
-        q, k, v = (_mma_operand(t) for t in (q, k, v))
+        q, k, v = (aligned_operand(t) for t in (q, k, v))
     else:
-        smem = lib.virtex_attention_fwd_smem_bytes(Tk, D)
+        smem = _build.library().virtex_attention_fwd_smem_bytes(Tk, D)
         if smem > MAX_SMEM_BYTES:
             raise ValueError(f"K1: Tk={Tk}, D={D} needs {smem} B of shared "
                              f"memory, more than a block has")
@@ -314,24 +285,17 @@ def _launch(q, k, v, mask, rate: float,
                 out.data_ptr(), B, Tq, Tk, N, D)
     rest = (*_strides(q), *_strides(k), *_strides(v), *ms,
             1.0 / math.sqrt(D), rate, _threshold(rate), _seed_arg(rate, seed))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if mma:
-            err = lib.virtex_attention_fwd_mma(*operands, *rest, stream)
-        else:
-            err = lib.virtex_attention_fwd(
-                *operands, int(q.dtype == torch.bfloat16), *rest, stream)
-    _build.check(err, "K1 attention_fwd launch")
-    launch_count += 1
-    mma_launch_count += int(mma)
+    if mma:
+        launch(("k1", "mma"), "virtex_attention_fwd_mma", q, *operands,
+               *rest)
+    else:
+        launch(("k1", "scalar"), "virtex_attention_fwd", q, *operands,
+               int(q.dtype == torch.bfloat16), *rest)
     return out
 
 
 def _launch_bwd(q, k, v, mask, g, rate: float, seed: Optional[torch.Tensor]):
     """K2 on the card: (dq, dk, dv); ``seed`` as for :func:`_launch`."""
-    global bwd_launch_count, mma_bwd_launch_count
-    from virtex_tpu_torch.ops import _build
-
     _check_kernel_operands("K2", q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(f"K2: gradient {tuple(g.shape)} {g.dtype} does not "
@@ -343,7 +307,7 @@ def _launch_bwd(q, k, v, mask, g, rate: float, seed: Optional[torch.Tensor]):
     lib = _build.library()
     mma = use_tensor_cores(q.dtype, D, Tk)
     if mma:
-        q, k, v, g = (_mma_operand(t) for t in (q, k, v, g))
+        q, k, v, g = (aligned_operand(t) for t in (q, k, v, g))
         smem = lib.virtex_attention_bwd_mma_smem_bytes(Tq, Tk, D)
     else:
         smem = lib.virtex_attention_bwd_smem_bytes(Tq, Tk, D)
@@ -359,16 +323,12 @@ def _launch_bwd(q, k, v, mask, g, rate: float, seed: Optional[torch.Tensor]):
                 B, Tq, Tk, N, D)
     rest = (*_strides(q), *_strides(k), *_strides(v), *_strides(g), *ms,
             1.0 / math.sqrt(D), rate, _threshold(rate), _seed_arg(rate, seed))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if mma:
-            err = lib.virtex_attention_bwd_mma(*operands, *rest, stream)
-        else:
-            err = lib.virtex_attention_bwd(
-                *operands, int(q.dtype == torch.bfloat16), *rest, stream)
-    _build.check(err, "K2 attention_bwd launch")
-    bwd_launch_count += 1
-    mma_bwd_launch_count += int(mma)
+    if mma:
+        launch(("k2", "mma"), "virtex_attention_bwd_mma", q, *operands,
+               *rest)
+    else:
+        launch(("k2", "scalar"), "virtex_attention_bwd", q, *operands,
+               int(q.dtype == torch.bfloat16), *rest)
     return dq, dk, dv
 
 

@@ -30,11 +30,10 @@ a CUDA tensor it launches its kernel (``csrc/bn_backward_sums.cu``) or
 raises; there is no fallback and no shape it refuses for its size (the JAX
 package falls back to jnp where its TPU tiling plan fails). Each stage has
 a vector variant (16-byte loads) and a scalar one, chosen by
-:func:`k4_vector_width`; :func:`k4_plan` sizes the grid. Counters:
-:data:`launch_count` and :data:`vector_launch_count` (stage 1),
-:data:`dx_launch_count` and :data:`dx_vector_launch_count` (stage 2), and
-:data:`dy_copy_count`, the stage-1 launches whose dy had to be copied to
-rows first.
+:func:`k4_vector_width`; :func:`k4_plan` sizes the grid. ``ops/_launch.py``
+counts the launches under ``("k4_sums" | "k4_dx", "vector" | "scalar")``,
+and under ``("k4_dy", "copy")`` the stage-1 launches whose dy had to be
+copied to rows first.
 
 The forward is two kernels of its own (``csrc/bn_forward.cu``), with no
 TPU kernel behind them: the JAX package leaves the forward to XLA's fusion.
@@ -45,9 +44,8 @@ statistics, :class:`Running`, in the same launch);
 it (inside :class:`_BNTrain`'s forward, and an eval-mode BatchNorm under
 ``no_grad`` or frozen), bit-equal to its torch ops. Both take K4's variant
 rule and grid; on a CPU tensor both run their plain versions
-(:func:`bn_forward_stats_reference`, :func:`bn_apply_reference`).
-Counters: :data:`fwd_stats_launch_count`, :data:`fwd_apply_launch_count`
-and their vector variants'.
+(:func:`bn_forward_stats_reference`, :func:`bn_apply_reference`). Their
+count keys: ``("bn_stats" | "bn_apply", "vector" | "scalar")``.
 
 Layout: channels on dim 1, as torch's ``BatchNorm2d`` has them; the
 ResNet's activations are ``channels_last`` (NHWC memory), which the kernels
@@ -63,7 +61,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from virtex_tpu_torch.ops import _build
+from virtex_tpu_torch.ops._launch import count, launch
 from virtex_tpu_torch.ops._mesh import active_group, world_of
 from virtex_tpu_torch.utils.distributed import all_reduce_sum
 
@@ -82,31 +80,16 @@ _COLS_PER_BLOCK = 32
 _MIN_ROWS_PER_CHUNK = 64
 _MAX_CHUNKS = 65535  # the grid's y extent
 
-launch_count = 0            # stage-1 launches since import or the last reset
-vector_launch_count = 0     # of those, the vector variant's
-dx_launch_count = 0         # stage-2 (dx) launches
-dx_vector_launch_count = 0  # of those, the vector variant's
-dy_copy_count = 0           # stage-1 launches whose dy was copied to rows
-fwd_stats_launch_count = 0          # forward statistics launches
-fwd_stats_vector_launch_count = 0   # of those, the vector variant's
-fwd_apply_launch_count = 0          # forward apply launches
-fwd_apply_vector_launch_count = 0   # of those, the vector variant's
+# The launches' count keys, by whether the vector variant ran.
+_SUMS = (("k4_sums", "scalar"), ("k4_sums", "vector"))
+_DX = (("k4_dx", "scalar"), ("k4_dx", "vector"))
+_STATS = (("bn_stats", "scalar"), ("bn_stats", "vector"))
+_APPLY = (("bn_apply", "scalar"), ("bn_apply", "vector"))
 
 SumsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                   torch.Tensor]
 DxFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def reset_launch_count() -> None:
-    global launch_count, vector_launch_count, dx_launch_count
-    global dx_vector_launch_count, dy_copy_count
-    global fwd_stats_launch_count, fwd_stats_vector_launch_count
-    global fwd_apply_launch_count, fwd_apply_vector_launch_count
-    launch_count = vector_launch_count = dy_copy_count = 0
-    dx_launch_count = dx_vector_launch_count = 0
-    fwd_stats_launch_count = fwd_stats_vector_launch_count = 0
-    fwd_apply_launch_count = fwd_apply_vector_launch_count = 0
 
 
 def _stat_shape(x: torch.Tensor) -> Tuple[int, ...]:
@@ -258,24 +241,6 @@ def _partial_buffer(device: torch.device, n: int) -> torch.Tensor:
                                                  device=device))
 
 
-def _on_device(launch):
-    """``launch(t, ...)`` with t's device current: the kernels launch on the
-    current device, and switching it costs host time, so only where it is
-    another."""
-    @functools.wraps(launch)
-    def on_device(t, *args):
-        if t.device.index == torch.cuda.current_device():
-            return launch(t, *args)
-        with torch.cuda.device(t.device):
-            return launch(t, *args)
-    return on_device
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream of t's device."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
 def _empty_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """An uninitialised tensor of x's (N, C, *S) shape whose memory is
     row-major (M, C) (an NCHW view of NHWC memory), in one op."""
@@ -317,9 +282,7 @@ def _operands(dy: torch.Tensor, x: torch.Tensor):
     return dy2, x2, k4_plan(M, C, k4_vector_width(wide, C, aligned))
 
 
-@_on_device
 def _launch(dy, x, mean, rstd) -> torch.Tensor:
-    global launch_count, vector_launch_count, dy_copy_count
     dy_copied = not _is_rows(dy)
     dy2, x2, plan = _operands(dy, x)
     C = x.shape[1]
@@ -329,36 +292,28 @@ def _launch(dy, x, mean, rstd) -> torch.Tensor:
     tickets = _ticket_buffer(x.device, plan.col_tiles) if plan.vec > 1 \
         else None
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    err = _build.library().virtex_bn_backward_sums(
-        dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        partial.data_ptr(), None if tickets is None else tickets.data_ptr(),
-        out.data_ptr(), M, C, plan.chunks, plan.vec,
-        int(dy2.dtype == torch.bfloat16), int(x2.dtype == torch.bfloat16),
-        _stream(x))
-    _build.check(err, "K4 bn_backward_sums launch")
-    launch_count += 1
-    vector_launch_count += int(plan.vec > 1)
-    dy_copy_count += int(dy_copied)
+    launch(_SUMS[plan.vec > 1], "virtex_bn_backward_sums", x,
+           dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+           partial.data_ptr(),
+           None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+           M, C, plan.chunks, plan.vec, int(dy2.dtype == torch.bfloat16),
+           int(x2.dtype == torch.bfloat16))
+    if dy_copied:
+        count(("k4_dy", "copy"))
     return out
 
 
-@_on_device
 def _launch_dx(dy, x, mean, rstd, weight, sums, m_total) -> torch.Tensor:
-    global dx_launch_count, dx_vector_launch_count
     dy2, x2, plan = _operands(dy, x)
     C = x.shape[1]
     M = x.numel() // C
     mean, rstd, weight, sums = (_f32(t) for t in (mean, rstd, weight, sums))
     dx = _empty_rows(x, x.dtype)
-    err = _build.library().virtex_bn_backward_dx(
-        dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        weight.data_ptr(), sums.data_ptr(), dx.data_ptr(), M, C,
-        _count(x, m_total), plan.chunks, plan.vec,
-        int(dy2.dtype == torch.bfloat16), int(x2.dtype == torch.bfloat16),
-        _stream(x))
-    _build.check(err, "K4 bn_backward_dx launch")
-    dx_launch_count += 1
-    dx_vector_launch_count += int(plan.vec > 1)
+    launch(_DX[plan.vec > 1], "virtex_bn_backward_dx", x,
+           dy2.data_ptr(), x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+           weight.data_ptr(), sums.data_ptr(), dx.data_ptr(), M, C,
+           _count(x, m_total), plan.chunks, plan.vec,
+           int(dy2.dtype == torch.bfloat16), int(x2.dtype == torch.bfloat16))
     return dx
 
 
@@ -481,10 +436,8 @@ def _running_in_kernel(running: Optional[Running], x: torch.Tensor) -> bool:
             and var.device == x.device and count.device == x.device)
 
 
-@_on_device
 def _launch_stats(x: torch.Tensor, eps: Optional[float],
                   running: Optional[Running]) -> torch.Tensor:
-    global fwd_stats_launch_count, fwd_stats_vector_launch_count
     (x2,), M, C = _as_rows("bn_forward_stats", x)
     plan = k4_plan(M, C, k4_vector_width(x2.dtype, C,
                                          x2.data_ptr() % 16 == 0))
@@ -498,26 +451,21 @@ def _launch_stats(x: torch.Tensor, eps: Optional[float],
     fused = eps is not None and _running_in_kernel(running, x)
     m = running.momentum if fused else 0.0
     n = running.n if fused else 2
-    err = _build.library().virtex_bn_forward_stats(
-        x2.data_ptr(), partial.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
-        running.mean.data_ptr() if fused else None,
-        running.var.data_ptr() if fused else None,
-        running.count.data_ptr() if fused else None,
-        M, C, plan.chunks, plan.vec, 0.0 if eps is None else eps,
-        int(eps is not None), m, 1.0 - m, n / max(n - 1, 1),
-        int(x2.dtype == torch.bfloat16), _stream(x))
-    _build.check(err, "bn_forward_stats launch")
-    fwd_stats_launch_count += 1
-    fwd_stats_vector_launch_count += int(plan.vec > 1)
+    launch(_STATS[plan.vec > 1], "virtex_bn_forward_stats", x,
+           x2.data_ptr(), partial.data_ptr(),
+           None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+           running.mean.data_ptr() if fused else None,
+           running.var.data_ptr() if fused else None,
+           running.count.data_ptr() if fused else None,
+           M, C, plan.chunks, plan.vec, 0.0 if eps is None else eps,
+           int(eps is not None), m, 1.0 - m, n / max(n - 1, 1),
+           int(x2.dtype == torch.bfloat16))
     if eps is not None and running is not None and not fused:
         update_running_reference(running, out[0], out[2])
     return out
 
 
-@_on_device
 def _launch_apply(x, mean, rstd, weight, bias, dtype) -> torch.Tensor:
-    global fwd_apply_launch_count, fwd_apply_vector_launch_count
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"bn_apply computes in float32 or bfloat16, got "
                         f"{dtype}")
@@ -527,14 +475,10 @@ def _launch_apply(x, mean, rstd, weight, bias, dtype) -> torch.Tensor:
         else torch.bfloat16
     plan = k4_plan(M, C, k4_vector_width(wide, C, x2.data_ptr() % 16 == 0))
     y = _empty_rows(x, dtype)
-    err = _build.library().virtex_bn_forward_apply(
-        x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), M, C, plan.chunks, plan.vec,
-        int(x2.dtype == torch.bfloat16), int(dtype == torch.bfloat16),
-        _stream(x))
-    _build.check(err, "bn_apply launch")
-    fwd_apply_launch_count += 1
-    fwd_apply_vector_launch_count += int(plan.vec > 1)
+    launch(_APPLY[plan.vec > 1], "virtex_bn_forward_apply", x,
+           x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(),
+           bias.data_ptr(), y.data_ptr(), M, C, plan.chunks, plan.vec,
+           int(x2.dtype == torch.bfloat16), int(dtype == torch.bfloat16))
     return y
 
 

@@ -12,13 +12,11 @@ Replaces no TPU kernel: the JAX package's decode step is plain einsum
 attention (``virtex_tpu/modules/transformer.py``). On CUDA in bf16 it
 launches ``csrc/decode_attention.cu``, which reads each K/V position once
 per K/V row (once per image for the beams' cross-attention) and never the
-positions at or past ``n_valid``; :data:`decode_launch_count` counts its
-launches, and while a profiler records each launch notes its shape (R,
-K/V rows, n_valid, N, D) under ``"decode_attention"`` in the store of
-``utils/tracing.py``. A launch made while a CUDA graph is captured runs
-only when the graph replays: inside :func:`capture_launches` it is neither
-counted nor noted but handed to the capturer, whose replays count and note
-it with :func:`count_launches`. On the CPU and in fp32 it computes
+positions at or past ``n_valid``. ``ops/_launch.py`` counts its launches
+under ``("decode_attention", "vector")`` and, while a profiler records,
+notes each one's shape (R, K/V rows, n_valid, N, D) under
+``"decode_attention"`` in the store of ``utils/tracing.py``, at each replay
+of a CUDA graph that captured it too. On the CPU and in fp32 it computes
 :func:`decode_attention_reference`: fp32 logits scaled by 1/√D, −1e9 at
 the positions past ``n_valid``, an fp32 softmax, the probabilities
 rounded to q's dtype and P·V summed in fp32, each K/V row repeated to its
@@ -26,57 +24,22 @@ query rows, which are the decode path's einsum ops as they were.
 """
 from __future__ import annotations
 
-import contextlib
 import math
-from typing import Iterator, List, Optional
 
 import torch
 
 from virtex_tpu_torch.ops import _build
-from virtex_tpu_torch.ops.attention import (
+from virtex_tpu_torch.ops._launch import (
     MAX_SMEM_BYTES,
-    NEG_INF,
-    _mma_operand,
+    aligned_operand,
+    launch,
 )
-from virtex_tpu_torch.ops.batchnorm import _on_device, _stream
-from virtex_tpu_torch.utils.tracing import note
+from virtex_tpu_torch.ops.attention import NEG_INF
 
 # Head sizes the kernel is built for: D / 8 lanes, 16 bytes each, cover a
 # position, and they have to divide a warp.
 KERNEL_DIMS = (8, 16, 32, 64, 128, 256)
-
-decode_launch_count = 0  # kernel launches since import or the last reset
-_captured: Optional[list] = None  # shapes of the launches being captured
-
-
-def reset_launch_count() -> None:
-    global decode_launch_count
-    decode_launch_count = 0
-
-
-@contextlib.contextmanager
-def capture_launches() -> Iterator[List[tuple]]:
-    """Inside, launches are captured into a CUDA graph and not run: the
-    list yielded collects their shapes instead of the count and the
-    notes."""
-    global _captured
-    outer, _captured = _captured, []
-    try:
-        yield _captured
-    finally:
-        _captured = outer
-
-
-def count_launches(shapes) -> None:
-    """Count and note launches of these shapes that ran: one launch, or a
-    replay of the launches :func:`capture_launches` collected."""
-    global decode_launch_count
-    if _captured is not None:
-        _captured.extend(shapes)
-        return
-    decode_launch_count += len(shapes)
-    for shape in shapes:
-        note("decode_attention", shape)
+KEY = ("decode_attention", "vector")  # the launches' count key
 
 
 def _check(q, k, v, n_valid: int, rows_per_kv: int) -> None:
@@ -122,7 +85,6 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
                         v.float()).to(q.dtype)
 
 
-@_on_device
 def _launch(q, k, v, n_valid: int, rows_per_kv: int) -> torch.Tensor:
     R, _, N, D = q.shape
     rows = k.shape[0]
@@ -137,14 +99,13 @@ def _launch(q, k, v, n_valid: int, rows_per_kv: int) -> torch.Tensor:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: n_valid {n_valid} needs {smem} "
                          f"B of shared memory, more than a block has")
-    q, k, v = (_mma_operand(t) for t in (q, k, v))
+    q, k, v = (aligned_operand(t) for t in (q, k, v))
     out = torch.empty((R, 1, N, D), dtype=q.dtype, device=q.device)
-    err = lib.virtex_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), rows,
-        rows_per_kv, n_valid, N, D, q.stride(0), q.stride(2), *k.stride()[:3],
-        *v.stride()[:3], math.sqrt(D), _stream(q))
-    _build.check(err, "decode_attention launch")
-    count_launches(((R, rows, n_valid, N, D),))
+    launch(KEY, "virtex_decode_attention", q,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), rows,
+           rows_per_kv, n_valid, N, D, q.stride(0), q.stride(2),
+           *k.stride()[:3], *v.stride()[:3], math.sqrt(D),
+           note=(R, rows, n_valid, N, D))
     return out
 
 
