@@ -9,8 +9,9 @@ Run from the repository root, on a machine with a CUDA card, ``nvcc``
 prints no result, when there is no card or when any phase fails:
 
 1. device: the card's name and power limit; TF32 off for every comparison.
-2. build: kernels K1, K2, K4's two stages, the BatchNorm forward's two and
-   the decode attention (``virtex_tpu_torch/csrc/*.cu``) are built with
+2. build: kernels K1, K2, K4's two stages, the BatchNorm forward's two,
+   the decode attention and beam select (``virtex_tpu_torch/csrc/*.cu``)
+   are built with
    ``nvcc`` for ``sm_90a``, one process per source, in parallel.
 3. K1 against its plain PyTorch version on the card: the flagship's
    attention shapes (batch 128, 16 heads of 64; self 30×30 causal + pad,
@@ -56,6 +57,12 @@ prints no result, when there is no card or when any phase fails:
    captions (cross K/V per image) within LOSS_RTOL of a copy whose decode
    attention is the plain version; and its device time beside its bound,
    the plain version and ``scaled_dot_product_attention`` (SDPA_BACKEND).
+   Beam select at the caption cell's shapes (256 images x 5 beams over
+   10,000 tokens, 2 kept a beam; step 0's mode keeping 5 of each image's
+   first row) bit-equal to its plain version on the CPU, on drawn rows and
+   on rows of ties, ±0 and −inf, one launch a call, equal bits twice; the
+   beam search above launched it once a step; its device time beside its
+   bound, the plain version and two ``torch.topk`` calls (phase 9).
 8. train step: the flagship in bf16, micro-batch 128 × accumulation 2 as
    ``bench.py`` runs it, captions of varied length, the optimizer of
    ``OPTIM.*``. With dropout 0 the first step's losses and ``grad_norm``
@@ -1195,6 +1202,112 @@ def time_decode_attention(torch, DA, device) -> dict:
         moved = 2 * nbytes(q) + 2 * kk.shape[0] * n * N * D * 2
         out[name] = ((k1 + k2) / 2, plain, (l1 + l2) / 2) + bound(
             moved, 4 * R * N * n * D)
+    return out
+
+
+# Beam select at the caption cell's shapes: 256 images x 5 beams over the
+# 10,000-token vocabulary, 2 kept a beam; step 0's mode keeps 5 of each
+# image's first row. Held to its plain version on the CPU bit for bit (the
+# scores, tokens and source rows), which orders −0.0 and +0.0 as equal.
+SELECT_IMAGES, SELECT_BEAMS, SELECT_VOCAB, SELECT_PER_NODE = 256, 5, 10000, 2
+SELECT_EOS = 2
+
+
+def select_inputs(torch, seed, finished=0.2, adversarial=False):
+    """log-probs (1280, 10000) fp32, the log_softmax of 3·N(0, 1) rows; the
+    beams' last tokens, ``finished`` of them EOS; scores (256, 5). The
+    adversarial rows: values rounded to halves (many equal maxima), ±0
+    beside each other, rows of −inf, and scores of ±0."""
+    g = torch.Generator().manual_seed(seed)
+    R = SELECT_IMAGES * SELECT_BEAMS
+    x = torch.log_softmax(torch.randn(R, SELECT_VOCAB, generator=g) * 3, -1)
+    last = torch.randint(0, SELECT_VOCAB, (R,), generator=g)
+    last[torch.rand(R, generator=g) < finished] = SELECT_EOS
+    scores = -torch.rand(SELECT_IMAGES, SELECT_BEAMS, generator=g) * 20
+    if adversarial:
+        x = torch.round(x * 2) / 2
+        x[:, ::13], x[:, 5::29] = -0.0, 0.0
+        x[::7] = -float("inf")
+        scores[::3] = -0.0
+        scores[1::3] = 0.0
+    return x, last, scores
+
+
+def same_bits(torch, got, want) -> bool:
+    return all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(
+        *(t.view(torch.int32) if t.dtype == torch.float32 else t
+          for t in (g.cpu(), w.cpu()))) for g, w in zip(got, want))
+
+
+def select_out(torch, BS, fn, *args):
+    """The op on the card, checked to launch its kernel once a call and to
+    give equal bits twice."""
+    before = launched()
+    out, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    if launched() - before != {BS.KEY: 2} or not same_bits(torch, out, again):
+        fail(f"beam select {fn.__name__}: not one launch a call, or other "
+             "bits the second time")
+    return out
+
+
+def check_beam_select(torch, BS, device) -> str:
+    """Phase 7: the kernel against its plain version on the CPU, in the
+    search's loop and step-0 modes."""
+    done = []
+    for name, adversarial in (("drawn", False), ("ties, ±0, -inf", True)):
+        x, last, scores = select_inputs(torch, SEED + len(done),
+                                        adversarial=adversarial)
+        args = (SELECT_EOS, SELECT_PER_NODE)
+        got = select_out(torch, BS, BS.beam_select, x.to(device),
+                         last.to(device), scores.to(device), *args)
+        if not same_bits(torch, got, BS.beam_select(x, last, scores, *args)):
+            fail(f"beam select ({name} rows): the kernel's scores, tokens or "
+                 "source rows differ from the plain version's")
+        got = select_out(torch, BS, BS.beam_select_first, x.to(device),
+                         SELECT_BEAMS, SELECT_BEAMS)
+        if not same_bits(torch, got, BS.beam_select_first(
+                x, SELECT_BEAMS, SELECT_BEAMS)):
+            fail(f"beam select at step 0 ({name} rows): the kernel's values "
+                 "or tokens differ from the plain version's")
+        done.append(name)
+    return "; ".join(done)
+
+
+def time_beam_select(torch, BS, device) -> dict:
+    """Device ms per call, in the loop and at step 0: {case: (kernel,
+    plain, library, bound ms, bound_by)}. Three input sets in turn (153.6
+    MB, past the 50 MB L2), no beam finished (every row read); the kernel
+    and the library call (``torch.topk`` per beam, then per image) by
+    CUDA-graph replay in turns (library, kernel, kernel, library), the
+    plain version by back-to-back calls."""
+    sets = [tuple(t.to(device) for t in select_inputs(torch, SEED + 5 + i,
+                                                      finished=0.0))
+            for i in range(3)]
+    B, K, P = SELECT_IMAGES, SELECT_BEAMS, SELECT_PER_NODE
+
+    def library(x, last, scores):
+        values, _ = torch.topk(x, P, dim=-1)
+        return torch.topk((scores.reshape(B * K, 1) + values).reshape(
+            B, K * P), K, dim=-1)
+
+    def library_first(x, last, scores):
+        return torch.topk(x.view(B, K, -1)[:, 0], K, dim=-1)
+
+    out = {}
+    for name, kernel, plain, lib, rows in (
+            ("in-loop", lambda x, last, scores: BS.beam_select(
+                x, last, scores, SELECT_EOS, P),
+             lambda x, last, scores: BS.beam_select_reference(
+                 x, last, scores, SELECT_EOS, P), library, B * K),
+            ("step 0", lambda x, last, scores: BS.beam_select_first(x, K, K),
+             lambda x, last, scores: BS.beam_select_first_reference(x, K, K),
+             library_first, B)):
+        l1, k1, k2, l2 = (graph_ms(torch, rotating(f, sets), 30, 5)
+                          for f in (lib, kernel, kernel, lib))
+        p = cuda_ms(torch, rotating(plain, sets), 6)
+        out[name] = ((k1 + k2) / 2, p, (l1 + l2) / 2) + bound(
+            rows * SELECT_VOCAB * 4, 0)
     return out
 
 
@@ -5518,6 +5631,7 @@ def import_port():
     from virtex_tpu_torch.ops import _build
     from virtex_tpu_torch.ops import attention as A
     from virtex_tpu_torch.ops import batchnorm as BN
+    from virtex_tpu_torch.ops import beam_select as BS
     from virtex_tpu_torch.ops import decode_attention as DA
     from virtex_tpu_torch.optim.optimizer import build_optimizer
     from virtex_tpu_torch.scripts import (
@@ -5652,6 +5766,7 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_counts = checked_counts()  # ... and ends here
     serve_decodes = launched()[port.DA.KEY]
+    serve_selects = launched()[port.BS.KEY]
 
     losses = {k: float(v) for k, v in metrics.items()}
     if not all(np.isfinite(v) for v in losses.values()):
@@ -5687,11 +5802,17 @@ def main() -> None:
             and serve_decodes % step_decodes == 0):
         fail(f"beam search launched the decode attention {serve_decodes} "
              f"times, not {step_decodes} per step")
+    # One select a step; a search that stops early drops its last step.
+    steps_run = serve_decodes // step_decodes
+    if serve_selects != (steps_run if steps_run == spec.max_decoding_steps
+                         else steps_run - 1):
+        fail(f"beam search launched beam select {serve_selects} times over "
+             f"{steps_run} decode steps, not once a step")
     say("7 captioning", f"beam K={spec.beam_size}, {spec.max_decoding_steps}"
         f" steps: tokens {tuple(captions.shape)} {captions.dtype}, ids in "
         f"[{lo}, {hi}]; first caption {captions[0, :10].tolist()}; "
         f"{serve_decodes} decode attention launches "
-        f"({serve_decodes // step_decodes} steps)")
+        f"({steps_run} steps); {serve_selects} beam select launches")
     decode_err_max = check_decode_attention(torch, port.DA, device)
     say("7 decode attention", f"matches the plain version (bf16 tol "
         f"{TOL['bfloat16']:.0e}, atol {ATOL}; max {decode_err_max:.2e}) at "
@@ -5708,6 +5829,12 @@ def main() -> None:
         f"image: mean log-probability {tf_mean:.5f} against {tf_ref:.5f} "
         f"plain (rel {abs(tf_mean - tf_ref) / abs(tf_ref):.2e} <= "
         f"{LOSS_RTOL}); largest gap of one token {tf_gap:.3e}")
+    summary = check_beam_select(torch, port.BS, device)
+    say("7 beam select", f"{SELECT_IMAGES} images x {SELECT_BEAMS} beams "
+        f"over {SELECT_VOCAB} tokens, {SELECT_PER_NODE} kept a beam, and "
+        f"step 0 keeping {SELECT_BEAMS}: scores, tokens and source rows "
+        f"bit-equal to the plain version on the CPU ({summary} rows); one "
+        f"launch a call, equal bits twice")
 
     # 8. train step
     (train_step, plain_train_step, tbatch, bn_shapes, train_launches,
@@ -5738,6 +5865,7 @@ def main() -> None:
                    for key in ("stats", "apply")}
     bn_calls = sum(bn_shapes.values())
     decode_times = time_decode_attention(torch, port.DA, device)
+    select_times = time_beam_select(torch, port.BS, device)
     eval_ms = host_ms(torch, lambda: eval_step(batch), 20)
     caption_ms = host_ms(torch, lambda: caption_fn(images), 3, warmup=1)
     step_ms = [host_ms(torch, lambda f=f: f(tbatch), 2, warmup=1)
@@ -5779,6 +5907,11 @@ def main() -> None:
         f"per call (library: scaled_dot_product_attention, {SDPA_BACKEND}, "
         f"an image's beams as its query rows): " + "; ".join(
             f"{name} {timing_text(t)}" for name, t in decode_times.items()))
+    say("9 timings", f"{card} | beam select, fp32, {SELECT_IMAGES} images x "
+        f"{SELECT_BEAMS} beams over {SELECT_VOCAB} tokens, device ms per "
+        f"call (library: torch.topk per beam and per image; bound: one read "
+        f"of the rows): " + "; ".join(
+            f"{name} {timing_text(t)}" for name, t in select_times.items()))
     say("9 timings", f"{card} | dy copied to rows before K4 in {dy_copies} "
         f"of the first train step's {bn_calls} BatchNorm backwards")
     say("9 timings", f"{card} | train step, micro-batch {TRAIN_BATCH} x "

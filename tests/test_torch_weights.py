@@ -105,6 +105,7 @@ SLICE_MODULES = [
     "virtex_tpu_torch.ops._launch",
     "virtex_tpu_torch.ops.attention",
     "virtex_tpu_torch.ops.batchnorm",
+    "virtex_tpu_torch.ops.beam_select",
     "virtex_tpu_torch.ops.decode_attention",
     "virtex_tpu_torch.modules.normalization",
     "virtex_tpu_torch.modules.resnet",

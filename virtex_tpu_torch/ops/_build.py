@@ -90,6 +90,13 @@ SIGNATURES = {
              _LL, _LL, _LL, _LL, _LL, _LL,  # k and v strides (row, t, head)
              _F, _P]),                      # sqrt(D), stream
     "virtex_decode_attention_smem_bytes": (ctypes.c_ulonglong, [_I, _I]),
+    "virtex_beam_select": (
+        _I, [_P, _P, _P,                    # log-probs, last, scores
+             _P, _P, _P,                    # scores, last and src out
+             _I, _I, _I,                    # images, rows an image, V
+             _LL, _LL,                      # image and row strides
+             _I, _I, _I,                    # kept a row, an image; EOS
+             _F, _F, _P]),                  # penalty, after-end, stream
     "virtex_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

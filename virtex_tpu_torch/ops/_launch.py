@@ -8,15 +8,16 @@ device made current only where it is not already, raises with the
 kernel's name on a CUDA error, and counts the launch under its key,
 (kernel, variant): ``k1``, ``k2`` (``mma`` | ``scalar``); ``k4_sums``,
 ``k4_dx``, ``bn_stats``, ``bn_apply`` (``vector`` | ``scalar``);
-``decode_attention`` (``vector``). :func:`count` adds other facts to the
-same count: ``("k4_dy", "copy")``, a K4 stage-1 launch whose dy was copied
-to rows first, and ``("decode_graph", "replay" | "capture")``
-(``engine/captioner.py``). :func:`snapshot` returns the count as a
-:class:`collections.Counter` (``after - before`` is what ran between two
-snapshots); :func:`reset` clears it. A launch given a ``note`` (the decode
-attention's (R, K/V rows, n_valid, N, D)) notes it under its kernel's name
-in the store of ``utils/tracing.py``, which keeps notes only while a
-profiler records.
+``decode_attention``, ``beam_select`` (``vector``). :func:`count` adds
+other facts to the same count: ``("k4_dy", "copy")``, a K4 stage-1 launch
+whose dy was copied to rows first, and ``("decode_graph", "replay" |
+"capture")`` (``engine/captioner.py``). :func:`snapshot` returns the
+count as a :class:`collections.Counter` (``after - before`` is what ran
+between two snapshots); :func:`reset` clears it. A launch given a
+``note`` (the decode attention's (R, K/V rows, n_valid, N, D), beam
+select's (rows, V, values kept a row)) notes it under its kernel's name in
+the store of ``utils/tracing.py``, which keeps notes only while a profiler
+records.
 
 A launch made while a CUDA graph is captured runs only at the graph's
 replays: inside :func:`capturing` it is recorded for the capturer, not

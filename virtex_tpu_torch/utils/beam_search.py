@@ -20,8 +20,11 @@ Counterpart of ``virtex_tpu/utils/beam_search.py``
 - early stop when every beam ends in EOS (the step after the last is
   launched before the host learns it, and its result dropped).
 
-Top-k takes the largest values first and breaks ties toward the lowest
-index, as ``lax.top_k`` does (a stable descending sort; ``torch.topk``
+Each step's selection, the penalty and the EOS latch through the top-K of
+the candidates, is ``ops/beam_select.py``: one kernel launch a step on
+CUDA (step 0's in a mode of its own), its plain version on the CPU. Top-k
+takes the largest values first and breaks ties toward the lowest index, as
+``lax.top_k`` does (:func:`topk`, a stable descending sort; ``torch.topk``
 promises no tie order).
 """
 from __future__ import annotations
@@ -30,17 +33,15 @@ from typing import Any, Callable, Tuple
 
 import torch
 
+from virtex_tpu_torch.ops.beam_select import (  # noqa: F401 (topk)
+    NEG_INF,
+    beam_select,
+    beam_select_first,
+    topk,
+)
 from virtex_tpu_torch.utils.tracing import span
 
 StepFn = Callable[[torch.Tensor, int, Any], Tuple[torch.Tensor, Any]]
-NEG_INF = -1e18
-REPETITION_PENALTY = -10000.0
-
-
-def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis, ties to the lowest index."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
 
 
 def all_equal_later(x: torch.Tensor, value) -> Callable[[], bool]:
@@ -120,9 +121,8 @@ class AutoRegressiveBeamSearch:
         start_flat = start_tokens.long().repeat_interleave(K)
         logprobs0, state = step_fn(start_flat, 0, state)
         V = logprobs0.shape[-1]
-        lp0 = logprobs0.reshape(B, K, V)[:, 0, :].float()
         k0 = min(K, V)  # degenerate tiny-vocab case: K may exceed V
-        scores, last = topk(lp0, k0)                              # (B, k0)
+        scores, last = beam_select_first(logprobs0, K, k0)        # (B, k0)
         if k0 < K:
             scores = torch.cat(
                 [scores, scores.new_full((B, K - k0), NEG_INF)], dim=1)
@@ -133,10 +133,6 @@ class AutoRegressiveBeamSearch:
         # The state needs no reorder: every beam's step-0 update is the
         # same start-token update.
 
-        after_end = torch.full((V,), NEG_INF, device=device)
-        after_end[eos] = 0.0
-        rows = torch.arange(B * K, device=device)
-        base = (torch.arange(B, device=device) * K)[:, None]
         spare = getattr(step_fn, "spare", None)
         t = 1
         stop = all_equal_later(last, eos) if t < self.max_steps else None
@@ -149,18 +145,8 @@ class AutoRegressiveBeamSearch:
             if stop():
                 break
             with span("beam_select", logprobs):
-                logprobs = logprobs.float().clone()
-                logprobs[rows, last_flat] += REPETITION_PENALTY
-                finished = (last_flat == eos)[:, None]
-                logprobs = torch.where(finished, after_end, logprobs)
-
-                node_lp, node_ix = topk(logprobs, P)              # (B·K, P)
-                cand = (scores.reshape(B * K)[:, None]
-                        + node_lp).reshape(B, K * P)
-                scores, flat_ix = topk(cand, K)                   # (B, K)
-                src = (base + torch.div(flat_ix, P, rounding_mode="floor"))
-                src = src.reshape(B * K)                          # rows
-                last = node_ix.reshape(B, K * P).gather(1, flat_ix)
+                scores, last, src = beam_select(logprobs, last_flat, scores,
+                                                eos, P)
 
             with span("beam_reorder", src):
                 preds = preds.reshape(B * K, -1)[src].reshape(B, K, -1)
