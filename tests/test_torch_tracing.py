@@ -166,9 +166,9 @@ def test_a_caption_batch_records_the_search_loop(parts, decoder):
     if decoder == "beam_search":
         loop.update(beam_select=T - 1, beam_reorder=T - 1)
     assert counts == {"caption": 1, "visual": 1, "bn_fwd": bn_layers,
-                      "decode_step": T, **loop}
+                      "prefill": 1, "decode_step": T, **loop}
     (batch,) = spans["caption"]
-    for name in ("visual", "decode_step", *loop):
+    for name in ("visual", "prefill", "decode_step", *loop):
         assert all(r.parent is batch for r in spans[name]), name
     assert all(r.unit is batch for r in tracing.records())
     assert tracing.summary()["host_sync"]["count"] == T - 1
@@ -205,8 +205,9 @@ def test_each_profiler_session_is_a_store_of_its_own(parts):
     step()  # between the sessions, with the profiler off
     _profiled(caption)
     table = tracing.summary()
-    assert set(table) == {"caption", "visual", "bn_fwd", "decode_step",
-                          "host_sync", "beam_select", "beam_reorder"}
+    assert set(table) == {"caption", "visual", "bn_fwd", "prefill",
+                          "decode_step", "host_sync", "beam_select",
+                          "beam_reorder"}
     assert table["caption"]["count"] == 1
     caption()  # off: the session's store is still there to read
     assert tracing.summary() == table

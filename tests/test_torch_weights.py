@@ -107,11 +107,13 @@ SLICE_MODULES = [
     "virtex_tpu_torch.ops.batchnorm",
     "virtex_tpu_torch.ops.beam_select",
     "virtex_tpu_torch.ops.decode_attention",
+    "virtex_tpu_torch.ops.moe",
     "virtex_tpu_torch.modules.normalization",
     "virtex_tpu_torch.modules.resnet",
     "virtex_tpu_torch.modules.visual_backbones",
     "virtex_tpu_torch.modules.embedding",
     "virtex_tpu_torch.modules.transformer",
+    "virtex_tpu_torch.modules.latent_moe",
     "virtex_tpu_torch.modules.textual_heads",
     "virtex_tpu_torch.models.captioning",
     "virtex_tpu_torch.models.classification",

@@ -4,13 +4,19 @@ or nucleus sampling.
 
 Counterpart of ``virtex_tpu/engine/captioner.py`` :func:`make_caption_fn`
 and :func:`decode_predictions`. The visual grid is encoded once and the
-cross-attention K/V are projected once per image and kept so: one row per
-image serves all of its beams (the decode attention reads it once per
-image). Beam search holds them outside the search state (they do not
-differ between an image's beams, so the per-step beam reorder never
-gathers them) and reorders the self-attention caches with the beams, from
-one of two fixed sets of caches into the other.
-Nucleus sampling keeps one row per image, so its state is the whole cache.
+head's ``init_decode`` (the span ``prefill``) builds its caches. The head
+says which parts of them follow the beams and which are one per image
+(``split_cache``): the transformer head's self-attention K/V follow the
+beams and its cross-attention K/V, projected once, are one row per image
+that serves all of its beams (the decode attention reads it once per
+image); the latent-attention head's generated positions follow the beams
+and its prefix's latents are one per image. Beam search holds the per-image
+part outside the search state (the per-step beam reorder never gathers
+it) and reorders the per-beam part with the beams, from one of two fixed
+sets of caches into the other. Each call runs inside the head's
+``decoding()`` (the latent-attention head casts its matrices once a call
+there). Nucleus sampling keeps one row per image, so its state is the
+whole cache; it runs on a head whose ``searches`` name it.
 
 On CUDA the decode steps run as CUDA graph replays (:class:`DecodeGraphs`):
 one graph per step index and call shape, in place of the step's ~70
@@ -215,53 +221,58 @@ def make_caption_fn(model, decoder, sos_index: int = 1,
             f"table ({max_pos} rows); raise DATA.MAX_CAPTION_LENGTH or "
             "lower MODEL.DECODER.MAX_DECODING_STEPS")
     graphs = DecodeGraphs()
-    if isinstance(decoder, AutoRegressiveNucleusSampling):
+    head = model.textual
+    search = ("nucleus sampling"
+              if isinstance(decoder, AutoRegressiveNucleusSampling)
+              else "beam search")
+    if search not in head.searches:
+        raise ValueError(f"{type(head).__name__} captions by "
+                         f"{' and '.join(head.searches)} only: {search} with "
+                         "it is not written")
+    if search == "nucleus sampling":
         caption_fn = _nucleus_caption_fn(model, decoder, sos_index, graphs)
         caption_fn.decode_graphs = graphs
         return caption_fn
     rebase = prefix_mode == "reference"
     K = decoder.beam_size
 
-    def beam_buffers(caches) -> dict:
-        """Two sets of self caches, B·K rows each (the search reorders
-        from one into the other), and the per-image cross K/V."""
+    def beam_buffers(per_beam, per_image) -> dict:
+        """Two sets of the per-beam caches, B·K rows each (the search
+        reorders from one into the other), and the per-image ones."""
         def rows(t):
             return t.new_empty((t.shape[0] * K, *t.shape[1:]))
-        return {"self": [[{"k": rows(c["k"]), "v": rows(c["v"])}
-                          for c in caches] for _ in range(2)],
-                "cross": [{"ck": torch.empty_like(c["ck"]),
-                           "cv": torch.empty_like(c["cv"])}
-                          for c in caches],
+        return {"beam": [tree_map(rows, per_beam) for _ in range(2)],
+                "image": tree_map(torch.empty_like, per_image),
                 "logprobs": None}
 
     @torch.inference_mode()
     def caption_fn(images: torch.Tensor,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
-        with span("caption", images):
+        with span("caption", images), head.decoding():
             model.eval()
             grid = model.encode_visual(images)
             B = images.shape[0]
-            caches = model.init_decode(grid, decoder.max_steps)
-            shape = graphs.shape(caches, lambda: beam_buffers(caches))
+            with span("prefill", images):
+                caches = model.init_decode(grid, decoder.max_steps)
+            per_beam, per_image = head.split_cache(caches)
+            shape = graphs.shape(
+                caches, lambda: beam_buffers(per_beam, per_image))
             buf = shape.buffers
-            state, spare = buf["self"]
-            # Row i of the cross K/V serves beams [i·K, (i + 1)·K); each
-            # image's self cache is repeated to its beams.
-            for c, sc, cx in zip(caches, state, buf["cross"]):
-                for name in ("k", "v"):
-                    sc[name].view(B, K, *c[name].shape[1:]).copy_(
-                        c[name][:, None])
-                cx["ck"].copy_(c["ck"])
-                cx["cv"].copy_(c["cv"])
-            del caches
+            state, spare = buf["beam"]
+            # Row i of the per-image caches serves beams [i·K, (i + 1)·K);
+            # each image's per-beam caches are repeated to its beams.
+            tree_map(lambda out, c: out.view(B, K, *c.shape[1:]).copy_(
+                c[:, None]), state, per_beam)
+            tree_map(lambda out, c: out.copy_(c), buf["image"], per_image)
+            del caches, per_beam, per_image
 
             def step_fn(tokens, position: int, state):
                 if rebase:
                     position = max(position - 1, 0)
-                full = [{**sc, **cx} for sc, cx in zip(state, buf["cross"])]
+                full = head.join_cache(state, buf["image"])
                 logits, full = model.decode_step(tokens, position, full)
-                state = [{"k": c["k"], "v": c["v"]} for c in full]
+                state = head.split_cache(full)[0]
                 if buf["logprobs"] is None:
                     buf["logprobs"] = logits.new_empty(logits.shape,
                                                        dtype=torch.float32)
@@ -290,10 +301,11 @@ def _nucleus_caption_fn(model, decoder: AutoRegressiveNucleusSampling,
             # symptom; the caller threads its own randomness.
             raise ValueError("nucleus captioning needs a torch.Generator "
                              "(generator=)")
-        with span("caption", images):
+        with span("caption", images), model.textual.decoding():
             model.eval()
-            caches = model.init_decode(model.encode_visual(images),
-                                       decoder.max_steps)
+            grid = model.encode_visual(images)
+            with span("prefill", images):
+                caches = model.init_decode(grid, decoder.max_steps)
             shape = graphs.shape(
                 caches, lambda: {"caches": tree_map(torch.empty_like,
                                                     caches)})

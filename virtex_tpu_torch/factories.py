@@ -10,7 +10,9 @@ padding index and its ignored labels; the two ``MODEL.DECODER.NAME``s; the
 tokenizer of ``DATA.TOKENIZER_MODEL``; each ``MODEL.NAME``'s pretraining
 dataset over the data plane; the transfer datasets (by ``DATA.ROOT``) and
 the visual backbone by its ``torchvision::<arch>`` name; and the optimizer
-chain and LR schedule of ``OPTIM.*``.
+chain and LR schedule of ``OPTIM.*``. ``TEXTUAL.NAME: moe_mla::<preset>_L<n>``
+(``modules/latent_moe.py``) is the latent-attention, routed-expert head,
+under ``MODEL.NAME: captioning`` only; the JAX package has none.
 """
 from __future__ import annotations
 
@@ -47,7 +49,9 @@ from virtex_tpu_torch.models.classification import (
     TokenClassificationModel,
 )
 from virtex_tpu_torch.models.masked_lm import MaskedLMModel
+from virtex_tpu_torch.modules.latent_moe import parse_name
 from virtex_tpu_torch.modules.textual_heads import (
+    LatentMoETextualHead,
     LinearTextualHead,
     TransformerTextualHead,
 )
@@ -71,6 +75,18 @@ def visual_from_spec(spec: ModelSpec) -> ResNetVisualBackbone:
 def textual_from_spec(spec: ModelSpec) -> nn.Module:
     if spec.linear_head:
         return LinearTextualHead(spec.visual_feature_size, spec.vocab_size)
+    latent_moe = parse_name(spec.textual_name)
+    if latent_moe is not None:
+        if spec.model_name != "captioning":
+            raise ValueError(
+                f"MODEL.TEXTUAL.NAME {spec.textual_name!r} runs under "
+                f"MODEL.NAME captioning only, not {spec.model_name!r} "
+                "(bicaptioning and the other tasks with it are not written)")
+        dims, layers = latent_moe
+        return LatentMoETextualHead(
+            spec.visual_feature_size, spec.vocab_size, dims, layers,
+            max_caption_length=spec.max_caption_length,
+            dtype=spec.torch_dtype)
     return TransformerTextualHead(
         visual_feature_size=spec.visual_feature_size,
         vocab_size=spec.vocab_size, dropout=spec.textual_dropout,

@@ -18,16 +18,40 @@ beside ``textual.*``. That transformer is initialised on its own, as
 ``virtex_tpu``'s ``backward_transformer`` is (the torch original starts
 both directions from one copy); weights loaded through the bridge replace
 it either way.
+
+:class:`LatentMoETextualHead` (``moe_mla::<preset>_L<n>``, captioning
+only; no counterpart in the JAX package) runs a DeepSeek-V3-style decoder
+(``modules/latent_moe.py``) with the image as a prefix of its own causal
+sequence, the way Kimi-VL feeds its vision tower's tokens.
+
+A head that decodes tells the caption loop (``engine/captioner.py``):
+
+- which parts of its decode caches follow the beams and which are one per
+  image: ``split_cache(caches) → (per_beam, per_image)`` and
+  ``join_cache`` back;
+- the searches it serves, ``searches``;
+- what one caption call holds: ``decoding()``, a context manager around
+  the call's prefill and steps.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from virtex_tpu_torch.modules.embedding import WordAndPositionalEmbedding
+from virtex_tpu_torch.modules.latent_moe import (
+    FP32_MATRICES,
+    LatentMoEDecoder,
+    LatentMoEDims,
+    RMSNorm,
+    Weights,
+    rms_norm,
+)
 from virtex_tpu_torch.modules.transformer import (
     Cache,
     Linear,
@@ -56,6 +80,8 @@ class LinearTextualHead(nn.Module):
 
 
 class TransformerTextualHead(nn.Module):
+    searches = ("beam search", "nucleus sampling")
+
     def __init__(self, visual_feature_size: int, vocab_size: int,
                  hidden_size: int, num_layers: int, attention_heads: int,
                  feedforward_size: int, dropout: float = 0.1,
@@ -130,3 +156,202 @@ class TransformerTextualHead(nn.Module):
         x = self.embedding(token[:, None], position_offset=position)
         x, caches = self.transformer.decode(x, caches, position)
         return self.output_logits(x[:, 0, :]), caches
+
+    def decoding(self):
+        """A caption call holds nothing of this head's beyond its caches."""
+        return contextlib.nullcontext()
+
+    @staticmethod
+    def split_cache(caches: List[Cache]) -> Tuple[list, list]:
+        """(per beam, per image): each layer's self K/V follow the beams,
+        its cross K/V are one per image."""
+        return ([{"k": c["k"], "v": c["v"]} for c in caches],
+                [{"ck": c["ck"], "cv": c["cv"]} for c in caches])
+
+    @staticmethod
+    def join_cache(per_beam: list, per_image: list) -> List[Cache]:
+        return [{**b, **i} for b, i in zip(per_beam, per_image)]
+
+
+class LatentMoETextualHead(nn.Module):
+    r"""A captioning head around :class:`LatentMoEDecoder`: the visual grid
+    (B, Hg, Wg, C) through ``visual_projection`` (LayerNorm, Linear C→H,
+    GELU, Linear H→H) is a prefix of Hg·Wg tokens at positions 0..P−1 of
+    the decoder's causal sequence, the caption follows from position P
+    (its start token there), and a final RMSNorm and an untied
+    ``lm_head`` give the logits. Matrices and the embedding N(0, 0.02),
+    norms at 1, biases at 0.
+
+    Inference only: training it (the router's bias update and the
+    sequence auxiliary loss) is not written, and :meth:`forward` refuses
+    training mode.
+
+    In a bf16 head every matrix but the router's and the embedding's is
+    read as a bf16 copy, made by :meth:`weights`. A caption call runs
+    inside :meth:`decoding`, which casts once into copies that the head
+    keeps between calls (so the decode steps' CUDA graphs read them where
+    they lie) and that :meth:`init_decode` and :meth:`decode_step` read
+    until the block ends; outside it each of those casts afresh, so no call
+    reads copies older than its parameters. It captions by beam search
+    only.
+    """
+
+    searches = ("beam search",)
+
+    def __init__(self, visual_feature_size: int, vocab_size: int,
+                 dims: LatentMoEDims, num_layers: int,
+                 max_caption_length: int = 30,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if vocab_size != dims.vocab_size:
+            raise ValueError(f"DATA.VOCAB_SIZE {vocab_size} differs from the "
+                             f"preset's vocabulary, {dims.vocab_size}")
+        H = dims.hidden_size
+        self.dims, self.dtype = dims, dtype
+        self.max_caption_length = max_caption_length
+        self.visual_projection = nn.ModuleDict({
+            "norm": nn.LayerNorm(visual_feature_size),
+            "fc1": nn.Linear(visual_feature_size, H),
+            "fc2": nn.Linear(H, H)})
+        self.embed_tokens = nn.Embedding(vocab_size, H)
+        self.decoder = LatentMoEDecoder(dims, num_layers)
+        self.norm = RMSNorm(H)
+        self.lm_head = nn.Linear(H, vocab_size, bias=False)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if not name.startswith(("visual_projection.fc",
+                                        "embed_tokens", "lm_head")):
+                    continue
+                if p.dim() == 2:
+                    p.normal_(std=0.02)
+                else:
+                    p.zero_()
+        self._decode_weights: Optional[Weights] = None
+        self._in_call = False
+
+    # -- the tensors the computation reads -----------------------------------
+    def _stays(self, name: str, p: torch.Tensor) -> bool:
+        return (self.dtype == torch.float32 or p.dim() < 2
+                or name == "embed_tokens.weight"
+                or FP32_MATRICES.search(name) is not None)
+
+    @torch.no_grad()
+    def weights(self, out: Optional[Weights] = None) -> Weights:
+        """Every parameter by name: the matrices as copies in the head's
+        dtype (cast into ``out``'s tensors where given), the rest (norms,
+        biases, the router, the embedding) as they are."""
+        W, dst, src = {}, [], []
+        for name, p in self.named_parameters():
+            if self._stays(name, p):
+                W[name] = p.detach()
+            elif out is None:
+                W[name] = p.detach().to(self.dtype)
+            else:
+                W[name] = out[name]
+                dst.append(out[name])
+                src.append(p.detach())
+        if dst:
+            torch._foreach_copy_(dst, src)
+        return W
+
+    @contextlib.contextmanager
+    def decoding(self):
+        """One caption call: the matrices cast once, into the copies kept
+        from the last call where they still fit, and read by the call's
+        prefill and steps. The copies are inference tensors, made and
+        updated under ``torch.inference_mode``, as the caption call runs."""
+        kept = self._decode_weights
+        with torch.inference_mode():
+            if kept is not None and all(
+                    kept[n].device == p.device and kept[n].shape == p.shape
+                    for n, p in self.named_parameters()):
+                self.weights(out=kept)
+            else:
+                self._decode_weights = None
+                self._decode_weights = self.weights()
+        self._in_call = True
+        try:
+            yield
+        finally:
+            self._in_call = False
+
+    def _weights(self) -> Weights:
+        return self._decode_weights if self._in_call else self.weights()
+
+    # -- pieces ---------------------------------------------------------------
+    def project_visual(self, W: Weights, visual_grid: torch.Tensor
+                       ) -> torch.Tensor:
+        """(B, Hg, Wg, C) → (B, Hg·Wg, H) fp32 prefix tokens."""
+        p = "visual_projection."
+        x = F.layer_norm(visual_grid.flatten(1, 2).float(),
+                         (visual_grid.shape[-1],), W[p + "norm.weight"],
+                         W[p + "norm.bias"])
+        for fc in ("fc1", "fc2"):
+            if fc == "fc2":
+                x = F.gelu(x.float())
+            x = F.linear(x.to(self.dtype), W[f"{p}{fc}.weight"],
+                         W[f"{p}{fc}.bias"].to(self.dtype))
+        return x.float()
+
+    def _logits(self, W: Weights, x: torch.Tensor) -> torch.Tensor:
+        y = rms_norm(x, W["norm.weight"], self.dims.rms_norm_eps, self.dtype)
+        return F.linear(y, W["lm_head.weight"])
+
+    # -- full-sequence forward ------------------------------------------------
+    def forward(self, visual_grid, caption_tokens, caption_lengths=None,
+                generator: Optional[torch.Generator] = None):
+        """(B,Hg,Wg,C), (B,T) → (B, T, vocab) teacher-forced logits at the
+        caption's positions only (the prefix's are never formed)."""
+        if self.training:
+            raise NotImplementedError(
+                "the moe_mla head is inference only: its training (the "
+                "router's bias update and the sequence auxiliary loss) is "
+                "not written; call .eval()")
+        W = self.weights()
+        prefix = self.project_visual(W, visual_grid)
+        P = prefix.shape[1]
+        x = torch.cat((prefix, F.embedding(caption_tokens.long(),
+                                           W["embed_tokens.weight"])), 1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = self.decoder(W, x, positions, self.dtype, "decoder.")
+        return self._logits(W, x[:, P:])
+
+    # -- cached decode --------------------------------------------------------
+    def init_decode(self, visual_grid, max_length: Optional[int] = None
+                    ) -> List[Dict[str, torch.Tensor]]:
+        """The prefill: the prefix through the decoder, no logits. Per
+        layer ``prefix`` (B, P, latent), its latents, and ``generated``
+        (B, max_length, latent), zeros for the caption's positions."""
+        W = self._weights()
+        prefix = self.project_visual(W, visual_grid)
+        B, P, _ = prefix.shape
+        positions = torch.arange(P, device=prefix.device)
+        _, latents = self.decoder(W, prefix, positions, self.dtype,
+                                  "decoder.", caches_only=True)
+        S = max_length or self.max_caption_length
+        return [{"generated": c.new_zeros((B, S, c.shape[-1])), "prefix": c}
+                for c in latents]
+
+    def decode_step(self, token: torch.Tensor, position: int,
+                    caches: List[Dict[str, torch.Tensor]]):
+        """token (R,) at caption position ``position`` (its latent written
+        there in each layer's ``generated``) → logits (R, vocab), caches."""
+        W = self._weights()
+        P = caches[0]["prefix"].shape[1]
+        x = F.embedding(token.long(), W["embed_tokens.weight"])
+        x = self.decoder.decode(W, x, P + position,
+                                [c["prefix"] for c in caches],
+                                [c["generated"] for c in caches], position,
+                                self.dtype, "decoder.")
+        return self._logits(W, x), caches
+
+    @staticmethod
+    def split_cache(caches) -> Tuple[list, list]:
+        """(per beam, per image): the generated positions' latents follow
+        the beams; the prefix's are one per image."""
+        return ([{"generated": c["generated"]} for c in caches],
+                [{"prefix": c["prefix"]} for c in caches])
+
+    @staticmethod
+    def join_cache(per_beam: list, per_image: list) -> list:
+        return [{**b, **i} for b, i in zip(per_beam, per_image)]

@@ -185,10 +185,14 @@ def shard_module_(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     ``model`` is 1."""
     if mesh.model == 1:
         return model
+    from virtex_tpu_torch.modules.latent_moe import LatentMoEDecoder
     from virtex_tpu_torch.modules.transformer import (
         DecoderLayer,
         MultiHeadAttention,
     )
+    if any(isinstance(m, LatentMoEDecoder) for m in model.modules()):
+        raise ValueError("shard_module_: the moe_mla head has no tensor "
+                         "parallel form; run it at PARALLEL.MODEL 1")
     layers = [m for m in model.modules()
               if isinstance(m, (MultiHeadAttention, DecoderLayer))]
     for m in layers:
